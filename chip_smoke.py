@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (h2o_kubernetes_tpu_torch): the
-scorer-replica serving path on one CUDA card.
+scorer-replica serving path and binomial GBM training on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -8,23 +8,48 @@ Phases, in order; any failure exits non-zero:
 
 1. device  — require CUDA; print the card (nvidia-smi name, power
    limit) and switch TF32 off for matmuls and cuDNN;
-2. build   — compile the CUDA kernels from this checkout's sources;
+2. build   — compile every CUDA kernel from this checkout's sources, one
+   nvcc per source, all started together; print ptxas registers/spills;
 3. model   — a seeded full-width binomial GBM (28 features, 20 trees
    grown out to depth 5) as MOJO-v2 artifact bytes, HIGGS-shaped rows
    (normals, ~1% NaN), and margins checked against a float64 numpy
    descent;
-4. kernels — each kernel against its plain torch version at the shapes
+4. kernels — shap_tab against its plain torch version at the shapes
    the serving path gives it (the 100,000-row batch, the contributions
    chunk, the smallest and largest warm buckets): max abs difference,
    and median times (CUDA events) at the batch and the chunk;
-5. serve   — the main path: start_server on the card, load the
+5. serve   — the serving main path: start_server on the card, load the
    artifact over REST, POST predictions and contributions requests,
    check them (additivity of contributions against logit(p1)), and
    count the kernel launches the path made;
 6. direct  — score_numpy and contrib_numpy on 100,000 rows, warm, as
    rows/s;
-7. report  — one JSON line of kernel records, the card line, and as
+7. train   — the training main path: bench.py's workload (1,000,000
+   rows, 10 features, GBM ntrees=10 max_depth=5 learn_rate=0.2
+   bernoulli) on the card, a warm-up train then five timed ones:
+   rows·trees/s at their median (and their spread), train AUC and
+   logloss, histogram launches per train;
+8. deep    — the same frame at max_depth=10, ntrees=2: the levels of
+   128 and 256 nodes take the histogram kernel's split mode;
+9. hist    — the histogram kernel against its plain version and against
+   one index_add_ at the inputs the two trains gave it (the root, a
+   depth-4 level, 2 channels, the AUC's 4096 int16 bins, 128 and 256
+   nodes): each cell's distance from the float64 sum, relative to the
+   cell's Σ|v|, at most 1e-4, and exactly 0 difference on dyadic values;
+   a control (the kernel fed bf16-rounded values) must exceed that
+   limit; median times (CUDA events, from a flushed L2) and the bound;
+10. parity — one tree grown from dyadic gradients at 1,000,000 rows on
+   the card and on the CPU, bitwise equal; a 65,536-row slice trained
+   on both, train AUC and logloss within 1e-4;
+11. serve trained — score_numpy and contrib_numpy of the trained model
+   on 100,000 rows (shap_tab on trees the port grew), additivity
+   against logit(p1) ≤ 1e-4; model_performance on the 1,000,000-row
+   frame, whose AUC is one histogram-kernel launch on the card;
+12. report — one JSON line of kernel records, the card line, and as
    the last line {"ok": true, "device": {...}}.
+
+``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
+contrib_numpy and train call.
 """
 
 from __future__ import annotations
@@ -53,6 +78,17 @@ _SHAP_OPS_PER_SLOT = 6
 # number of warm timed calls per median
 _ROWS = 100_000
 _REPEATS = 5
+_L2_FLUSH_BYTES = 128 << 20     # > the H100's 50 MB L2
+# bench.py's on-chip training shape (bench.py:134-151) and the row count
+# up to which the AUC and the bin edges take their exact paths
+_TRAIN_ROWS = 1_000_000
+_TRAIN_TREES = 10
+_PARITY_ROWS = 65_536
+_WARM_TRAINS = 5                # timed warm trains; the median is reported
+# a histogram cell may be this far from the float64 sum, relative to
+# its Σ|v|: above the kernel's float32 rounding at 1,000,000 rows, below
+# what bf16-rounded values give
+_HIST_REL_LIMIT = 1e-4
 
 
 def _log(msg: str) -> None:
@@ -68,14 +104,18 @@ def _card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(torch, fn, repeats: int) -> float:
-    """Median milliseconds of fn() on the current stream, warm."""
+def _cuda_ms(torch, fn, repeats: int, flush=None) -> float:
+    """Median milliseconds of fn() on the current stream, warm; with a
+    ``flush`` buffer larger than the L2 cache, that buffer is rewritten
+    before each timed call, so fn() finds its inputs in device memory."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
         s.record()
         fn()
         e.record()
@@ -95,7 +135,7 @@ def _host_s(fn, repeats: int) -> float:
     return statistics.median(times)
 
 
-def _profile(torch, name: str, fn) -> None:
+def _profile(torch, name: str, fn, top: int = 6) -> None:
     """One warm call of fn under torch.profiler: wall time, the device
     time summed over device-side events (kernels and copies on one
     stream, so the busy time) and the top of them by device time."""
@@ -120,7 +160,7 @@ def _profile(torch, name: str, fn) -> None:
     _log(f"[profile] {name}: wall {wall_us / 1e3:.3f} ms (profiled), "
          f"device busy {dev_us / 1e3:.3f} ms = "
          f"{dev_us / wall_us:.1%} of wall")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
         _log(f"[profile] {name}:   {e.key[:70]}: "
              f"{e.self_device_time_total / 1e3:.3f} ms over {e.count} "
              "calls")
@@ -164,6 +204,123 @@ def _json_rows(X: np.ndarray) -> list:
     return [[None if np.isnan(v) else float(v) for v in row] for row in X]
 
 
+def _bench_cols(rows: int, seed: int) -> dict:
+    """bench.py's training table (bench.py:137-146): 8 normal columns,
+    an 8-level enum c1, dep_delay ~ exponential(10), and the label."""
+    rng = np.random.default_rng(seed)
+    X = {f"x{i}": rng.normal(size=rows).astype(np.float32)
+         for i in range(8)}
+    X["c1"] = np.array(list("abcdefgh"))[rng.integers(0, 8, size=rows)]
+    X["dep_delay"] = rng.exponential(10.0, size=rows).astype(np.float32)
+    logit = (1.2 * X["x0"] - 0.8 * X["x1"] + 0.05 * X["dep_delay"]
+             - 1.0 + rng.normal(scale=0.5, size=rows))
+    X["y"] = np.where(logit > 0, "late", "ontime")
+    return X
+
+
+class _HistRecorder:
+    """Keeps the first (binned, rel, vals) the training path hands the
+    histogram kernel per (n_nodes, n_bins, C, code dtype), so the kernel
+    can be compared and timed at exactly those inputs. It wraps the
+    wrapper, which still counts its own launches."""
+
+    def __init__(self, hist_op):
+        self.op, self.kernel, self.seen = hist_op, \
+            hist_op.build_histogram_kernel, {}
+
+    def __enter__(self):
+        def record(binned, rel, vals, n_nodes, n_bins):
+            key = (n_nodes, n_bins, vals.shape[1], binned.dtype)
+            self.seen.setdefault(key, (binned, rel, vals))
+            return self.kernel(binned, rel, vals, n_nodes, n_bins)
+
+        self.op.build_histogram_kernel = record
+        return self
+
+    def __exit__(self, *exc):
+        self.op.build_histogram_kernel = self.kernel
+
+
+def _hist_compare(torch, hist_op, binned, rel, vals, n, B,
+                  repeats: int) -> dict:
+    """The histogram kernel against its plain version (general values,
+    then dyadic ones) and one index_add_ at these inputs: errors,
+    median CUDA-event times and the bound.
+
+    Errors are per cell, relative to the cell's Σ|v|, against the
+    float64 sum (the plain version on float64 values). A cell of a
+    1,000,000-row root level sums up to ~125,000 rows, and a float32
+    running sum of that many equal hessians drifts by up to ~1e-3 of the
+    sum, so float32 results are held to the float64 sum, not to each
+    other. The control is the kernel fed the values rounded to bf16
+    (what a kernel that accumulated in bf16 would at best give)."""
+    kern, plain = hist_op.build_histogram_kernel, hist_op.histogram_plain
+    F, rows = binned.shape
+    C = vals.shape[1]
+    out_k = kern(binned, rel, vals, n, B)
+    out_p = plain(binned, rel, vals, n, B)
+    exact = plain(binned, rel, vals.double(), n, B)
+    scale = plain(binned, rel, vals.abs().double(), n, B)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out_k).all() and out_k.shape == (n, F, B, C)):
+        raise RuntimeError(f"histogram {n}x{B}x{C}: bad output")
+    if bool(((scale == 0) & (out_k != 0)).any()):
+        raise RuntimeError(f"histogram {n}x{B}x{C}: mass in an empty cell")
+
+    def rel_err(out):
+        return float(((out.double() - exact).abs()
+                      / scale.clamp(min=1e-300)).max())
+    g = torch.Generator(device=vals.device).manual_seed(n * B + C)
+    dy = torch.randint(-2, 3, vals.shape, generator=g, device=vals.device
+                       ).float() * 0.5
+    dy = torch.where(rel[:, None] >= 0, dy, 0.0)
+    dyadic_equal = torch.equal(kern(binned, rel, dy, n, B),
+                               plain(binned, rel, dy, n, B))
+    v16 = vals.bfloat16().float()
+    control_rel_err = rel_err(kern(binned, rel, v16, n, B))
+    # the library call: one index_add_ into [(n+1)·F·B, C] on a flat
+    # index computed once (dead rows into the junk node n)
+    seg = torch.where(rel >= 0, rel, n).long()
+    idx = ((seg[None, :] * F + torch.arange(F, device=seg.device)[:, None])
+           * B + binned.long()).reshape(-1)
+    src = vals.repeat(F, 1)
+    acc = torch.zeros(((n + 1) * F * B, C), device=vals.device)
+
+    def library():
+        acc.zero_()
+        acc.index_add_(0, idx, src)
+
+    library()
+    lib_err = rel_err(acc[: n * F * B].view(n, F, B, C))
+    # the level's codes, rel and vals (~26 MB at 1M rows) fit the 50 MB
+    # L2: every timing starts from a flushed cache
+    flush = torch.empty(_L2_FLUSH_BYTES, dtype=torch.uint8,
+                        device=vals.device)
+    ms = _cuda_ms(torch, lambda: kern(binned, rel, vals, n, B), repeats,
+                  flush)
+    plain_ms = _cuda_ms(torch, lambda: plain(binned, rel, vals, n, B), 3,
+                        flush)
+    library_ms = _cuda_ms(torch, library, repeats, flush)
+    live = int((rel >= 0).sum())
+    nbytes = (F * rows * binned.element_size() + 4 * rows + 4 * C * rows
+              + 4 * n * F * B * C)
+    ops = F * C * live
+    bytes_ms = nbytes / _HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / _FP32_OPS_PER_S * 1e3
+    return {"n_nodes": n, "n_bins": B, "C": C, "F": F, "rows": rows,
+            "live_rows": live, "codes": str(binned.dtype).split(".")[-1],
+            "mode": hist_op.hist_mode(n, B, C),
+            "max_abs_err": float((out_k - out_p).abs().max()),
+            "max_rel_err": rel_err(out_k), "plain_rel_err": rel_err(out_p),
+            "library_rel_err": lib_err, "dyadic_equal": dyadic_equal,
+            "control_rel_err": control_rel_err,
+            "bf16_changes_vals": not torch.equal(v16, vals),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -198,11 +355,20 @@ def main() -> int:
     from h2o_kubernetes_tpu_torch.ops import shap_kernel
 
     # -- 2. build ------------------------------------------------------------
-    build_s = shap_kernel.build()
-    _log(f"[build] shap_tab.cu built+loaded in {build_s:.2f}s")
-    for line in shap_kernel.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            _log(f"[build] ptxas: {line.strip()}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from h2o_kubernetes_tpu_torch.ops import histogram as hist_op
+
+    libs = (shap_kernel.LIB, hist_op.LIB)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:     # one nvcc per source
+        build_s = list(pool.map(lambda lib: lib.build(), libs))
+    _log(f"[build] all kernels in {time.perf_counter() - t0:.2f}s")
+    for lib, secs in zip(libs, build_s):
+        _log(f"[build] {lib.source.name} built+loaded in {secs:.2f}s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                _log(f"[build] {lib.source.name} ptxas: {line.strip()}")
 
     # -- 3. model ------------------------------------------------------------
     F, NTREES, DEPTH = 28, 20, 5
@@ -356,7 +522,158 @@ def main() -> int:
         _profile(torch, "contrib_numpy", lambda: model.contrib_numpy(X))
     rest.BATCHER.stop(timeout=5.0)
 
-    # -- 7. report -----------------------------------------------------------
+    # -- 7. train: the training main path ------------------------------------
+    from h2o_kubernetes_tpu_torch import GBM, Frame
+    from h2o_kubernetes_tpu_torch.models.tree import core as tree_core
+
+    hk = hist_op.LAUNCHES                  # histogram launches by mode
+    cols = _bench_cols(_TRAIN_ROWS, args.seed)
+    t0 = time.perf_counter()
+    frame = Frame.from_arrays(cols)
+    _log(f"[train] bench frame {_TRAIN_ROWS} rows x {len(cols) - 1} "
+         f"features on {frame.device} in {time.perf_counter() - t0:.2f}s")
+
+    def train(frame, depth=5, ntrees=_TRAIN_TREES):
+        return GBM(ntrees=ntrees, max_depth=depth, learn_rate=0.2,
+                   seed=1).train(y="y", training_frame=frame)
+
+    with _HistRecorder(hist_op) as rec5:
+        t0 = time.perf_counter()
+        train(frame)                       # warm-up: bins and caches them
+        warm_s = time.perf_counter() - t0
+    hk.update(shared=0, split=0)
+    train_times = []
+    for _ in range(_WARM_TRAINS):
+        t0 = time.perf_counter()
+        gbm = train(frame)
+        train_times.append(time.perf_counter() - t0)
+    train_launches = dict(hk)
+    train_s = statistics.median(train_times)
+    hist = gbm.scoring_history[-1]
+    rate = _TRAIN_ROWS * _TRAIN_TREES / train_s
+    _log(f"[train] GBM ntrees={_TRAIN_TREES} max_depth=5 bernoulli: first "
+         f"train {warm_s:.3f}s (binning included); {_WARM_TRAINS} warm "
+         f"trains {[round(t, 4) for t in train_times]} s, median "
+         f"{train_s:.4f}s (min {min(train_times):.4f}, max "
+         f"{max(train_times):.4f}) = gbm_boosted_rows_per_sec_per_chip "
+         f"{rate:.0f} at the median; train_auc {hist['train_auc']:.6f} "
+         f"train_logloss {hist['train_logloss']:.6f}; histogram launches "
+         f"{train_launches} over {_WARM_TRAINS} trains [{card}]")
+    if not (np.isfinite(hist["train_auc"]) and 0.5 < hist["train_auc"] <= 1
+            and np.isfinite(hist["train_logloss"])):
+        raise RuntimeError(f"bad training metrics {hist}")
+    per_train = 5 * _TRAIN_TREES + 1
+    if train_launches != {"shared": _WARM_TRAINS * per_train, "split": 0}:
+        raise RuntimeError(f"expected {per_train} histogram launches per "
+                           f"train, got {train_launches} over "
+                           f"{_WARM_TRAINS} trains")
+
+    # -- 8. deep: the split mode on the same path ----------------------------
+    hk.update(shared=0, split=0)
+    with _HistRecorder(hist_op) as rec10:
+        t0 = time.perf_counter()
+        deep = train(frame, depth=10, ntrees=2)
+        deep_s = time.perf_counter() - t0
+    deep_launches = dict(hk)
+    _log(f"[deep] GBM ntrees=2 max_depth=10: {deep_s:.3f}s, train_auc "
+         f"{deep.scoring_history[-1]['train_auc']:.6f}; histogram launches "
+         f"{deep_launches} [{card}]")
+    if deep_launches["split"] <= 0 or deep_launches["shared"] <= 0:
+        raise RuntimeError("the depth-10 train did not launch both "
+                           f"histogram modes: {deep_launches}")
+
+    # -- 9. hist: kernel vs plain vs index_add_ at the path's inputs ---------
+    seen = {**rec10.seen, **rec5.seen}     # the depth-5 path's first
+    u8, i16 = torch.uint8, torch.int16
+    root = seen[(1, 256, 3, u8)]
+    shapes = [("root", root, 1, 256), ("depth-4", seen[(8, 256, 3, u8)],
+                                       8, 256),
+              ("root C=2", (root[0], root[1],
+                            root[2][:, [0, 2]].contiguous()), 1, 256),
+              ("auc", seen[(1, 4096, 3, i16)], 1, 4096),
+              ("128 nodes", seen[(128, 256, 3, u8)], 128, 256),
+              ("256 nodes", seen[(256, 256, 3, u8)], 256, 256)]
+    levels = {}
+    for name, (b, r, v), n, B in shapes:
+        res = _hist_compare(torch, hist_op, b, r, v, n, B, _REPEATS * 2)
+        levels[name] = res
+        _log(f"[hist] {name}: {res['mode']} mode, {n} nodes x {B} bins x "
+             f"C={res['C']}, F={res['F']}, {res['rows']} rows "
+             f"({res['live_rows']} live), {res['codes']} codes: kernel "
+             f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+             f"index_add_ {res['library_ms']:.4f} ms, bound "
+             f"{res['bound_ms']:.4f} ms by {res['bound_by']}; max "
+             f"|kernel - plain| {res['max_abs_err']:.3e}; max |x - float64 "
+             f"sum| / cell sum|v|: kernel {res['max_rel_err']:.3e}, plain "
+             f"{res['plain_rel_err']:.3e}, index_add_ "
+             f"{res['library_rel_err']:.3e}, control (kernel on bf16 "
+             f"values) {res['control_rel_err']:.3e}; dyadic bitwise "
+             f"{res['dyadic_equal']} [{card}]")
+        if res["max_rel_err"] > _HIST_REL_LIMIT or not res["dyadic_equal"]:
+            raise RuntimeError(f"histogram kernel disagrees at {name}")
+    controls = [r["control_rel_err"] for r in levels.values()
+                if r["bf16_changes_vals"]]
+    _log(f"[hist] limit {_HIST_REL_LIMIT:.0e}: kernel at most "
+         f"{max(r['max_rel_err'] for r in levels.values()):.3e}, control "
+         f"at most {max(controls, default=0.0):.3e}")
+    if max(controls, default=0.0) <= _HIST_REL_LIMIT:
+        raise RuntimeError("the bf16 control stays within the histogram "
+                           "limit: the check cannot tell f32 from bf16")
+
+    # -- 10. parity: the card against the CPU --------------------------------
+    binned = frame.binned(gbm.bin_spec)
+    yv = frame.vec("y").as_float()
+    g = torch.where(yv > 0, 0.5, -0.5)
+    h = torch.full_like(g, 0.25)
+    w = torch.ones_like(g)
+    tp = tree_core.TreeParams(max_depth=5, n_bins=256)
+    t_card = tree_core.grow_tree(binned, g, h, w, tp)
+    t_cpu = tree_core.grow_tree(binned.cpu(), g.cpu(), h.cpu(), w.cpu(), tp)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(t_card, t_cpu))
+    _log(f"[parity] dyadic tree at {_TRAIN_ROWS} rows: card == CPU bitwise "
+         f"{same} ({int(t_cpu.is_split.sum())} splits)")
+    if not same:
+        raise RuntimeError("the dyadic tree differs between card and CPU")
+    n_s = _PARITY_ROWS
+    small = {k: v[:n_s] for k, v in cols.items()}
+    m_card = train(Frame.from_arrays(small)).scoring_history[-1]
+    m_cpu = train(Frame.from_arrays(small, device="cpu")).scoring_history[-1]
+    gaps = {k: abs(m_card[k] - m_cpu[k]) for k in ("train_auc",
+                                                    "train_logloss")}
+    _log(f"[parity] {n_s}-row train: card {m_card}, CPU {m_cpu}, "
+         f"gaps {gaps}")
+    if max(gaps.values()) > 1e-4:
+        raise RuntimeError("card and CPU training disagree")
+
+    # -- 11. serve the trained model -----------------------------------------
+    Xt = gbm._design_matrix(frame)[:_ROWS].cpu().numpy()
+    kern.launches = 0
+    p_t = gbm.score_numpy(Xt)
+    phi_t = gbm.contrib_numpy(Xt)
+    trained_launches = kern.launches
+    add_t = float(np.abs(phi_t.astype(np.float64).sum(axis=1) - np.log(
+        p_t[:, 1].astype(np.float64) / (1.0 - p_t[:, 1]))).max())
+    serve_s = _host_s(lambda: gbm.contrib_numpy(Xt), 2)
+    _log(f"[serve trained] {Xt.shape[0]} rows: additivity max "
+         f"|sum(phi) - logit(p1)| = {add_t:.3e}; shap_tab launches "
+         f"{trained_launches}; contrib_numpy {serve_s * 1e3:.3f} ms [{card}]")
+    if not (np.isfinite(phi_t).all() and phi_t.shape == (_ROWS, 11)
+            and add_t <= 1e-4 and trained_launches > 0):
+        raise RuntimeError("serving the trained model failed")
+    hk.update(shared=0, split=0)
+    perf = gbm.model_performance(frame, y="y")
+    perf_launches = dict(hk)
+    _log(f"[serve trained] model_performance on {_TRAIN_ROWS} rows: "
+         f"{perf}; histogram launches {perf_launches} (train_auc "
+         f"{hist['train_auc']:.6f})")
+    if perf_launches != {"shared": 1, "split": 0} \
+            or abs(perf["auc"] - hist["train_auc"]) > 1e-4:
+        raise RuntimeError("model_performance did not take the card's "
+                           "histogram AUC or disagrees with the train AUC")
+    if args.profile:
+        _profile(torch, "train", lambda: train(frame), top=12)
+
+    # -- 12. report ----------------------------------------------------------
     record = {
         "name": "shap_tab", "route": "cuda",
         "source": "h2o_kubernetes_tpu_torch/csrc/shap_tab.cu",
@@ -368,7 +685,34 @@ def main() -> int:
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "rows": rows, "ms_at_chunk": c_ms, "chunk_rows": chunk,
     }
-    _log(json.dumps({"kernels": [record]}))
+    records = [record]
+    # one record per histogram mode: shared at the root of the timed
+    # depth-5 train, split at the 256-node level of the depth-10 train
+    for mode, level, launches, replaces in (
+            ("shared", "root", train_launches["shared"],
+             "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)"),
+            ("split", "256 nodes", deep_launches["split"],
+             "h2o_kubernetes_tpu/ops/histogram.py:300 (_hist_kernel)")):
+        res = levels[level]
+        records.append({
+            "name": f"histogram_{mode}", "route": "cuda",
+            "source": "h2o_kubernetes_tpu_torch/csrc/histogram.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "level": level, "max_rel_err": res["max_rel_err"],
+            "control_rel_err": res["control_rel_err"],
+            "rel_limit": _HIST_REL_LIMIT})
+    records[1]["launches_per_train"] = per_train
+    records[1]["warm_train_s"] = train_times
+    records[1]["levels"] = {
+        k: {f: v[f] for f in ("mode", "n_nodes", "n_bins", "C", "ms",
+                              "plain_ms", "library_ms", "bound_ms",
+                              "max_rel_err", "plain_rel_err",
+                              "control_rel_err")}
+        for k, v in levels.items()}
+    _log(json.dumps({"kernels": records}))
     _log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,8 @@
-"""The serving surface of a model: ``score_numpy``, ``contrib_numpy``
-and ``warm_up``, over a per-model cache of device tensors.
+"""Model plumbing: training inputs resolved from a Frame
+(``TrainData``, ``resolve_xy``), and the surface every model shares —
+``predict``/``model_performance`` on a Frame, and the serving entries
+``score_numpy``, ``contrib_numpy`` and ``warm_up`` over a per-model
+cache of device tensors.
 
 A model keeps its host state (numpy arrays) and builds its device
 state — the flattened trees, the TreeSHAP path tables and pattern
@@ -16,11 +19,14 @@ from __future__ import annotations
 
 import os
 import threading
+from dataclasses import dataclass, field
+from typing import Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["Model", "scorer_cache_stats", "model_scorer_counters"]
+__all__ = ["Model", "TrainData", "resolve_xy", "scorer_cache_stats",
+           "model_scorer_counters"]
 
 _SCORE_MIN_BATCH = 128          # smallest padded-batch bucket
 
@@ -42,6 +48,81 @@ def model_scorer_counters(model) -> dict[str, int]:
     """Per-model cache counters (hits/misses)."""
     return dict(model.__dict__.get("_scorer_counters")
                 or {"hits": 0, "misses": 0})
+
+
+@dataclass
+class TrainData:
+    """Training inputs resolved from a Frame, on the frame's device. The
+    tree learners bin straight from the Frame's columns, so there is no
+    float design matrix here."""
+
+    feature_names: list[str]
+    y: torch.Tensor              # [rows] float32 (class id for enums)
+    w: torch.Tensor              # [rows] float32 weights, 0 = dropped
+    nrows: int
+    nclasses: int                # 1 for regression
+    response_domain: list[str] | None
+    distribution: str
+    feature_domains: dict[str, list[str]] = field(default_factory=dict)
+    offset: torch.Tensor | None = None   # [rows] float32, 0 where NA
+
+
+def resolve_xy(frame, y: str, x: Sequence[str] | None = None,
+               ignored: Sequence[str] | None = None,
+               weights_column: str | None = None,
+               distribution: str = "auto",
+               offset_column: str | None = None) -> TrainData:
+    """Resolve and validate the response, features, weights and offset;
+    infer the distribution from the response (2 levels: bernoulli, more:
+    multinomial, numeric: gaussian). Rows with an NA response or offset
+    get weight 0."""
+    if y not in frame:
+        raise ValueError(f"response column '{y}' not in frame")
+    ignored = set(ignored or []) | {y}
+    for col, what in ((weights_column, "weights"),
+                      (offset_column, "offset")):
+        if col:
+            if col not in frame:
+                raise ValueError(f"{what} column '{col}' not in frame")
+            if frame.vec(col).is_enum():
+                raise ValueError(f"{what} column '{col}' must be numeric")
+            ignored.add(col)
+    names = list(x) if x else [n for n in frame.names if n not in ignored]
+    if x and ignored.intersection(names):
+        raise ValueError(
+            f"column(s) {sorted(ignored.intersection(names))} are the "
+            "response/weights/offset or ignored_columns and cannot also "
+            "be features (remove them from x)")
+    for n in names:
+        if n not in frame:
+            raise ValueError(f"feature column '{n}' not in frame")
+    yv = frame.vec(y)
+    nclasses, domain = 1, None
+    if yv.is_enum():
+        domain = yv.domain
+        nclasses = yv.cardinality()
+        if nclasses < 2:
+            raise ValueError(f"response '{y}' has {nclasses} classes")
+    if distribution == "auto":
+        distribution = "bernoulli" if nclasses == 2 else \
+            "multinomial" if nclasses > 2 else "gaussian"
+    if distribution in ("bernoulli", "multinomial") and nclasses == 1:
+        raise ValueError(f"{distribution} needs a categorical response; "
+                         f"'{y}' is numeric")
+    y_arr = yv.as_float()
+    w = torch.ones_like(y_arr)
+    if weights_column:
+        w = w * frame.vec(weights_column).as_float()
+    w = torch.where(torch.isnan(y_arr), 0.0, w)
+    off = None
+    if offset_column:
+        off = frame.vec(offset_column).as_float()
+        w = torch.where(torch.isnan(off), 0.0, w)
+        off = torch.nan_to_num(off)
+    fdoms = {n: list(frame.vec(n).domain) for n in names
+             if frame.vec(n).is_enum()}
+    return TrainData(names, torch.nan_to_num(y_arr), w, frame.nrows,
+                     nclasses, domain, distribution, fdoms, off)
 
 
 def _batch_bucket(n: int) -> int:
@@ -327,3 +408,92 @@ class Model:
             out = self._score_matrix(
                 torch.as_tensor(Xp, device=self.device), offp)
             return out[:n].cpu().numpy()
+
+    # -- Frame surface ---------------------------------------------------------
+
+    def _design_matrix(self, frame) -> torch.Tensor:
+        """[rows, F] float32 on the model's device, in TRAINING value
+        space: enum codes of a scoring frame are remapped to the
+        training domain (unseen levels -> NA)."""
+        cols = []
+        for name in self.feature_names:
+            v = frame.vec(name)
+            tdom = self.feature_domains.get(name)
+            if (tdom is not None) != v.is_enum():
+                raise ValueError(
+                    f"column '{name}' is {v.kind} in the scoring frame "
+                    "but was not at training time")
+            if tdom is not None and list(v.domain) != list(tdom):
+                lut = {d: i for i, d in enumerate(tdom)}
+                perm = torch.as_tensor(
+                    [lut.get(d, -1) for d in v.domain] + [-1],
+                    dtype=torch.int64, device=v.device)  # last slot = NA
+                idx = torch.where(v.data < 0, len(v.domain), v.data)
+                remap = perm[idx.long()]
+                cols.append(torch.where(remap < 0, float("nan"),
+                                        remap.float()))
+            else:
+                cols.append(v.as_float())
+        return torch.stack(cols, dim=1).to(self.device)
+
+    def _predict_device(self, frame) -> torch.Tensor:
+        """[n, K] class probabilities, or [n] regression predictions, on
+        the model's device."""
+        X = self._design_matrix(frame)
+        off = None
+        if getattr(self, "offset_column", None):
+            if self.offset_column not in frame:
+                raise ValueError(
+                    f"this model was trained with offset_column="
+                    f"'{self.offset_column}' which is missing from the "
+                    "scoring frame")
+            off = frame.vec(self.offset_column).as_float().to(self.device)
+        return self._score_matrix(X, off)
+
+    def predict_raw(self, frame) -> np.ndarray:
+        """[n, K] class probabilities, or [n] regression predictions."""
+        return self._predict_device(frame).cpu().numpy()
+
+    def predict(self, frame):
+        """H2O-style prediction frame: ``predict`` (+ per-class probs),
+        on the CPU."""
+        from ..frame import Frame, Vec
+
+        out = self.predict_raw(frame)
+        if self.nclasses == 1:
+            return Frame.from_arrays({"predict": out}, device="cpu")
+        dom = self.response_domain or [str(i) for i in
+                                       range(self.nclasses)]
+        pf = Frame.from_arrays(
+            {"predict": out.argmax(axis=1).astype(np.int32)},
+            domains={"predict": dom}, device="cpu")
+        for k, name in enumerate(dom):
+            pf[f"p{name}"] = Vec.from_numpy(out[:, k], device="cpu")
+        return pf
+
+    def model_performance(self, frame, y: str) -> dict[str, float]:
+        """Metrics of this model on ``frame``'s response ``y`` (rows with
+        an NA response dropped): binomial auc/logloss/rmse; regression
+        rmse/mae/r2/mean_residual_deviance. Scores, response and metrics
+        stay on the model's device (on a card the AUC's score histogram
+        is the CUDA kernel's)."""
+        from .. import metrics as M
+
+        out = self._predict_device(frame)
+        yt = frame.vec(y).as_float().to(self.device)   # enum NA -> NaN
+        ok = ~torch.isnan(yt)
+        if not bool(ok.any()):
+            raise ValueError("cannot score an empty holdout "
+                             "(no rows with a valid response)")
+        yt, out = yt[ok], out[ok]
+        if self.nclasses == 2:
+            p1 = out[:, 1]
+            return {"auc": M.roc_auc(yt, p1), "logloss": M.logloss(yt, p1),
+                    "rmse": M.rmse(yt, p1)}
+        if self.nclasses > 2:
+            raise NotImplementedError(
+                "multinomial metrics are not ported (ROADMAP Queue 1 "
+                "item 6)")
+        return {"rmse": M.rmse(yt, out), "mae": M.mae(yt, out),
+                "r2": M.r2(yt, out),
+                "mean_residual_deviance": M.mean_residual_deviance(yt, out)}

@@ -1,0 +1,271 @@
+"""GBM — gradient boosting on the histogram tree core, on one device.
+
+``GBM(ntrees, max_depth, learn_rate, nbins, seed).train(y=...,
+training_frame=...)`` is the JAX package's entry point. It trains where
+the frame lives (a frame on the card trains through the CUDA histogram
+kernel) and returns a ``GBMModel``, which serves through the scorer
+surface of ``FlatTreeScorer`` (``score_numpy``, ``contrib_numpy``,
+``warm_up``) over the flattened trees it grew.
+
+Ported: the bernoulli (logit link, g = p - y, h = p(1-p)) and gaussian
+(g = f - y, h = 1: two-channel histograms) distributions, weights and
+an offset column, one tree per round. Everything else raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..config import default_nbins, hist_bytes_budget
+from ..operator.registry import FlatTreeScorer
+from .base import TrainData, resolve_xy
+from .tree.binning import BinSpec, fused_fit_bins
+from .tree.core import (BoostParams, Tree, TreeParams, boost_trees,
+                        flatten_cover, flatten_trees)
+
+__all__ = ["GBM", "GBMModel", "GBMParams", "gbm_model_from_arrays"]
+
+_DISTRIBUTIONS = ("bernoulli", "gaussian")
+_UNIT_HESS_DISTS = ("gaussian",)
+_CV_KEYS = ("nfolds", "fold_assignment", "fold_column",
+            "keep_cross_validation_predictions",
+            "keep_cross_validation_models")
+
+
+@dataclass
+class GBMParams:
+    ntrees: int = 50
+    max_depth: int = 5
+    learn_rate: float = 0.1
+    min_rows: float = 10.0
+    nbins: int = 256
+    sample_rate: float = 1.0
+    col_sample_rate_per_tree: float = 1.0
+    mtries: int = -1
+    distribution: str = "auto"
+    reg_lambda: float = 0.0
+    reg_alpha: float = 0.0
+    min_child_weight: float = 0.0
+    min_split_improvement: float = 1e-5  # H2O default
+    seed: int = 0                        # plain GBM draws no random numbers
+    score_every: int = 0
+    checkpoint: object = None
+
+
+def _make_tree_params(p: GBMParams, distribution: str) -> TreeParams:
+    return TreeParams(max_depth=p.max_depth, n_bins=p.nbins,
+                      min_rows=p.min_rows, reg_lambda=p.reg_lambda,
+                      reg_alpha=p.reg_alpha,
+                      gamma=p.min_split_improvement,
+                      min_child_weight=p.min_child_weight,
+                      unit_hess=distribution in _UNIT_HESS_DISTS)
+
+
+def _make_boost_params(p: GBMParams, distribution: str) -> BoostParams:
+    return BoostParams(distribution=distribution, learn_rate=p.learn_rate)
+
+
+def level_hist_bytes(p: TreeParams, F: int) -> int:
+    """Peak live histogram bytes of one tree's deepest level (parent,
+    left, right and the stacked level), the budget check's measure."""
+    C = 2 if p.unit_hess else 3
+    return 5 * (2 ** max(p.max_depth - 1, 0)) * F * p.n_bins * C * 4
+
+
+def _unported(p: GBMParams) -> str | None:
+    """The first option this port does not train, with its ROADMAP item."""
+    if p.checkpoint is not None:
+        return "checkpoint continuation (ROADMAP Queue 1 item 6b)"
+    if p.score_every:
+        return "score_every (ROADMAP Queue 1 item 11)"
+    if p.sample_rate < 1.0 or p.col_sample_rate_per_tree < 1.0 \
+            or p.mtries > 0:
+        return ("row/column/per-node sampling, which needs the threefry "
+                "twin (ROADMAP Queue 1 item 8)")
+    for env, what in (("H2O_TPU_GOSS", "GOSS"), ("H2O_TPU_EFB", "EFB"),
+                      ("H2O_TPU_OOC", "out-of-core boosting")):
+        if os.environ.get(env) == "1":
+            return f"{what} ({env}=1; ROADMAP Queue 1 item 9)"
+    return None
+
+
+def _init_margin(y, w, off, dist: str):
+    """(init score, starting margin): bernoulli's intercept MLE given
+    the offset (3 Newton steps from logit(ȳ)), gaussian's weighted
+    mean of y - offset."""
+    w_sum = torch.sum(w)
+    if dist == "bernoulli":
+        p1 = torch.clamp(torch.sum(y * w) / w_sum, 1e-6, 1 - 1e-6)
+        init = torch.log(p1 / (1 - p1))
+        for _ in range(3):
+            pr = torch.sigmoid(init + off)
+            num = torch.sum(w * (y - pr))
+            den = torch.clamp(torch.sum(w * pr * (1.0 - pr)), min=1e-10)
+            init = init + num / den
+        return init, init + off
+    init = torch.sum((y - off) * w) / w_sum
+    return init, init + off
+
+
+def _margin_metrics(dist: str, margin, y, w) -> dict:
+    """Training metrics from the final boosting margin."""
+    from .. import metrics as M
+
+    if dist == "bernoulli":
+        p1 = torch.sigmoid(margin)
+        return {"train_logloss": M.logloss(y, p1, w=w),
+                "train_auc": M.roc_auc(y, p1, w=w)}
+    return {"train_rmse": M.rmse(y, margin, w=w)}
+
+
+def _gain_by_feat(tree: Tree, F: int) -> np.ndarray:
+    feat = np.asarray(tree.split_feat)
+    gain = np.asarray(tree.gain)
+    out = np.zeros(F, dtype=np.float64)
+    sel = feat >= 0
+    np.add.at(out, feat[sel], gain[sel])
+    return out
+
+
+def _stacked_varimp(trees: Tree, names: list[str]) -> dict[str, float]:
+    """Per-feature summed split gain over a stacked Tree, one host copy."""
+    flat = Tree(*(a.cpu().numpy().ravel() for a in trees))
+    return dict(zip(names, _gain_by_feat(flat, len(names))))
+
+
+class GBMModel(FlatTreeScorer):
+    """A trained GBM: its heap trees, bin spec and params, serving
+    through the flattened arrays ``flatten_trees`` makes from them."""
+
+    algo = "gbm"
+
+    def __init__(self, data: TrainData, params: GBMParams,
+                 bin_spec: BinSpec, trees: Tree, init_score: float,
+                 offset_column: str | None = None, device=None):
+        flat = flatten_trees(trees, bin_spec.edges_matrix(),
+                             np.array(bin_spec.is_enum), params.max_depth)
+        arrays = {f"flat_{k}": v for k, v in flat._asdict().items()}
+        arrays["flat_cover"] = flatten_cover(trees, params.max_depth)
+        arrays["init_score"] = np.asarray([init_score], dtype=np.float32)
+        arrays["enum_mask"] = np.array(bin_spec.is_enum)
+        meta = {"algo": self.algo, "feature_names": data.feature_names,
+                "feature_domains": data.feature_domains,
+                "nclasses": data.nclasses,
+                "response_domain": data.response_domain,
+                "distribution": data.distribution,
+                "offset_column": offset_column,
+                "ntrees": int(trees.value.shape[0]),
+                "max_depth": params.max_depth, "drf_mode": False}
+        super().__init__(meta, arrays, device=trees.value.device
+                         if device is None else device)
+        self.params = params
+        self.bin_spec = bin_spec
+        self.trees = trees
+        self.scoring_history: list[dict] = []
+        self.validation_metrics: dict | None = None
+        self._varimp = _stacked_varimp(trees, data.feature_names)
+
+    def varimp(self) -> dict[str, float]:
+        """Relative importance: per-feature summed split gain, scaled."""
+        v = self._varimp
+        top = max(v.values()) if v else 1.0
+        return {k: val / top if top > 0 else 0.0
+                for k, val in sorted(v.items(), key=lambda kv: -kv[1])}
+
+
+class GBM:
+    """H2OGradientBoostingEstimator analog."""
+
+    def __init__(self, **kw):
+        cv = [k for k in _CV_KEYS if k in kw]
+        if cv:
+            raise NotImplementedError(
+                f"cross-validation ({', '.join(cv)}) is not ported "
+                "(ROADMAP Queue 1 item 11)")
+        kw.setdefault("nbins", default_nbins())
+        self.params = GBMParams(**kw)
+
+    def train(self, y: str, training_frame, x: Sequence[str] | None = None,
+              ignored_columns: Sequence[str] | None = None,
+              weights_column: str | None = None,
+              validation_frame=None,
+              offset_column: str | None = None) -> GBMModel:
+        """Train on ``training_frame``'s device; returns the model."""
+        p = self.params
+        if p.ntrees < 1:
+            raise ValueError(f"ntrees must be >= 1, got {p.ntrees}")
+        if not 4 <= p.nbins <= 256:
+            raise ValueError(f"n_bins must be in [4, 256] (uint8 bin "
+                             f"codes), got {p.nbins}")
+        why = _unported(p)
+        if why:
+            raise NotImplementedError(f"{why} is not ported")
+        data = resolve_xy(training_frame, y, x, ignored_columns,
+                          weights_column, p.distribution, offset_column)
+        if data.distribution not in _DISTRIBUTIONS:
+            raise NotImplementedError(
+                f"distribution '{data.distribution}' is not ported "
+                "(bernoulli and gaussian are; the rest: ROADMAP Queue 1 "
+                "item 6b)")
+        tp = _make_tree_params(p, data.distribution)
+        F = len(data.feature_names)
+        need, budget = level_hist_bytes(tp, F), hist_bytes_budget()
+        if need > budget:
+            raise ValueError(
+                f"max_depth={p.max_depth} with {F} histogram columns x "
+                f"{p.nbins} bins needs ~{need / 2 ** 20:.0f} MiB of level "
+                f"histograms (> budget {budget / 2 ** 20:.0f} MiB). Lower "
+                "max_depth or nbins, drop features, or raise "
+                "H2O_TPU_HIST_BYTES_BUDGET if the device has room.")
+        bin_spec, binned = fused_fit_bins(training_frame, data.feature_names,
+                                          p.nbins)
+        off = data.offset if data.offset is not None \
+            else torch.zeros_like(data.y)
+        init, margin = _init_margin(data.y, data.w, off, data.distribution)
+        margin, trees = boost_trees(binned, data.y, data.w, margin,
+                                    p.ntrees, tp,
+                                    _make_boost_params(p, data.distribution))
+        init = float(init)
+        if not np.isfinite(init):
+            raise ValueError("no rows with positive weight and a non-NA "
+                             "response — cannot fit a prior")
+        model = GBMModel(data, p, bin_spec, trees, init, offset_column)
+        model.scoring_history = [{"ntrees": p.ntrees, **_margin_metrics(
+            data.distribution, margin, data.y, data.w)}]
+        if validation_frame is not None:
+            model.validation_metrics = model.model_performance(
+                validation_frame, y)
+        return model
+
+
+def gbm_model_from_arrays(trees: dict, edges, is_enum, init_score: float,
+                          feature_names: list[str], distribution: str,
+                          nclasses: int, max_depth: int,
+                          response_domain: list[str] | None = None,
+                          feature_domains: dict | None = None,
+                          device=None, **params) -> GBMModel:
+    """A port ``GBMModel`` from another package's trained GBM, as numpy:
+    ``trees`` maps each ``Tree`` field to its stacked [T, N] array,
+    ``edges`` is the [F, B-2] bin-edge matrix, ``is_enum`` the per-feature
+    enum flags, ``init_score`` the prior. ``params`` are GBMParams
+    fields (``max_depth`` is required; it sizes the descent)."""
+    from ..runtime.backend import resolve_device
+
+    dev = resolve_device(device)
+    tree = Tree(*(torch.as_tensor(np.asarray(trees[f]), device=dev)
+                  for f in Tree._fields))
+    edges = torch.as_tensor(np.asarray(edges, dtype=np.float32), device=dev)
+    spec = BinSpec(names=list(feature_names), is_enum=list(is_enum),
+                   n_bins=edges.shape[1] + 2, edges=edges)
+    data = TrainData(list(feature_names), torch.zeros(0), torch.zeros(0), 0,
+                     nclasses, response_domain, distribution,
+                     dict(feature_domains or {}))
+    gp = GBMParams(max_depth=max_depth, nbins=spec.n_bins,
+                   ntrees=int(tree.value.shape[0]), **params)
+    return GBMModel(data, gp, spec, tree, float(init_score), device=dev)

@@ -1,0 +1,191 @@
+"""Feature binning for the histogram tree learners.
+
+Layout (the JAX package's): B total bins per feature, bin B-1 reserved
+for NA. Numeric features use quantile edges (at most B-2 finite bins);
+categorical features use their codes directly; past B-1 levels,
+contiguous code ranges share bins through synthetic numeric edges.
+
+The port stores the binned matrix FEATURE-MAJOR, [F, rows] uint8: a
+histogram CTA that reads one feature's codes gets coalesced loads.
+
+Quantile edges match the JAX package bit for bit at up to
+``_QUANTILE_SAMPLE`` (65,536) rows. Above that both packages fit the
+edges on a 65,536-row sample drawn with replacement, but the JAX
+package draws it with threefry (``jax.random.key(0x51BB)``) and the
+port with a ``torch.Generator`` seeded with the same number, so the
+samples — and the edges — differ.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+__all__ = ["BinSpec", "fit_bins", "apply_bins", "bin_frame",
+           "fused_fit_bins"]
+
+# above this many rows the quantile edges come from a uniform row sample
+_QUANTILE_SAMPLE = 1 << 16
+_SAMPLE_SEED = 0x51BB
+
+
+@dataclass
+class BinSpec:
+    """Binning model: the [F, B-2] edge matrix (+inf padded) on the
+    frame's device, and which features are enums."""
+
+    names: list[str]
+    is_enum: list[bool]
+    n_bins: int
+    edges: torch.Tensor
+
+    @property
+    def na_bin(self) -> int:
+        return self.n_bins - 1
+
+    def edges_matrix(self) -> torch.Tensor:
+        return self.edges
+
+
+def _check_n_bins(n_bins: int) -> None:
+    if not 4 <= n_bins <= 256:
+        raise ValueError(f"n_bins must be in [4, 256] (uint8 bin codes), "
+                         f"got {n_bins}")
+
+
+def _quantiles(sample: torch.Tensor, n_q: int) -> torch.Tensor:
+    """[Fn, n] -> [Fn, n_q] NaN-skipping linear quantiles at the interior
+    points of an (n_q + 2)-point linspace over [0, 1] — the arithmetic of
+    the JAX package's compiled ``jnp.nanquantile``, step for step, so the
+    edges agree bitwise:
+
+    - the points are ``i * f32(1 / (n_q + 1))`` (XLA's linspace
+      multiplies by the reciprocal);
+    - position ``q * (count - 1)``, floor/ceil, weights ``hw = pos -
+      floor`` and ``lw = 1 - hw``, all in float32;
+    - XLA contracts ``lo * lw + hi * hw`` in the JAX package's binning
+      program into one fused multiply-add, ``fma(lo, lw, hi * hw)``;
+      here that is an exact float64 product and sum rounded to float32
+      (a double rounding could differ from the FMA once in ~2^29
+      values).
+    """
+    div = n_q + 1
+    step = torch.tensor(np.float32(1) / np.float32(div), device=sample.device)
+    qs = torch.arange(1, div, dtype=torch.float32,
+                      device=sample.device) * step            # [n_q]
+    a = torch.sort(sample, dim=1).values                       # NaN last
+    counts = (~torch.isnan(a)).sum(dim=1).to(torch.float32)[:, None]
+    pos = qs[None, :] * (counts - 1.0)                         # [Fn, n_q]
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1.0 - hw
+    last = counts - 1.0
+    low = torch.clamp(torch.minimum(low, last), min=0.0).long()
+    high = torch.clamp(torch.minimum(high, last), min=0.0).long()
+    lv, hv = a.gather(1, low), a.gather(1, high)
+    return (lv.double() * lw.double() + (hv * hw).double()).float()
+
+
+def _sampled_feature_matrix(num_cols: list[torch.Tensor]) -> torch.Tensor:
+    """[Fn, min(n, S)]: the numeric columns, or a with-replacement row
+    sample of them past ``_QUANTILE_SAMPLE`` rows (the ONE draw site)."""
+    n = num_cols[0].shape[0]
+    if n > _QUANTILE_SAMPLE:
+        g = torch.Generator().manual_seed(_SAMPLE_SEED)
+        idx = torch.randint(0, n, (_QUANTILE_SAMPLE,), generator=g)
+        idx = idx.to(num_cols[0].device)
+        num_cols = [c[idx] for c in num_cols]
+    return torch.stack(num_cols, dim=0)
+
+
+def _classify_features(frame, feature_names: list[str], n_bins: int
+                       ) -> tuple[list[bool], list[int], list, np.ndarray]:
+    """(is_enum, num_idx, num_cols, base): the feature-kind
+    classification. ``base`` is the host [F, B-2] +inf edge matrix with
+    the range-grouping edges of high-cardinality enums filled in: past
+    B-1 levels, n_bins-3 edges between codes split [0, card) into
+    n_bins-2 near-equal ranges, and the feature bins as numeric."""
+    is_enum: list[bool] = []
+    num_idx: list[int] = []
+    num_cols = []
+    base = np.full((len(feature_names), n_bins - 2), np.inf,
+                   dtype=np.float32)
+    for name in feature_names:
+        v = frame.vec(name)
+        if v.is_enum():
+            card = v.cardinality()
+            if card > n_bins - 1:
+                base[len(is_enum), : n_bins - 3] = (
+                    np.arange(1, n_bins - 2, dtype=np.float32)
+                    * card / (n_bins - 2)) - 0.5
+                is_enum.append(False)
+                continue
+            is_enum.append(True)
+            continue
+        num_idx.append(len(is_enum))
+        num_cols.append(v.as_float())
+        is_enum.append(False)
+    return is_enum, num_idx, num_cols, base
+
+
+def fit_bins(frame, feature_names: list[str], n_bins: int = 256) -> BinSpec:
+    """Quantile edges per numeric feature, on the frame's device. An
+    all-NA column's edges are +inf; tied quantiles are kept (they only
+    make empty bins)."""
+    _check_n_bins(n_bins)
+    is_enum, num_idx, num_cols, base = _classify_features(
+        frame, feature_names, n_bins)
+    M = torch.as_tensor(base, device=frame.device)
+    if num_cols:
+        Q = _quantiles(_sampled_feature_matrix(num_cols), n_bins - 3)
+        Q = torch.where(torch.isnan(Q), float("inf"), Q)
+        M[torch.as_tensor(num_idx, device=M.device), : n_bins - 3] = Q
+    return BinSpec(names=list(feature_names), is_enum=is_enum,
+                   n_bins=n_bins, edges=M)
+
+
+def apply_bins(col: torch.Tensor, edges: torch.Tensor, is_enum: bool,
+               na_bin: int) -> torch.Tensor:
+    """One float column [rows] -> uint8 codes [rows]. Numeric: the
+    right-side searchsorted into the feature's edges; enum: the code IS
+    the bin. NaN (or a negative enum code) -> the NA bin."""
+    if is_enum:
+        b = col.clamp(0, na_bin - 1).nan_to_num(0.0).long()
+        na = torch.isnan(col) | (col < 0)
+    else:
+        b = torch.searchsorted(edges.contiguous(), col.contiguous(),
+                               right=True)
+        na = torch.isnan(col)
+    return torch.where(na, na_bin, b).to(torch.uint8)
+
+
+def bin_frame(frame, bin_spec: BinSpec) -> torch.Tensor:
+    """[F, rows] uint8 codes, one column at a time (the largest float32
+    transient is one column)."""
+    names = bin_spec.names
+    edges = bin_spec.edges_matrix()
+    out = torch.empty((len(names), frame.nrows), dtype=torch.uint8,
+                      device=frame.device)
+    for j, name in enumerate(names):
+        out[j] = apply_bins(frame.vec(name).as_float(), edges[j],
+                            bin_spec.is_enum[j], bin_spec.na_bin)
+    return out
+
+
+def fused_fit_bins(frame, feature_names: list[str], n_bins: int = 256
+                   ) -> tuple[BinSpec, torch.Tensor]:
+    """(BinSpec, [F, rows] uint8 codes), cached on the frame under
+    (names, n_bins, content version): a second model on the same frame
+    pays neither the fit nor the apply. The JAX package fuses the two
+    into one XLA dispatch; eager torch has nothing to fuse, so this is
+    fit, then apply."""
+    _check_n_bins(n_bins)
+    key = ("fitbin", tuple(feature_names), n_bins, frame._version)
+    hit = frame._binned_cache.get(key)
+    if hit is None:
+        spec = fit_bins(frame, feature_names, n_bins)
+        hit = (spec, bin_frame(frame, spec))
+        frame.cache_put(key, hit)
+    return hit

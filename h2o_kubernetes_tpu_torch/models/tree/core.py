@@ -1,4 +1,20 @@
-"""Flattened tree-ensemble scoring on raw features.
+"""The tree core: histogram tree growing, the plain GBM boosting loop,
+and flattened tree-ensemble scoring on raw features.
+
+Growing (the JAX package's ``_grow_tree_shard``, on one device): per
+level every live row's (g·w, h·w, w) is added into a per-node,
+per-feature, per-bin histogram (``ops/histogram.build_histogram``, the
+CUDA kernel on a card), and the best split per node is an argmax over
+(feature, bin). Rows carry a relative node id, -1 once dead; trees are
+dense heaps padded to ``max_depth`` (node i has children 2i+1, 2i+2).
+Split semantics: ``bin <= split_bin`` goes left; the NA bin is the last
+bin and ``na_left`` records the learned NA direction. The binned matrix
+is feature-major, [F, rows] uint8.
+
+The JAX package sums each level's histograms over 8 row shards
+(``lax.psum``); the port sums on one device in another f32 order, so
+trees agree bitwise only where every sum is exact (dyadic gradients and
+weights) and within f32 rounding elsewhere.
 
 ``FlatTrees`` are the compact serving arrays a MOJO-v2 artifact
 carries (``flat_*``): per tree, the reachable nodes in BFS slot order,
@@ -10,13 +26,254 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-__all__ = ["FlatTrees", "flat_margin"]
+from ...ops.histogram import build_histogram, expand_unit_hess
+
+__all__ = ["TreeParams", "Tree", "BoostParams", "grow_tree",
+           "boost_trees", "descend_tree", "predict_tree", "flatten_trees",
+           "flatten_cover", "FlatTrees", "flat_margin"]
 
 # rounds descended together: bounds the [rounds·K, rows] int64 node
 # cursor of one block on very large ensembles
 _ROUND_BLOCK = 256
+
+
+class TreeParams(NamedTuple):
+    max_depth: int = 5
+    n_bins: int = 256
+    min_rows: float = 10.0          # min rows per leaf (weighted counts)
+    reg_lambda: float = 0.0
+    reg_alpha: float = 0.0
+    gamma: float = 0.0              # min split gain improvement
+    min_child_weight: float = 0.0   # min hessian mass per child
+    unit_hess: bool = False         # h ≡ 1 loss: 2-channel histograms
+
+
+class Tree(NamedTuple):
+    """Dense heap tree: node i has children 2i+1, 2i+2; [N] = 2^(d+1)-1
+    (a leading [T] axis when stacked)."""
+
+    split_feat: torch.Tensor   # int32, -1 for leaves
+    split_bin: torch.Tensor    # int32
+    na_left: torch.Tensor      # bool, NA direction
+    is_split: torch.Tensor     # bool
+    value: torch.Tensor        # f32 leaf value (valid where not split)
+    gain: torch.Tensor         # f32 split gain (varimp)
+    cover: torch.Tensor        # f32 training weight mass at the node
+
+
+def _soft_thresh(g, alpha):
+    return torch.sign(g) * torch.clamp(torch.abs(g) - alpha, min=0.0)
+
+
+def _leaf_value(G, H, p: TreeParams):
+    return -_soft_thresh(G, p.reg_alpha) / (H + p.reg_lambda + 1e-10)
+
+
+def _gain_term(G, H, p: TreeParams):
+    s = _soft_thresh(G, p.reg_alpha)
+    return s * s / (H + p.reg_lambda + 1e-10)
+
+
+def _split_gains(left, tot4, p: TreeParams):
+    """Split gain of every candidate's left stats [..., 3] against the
+    node totals ``tot4`` [n, 1, 1, 3]; -inf where a side is too small."""
+    right = tot4 - left
+    parent = _gain_term(tot4[..., 0], tot4[..., 1], p)
+    raw = _gain_term(left[..., 0], left[..., 1], p) \
+        + _gain_term(right[..., 0], right[..., 1], p) - parent
+    ok = (left[..., 2] >= p.min_rows) & (right[..., 2] >= p.min_rows)
+    if p.min_child_weight > 0:
+        ok &= (left[..., 1] >= p.min_child_weight) & \
+            (right[..., 1] >= p.min_child_weight)
+    return torch.where(ok, raw, float("-inf"))
+
+
+def _find_splits(hist, p: TreeParams):
+    """Best split per node from a [n_nodes, F, B, 3] histogram.
+
+    Every (feature, threshold-bin) cut is scored with the NA bin (last)
+    on each side in turn; the argmax runs over the feature-major,
+    bin-minor flattening and the first maximum wins. Returns (feat, bin,
+    na_left, can_split, node_value, best_gain, cover, left, right);
+    left/right are the chosen split's side totals [n, 3], which are the
+    children's node totals."""
+    nb = hist.shape[2]
+    na = hist[:, :, nb - 1, :]                          # [n, F, 3]
+    cum = torch.cumsum(hist[:, :, : nb - 1, :], dim=2)  # left, NA excluded
+    totn = (cum[:, :, -1, :] + na)[:, 0:1, :]           # [n, 1, 3]
+    tot4 = totn[:, :, None, :]                          # [n, 1, 1, 3]
+    cum_na = cum + na[:, :, None, :]
+    gain_na_r = _split_gains(cum, tot4, p)              # NA goes right
+    gain_na_l = _split_gains(cum_na, tot4, p)           # NA goes left
+    na_left_better = gain_na_l > gain_na_r
+    gain = torch.maximum(gain_na_l, gain_na_r)          # [n, F, B-1]
+    n_nodes, F = gain.shape[0], gain.shape[1]
+    flat = gain.reshape(n_nodes, F * (nb - 1))
+    best = torch.argmax(flat, dim=1)
+    best_gain = flat.gather(1, best[:, None])[:, 0]
+    feat = (best // (nb - 1)).to(torch.int32)
+    bin_ = (best % (nb - 1)).to(torch.int32)
+    na_l = na_left_better.reshape(n_nodes, -1).gather(1, best[:, None])[:, 0]
+
+    def pick(left4):                                    # -> [n, 3]
+        return left4.reshape(n_nodes, F * (nb - 1), 3).gather(
+            1, best[:, None, None].expand(-1, 1, 3))[:, 0]
+
+    left = torch.where(na_l[:, None], pick(cum_na), pick(cum))
+    right = totn[:, 0, :] - left
+    G, H, C = totn[:, 0, 0], totn[:, 0, 1], totn[:, 0, 2]
+    can_split = (best_gain > p.gamma) & (C >= 2 * p.min_rows) & \
+        torch.isfinite(best_gain)
+    return (feat, bin_, na_l, can_split, _leaf_value(G, H, p), best_gain,
+            C, left, right)
+
+
+def row_orig_bins(binned, f, rows):
+    """Per-row bin of per-row feature ``f`` from the [F, rows] matrix."""
+    return binned[f.long(), rows].to(torch.int32)
+
+
+def _hist(binned, rel, g, h, w, n_nodes, n_bins, p: TreeParams):
+    hist = build_histogram(binned, rel, g, h, w, n_nodes, n_bins,
+                           unit_hess=p.unit_hess)
+    return expand_unit_hess(hist) if p.unit_hess else hist
+
+
+def _grow_tree(binned, g, h, w, p: TreeParams):
+    """One tree over all rows -> (Tree, leaf_node): ``leaf_node`` is each
+    row's final heap index, so the boosting loop reads
+    ``tree.value[leaf_node]`` instead of re-descending.
+
+    Per level after the root, only LEFT children are histogrammed and
+    right = parent - left (sibling subtraction; children of unsplit
+    parents are zeroed). The final level's leaves take their totals
+    from the parent split's side stats, with no histogram pass, except
+    for a depth-0 stump, which needs one single-bin pass."""
+    F, rows = binned.shape
+    dev = binned.device
+    N = 2 ** (p.max_depth + 1) - 1
+    split_feat = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    split_bin = torch.zeros(N, dtype=torch.int32, device=dev)
+    na_left = torch.zeros(N, dtype=torch.bool, device=dev)
+    is_split = torch.zeros(N, dtype=torch.bool, device=dev)
+    value = torch.zeros(N, dtype=torch.float32, device=dev)
+    gain = torch.zeros(N, dtype=torch.float32, device=dev)
+    cover = torch.zeros(N, dtype=torch.float32, device=dev)
+    rel = torch.zeros(rows, dtype=torch.int32, device=dev)
+    abs_node = torch.zeros(rows, dtype=torch.int64, device=dev)
+    ar = torch.arange(rows, device=dev)
+    for d in range(p.max_depth + 1):
+        n_nodes = 2 ** d
+        idx = slice(n_nodes - 1, 2 * n_nodes - 1)
+        if d == p.max_depth:
+            if d == 0:
+                zero_bin = torch.zeros((1, rows), dtype=torch.uint8,
+                                       device=dev)
+                tot = _hist(zero_bin, rel, g, h, w, 1, 1, p)[:, 0, 0, :]
+            else:
+                tot = torch.where(can_prev[:, None, None],
+                                  torch.stack([left_prev, right_prev], 1),
+                                  0.0).reshape(n_nodes, 3)
+            value[idx] = _leaf_value(tot[:, 0], tot[:, 1], p)
+            cover[idx] = tot[:, 2]
+            break
+        if d == 0:
+            hist = _hist(binned, rel, g, h, w, 1, p.n_bins, p)
+        else:
+            left_rel = torch.where((rel >= 0) & (rel % 2 == 0), rel // 2, -1)
+            hist_l = _hist(binned, left_rel, g, h, w, n_nodes // 2,
+                           p.n_bins, p)
+            keep = can_prev[:, None, None, None]
+            hist_l = torch.where(keep, hist_l, 0.0)
+            hist_r = torch.where(keep, hist_prev, 0.0) - hist_l
+            hist = torch.stack([hist_l, hist_r], dim=1).reshape(
+                n_nodes, F, p.n_bins, 3)
+        (feat, bin_, na_l, can, val, g_best, cov, left_prev,
+         right_prev) = _find_splits(hist, p)
+        split_feat[idx] = torch.where(can, feat, -1)
+        split_bin[idx] = bin_
+        na_left[idx] = na_l
+        is_split[idx] = can
+        value[idx] = val
+        gain[idx] = torch.where(can, g_best, 0.0)
+        cover[idx] = cov
+        hist_prev, can_prev = hist, can
+        # descend: dead rows stay dead; rows in unsplit nodes die
+        live = rel >= 0
+        safe = torch.where(live, rel, 0).long()
+        rowbin = row_orig_bins(binned, feat[safe], ar)
+        go_right = torch.where(rowbin == p.n_bins - 1, ~na_l[safe],
+                               rowbin > bin_[safe])
+        child = 2 * rel + go_right.to(torch.int32)
+        moved = live & can[safe]
+        rel = torch.where(moved, child, -1).to(torch.int32)
+        abs_node = torch.where(moved, (2 ** (d + 1) - 1) + child.long(),
+                               abs_node)
+    return Tree(split_feat, split_bin, na_left, is_split, value, gain,
+                cover), abs_node
+
+
+def grow_tree(binned, g, h, w, p: TreeParams) -> Tree:
+    """Build one tree from [F, rows] codes and per-row g/h/w on their
+    device."""
+    return _grow_tree(binned, g, h, w, p)[0]
+
+
+def _grad_hess(distribution: str, margin, y):
+    """Gradient/hessian of the boosting loss at the current margin."""
+    if distribution == "gaussian":
+        return margin - y, torch.ones_like(margin)
+    if distribution == "bernoulli":
+        pr = torch.sigmoid(margin)
+        return pr - y, pr * (1.0 - pr)
+    raise NotImplementedError(
+        f"distribution '{distribution}' is not ported (bernoulli and "
+        "gaussian are; the rest: ROADMAP Queue 1 item 6)")
+
+
+class BoostParams(NamedTuple):
+    """Config of the boosting loop."""
+
+    distribution: str = "gaussian"
+    learn_rate: float = 0.1
+
+
+def boost_trees(binned, y, w, margin, n_trees: int, p: TreeParams,
+                bp: BoostParams) -> tuple[torch.Tensor, Tree]:
+    """``n_trees`` boosting rounds: grad/hess -> grow -> margin update,
+    with the margin kept on its device. Returns (margin, trees stacked
+    [T, N])."""
+    trees = []
+    for _ in range(n_trees):
+        g, h = _grad_hess(bp.distribution, margin, y)
+        tree, leaf = _grow_tree(binned, g, h, w, p)
+        tree = tree._replace(value=bp.learn_rate * tree.value)
+        margin = margin + tree.value[leaf]
+        trees.append(tree)
+    return margin, Tree(*(torch.stack(a) for a in zip(*trees)))
+
+
+def descend_tree(tree: Tree, binned, max_depth: int, n_bins: int):
+    """Per-row resting heap node of one tree over [F, rows] codes."""
+    rows = binned.shape[1]
+    ar = torch.arange(rows, device=binned.device)
+    node = torch.zeros(rows, dtype=torch.int64, device=binned.device)
+    for _ in range(max_depth):
+        f = tree.split_feat[node]
+        rowbin = row_orig_bins(binned, f.clamp(min=0), ar)
+        go_right = torch.where(rowbin == n_bins - 1, ~tree.na_left[node],
+                               rowbin > tree.split_bin[node])
+        node = torch.where(tree.is_split[node], 2 * node + 1 + go_right.long(),
+                           node)
+    return node
+
+
+def predict_tree(tree: Tree, binned, max_depth: int, n_bins: int):
+    """Per-row leaf value (descend + gather)."""
+    return tree.value[descend_tree(tree, binned, max_depth, n_bins)]
 
 
 class FlatTrees(NamedTuple):
@@ -69,3 +326,85 @@ def flat_margin(flat: FlatTrees, X: torch.Tensor, enum_mask: torch.Tensor,
         for r in range(0, t1 - t0, K):
             total = total + val[r:r + K]
     return total
+
+
+def _np(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _reach_slots(isp: np.ndarray, max_depth: int
+                 ) -> tuple[np.ndarray, np.ndarray, int]:
+    """(reach [T, N] bool, slot [T, N] int, M): the reachable-node set
+    and its BFS slot assignment, shared by ``flatten_trees`` and
+    ``flatten_cover`` so every per-node array lands on the same slots."""
+    T, N = isp.shape
+    reach = np.zeros((T, N), dtype=bool)
+    reach[:, 0] = True
+    for d in range(max_depth):
+        lo, hi = 2 ** d - 1, 2 ** (d + 1) - 1
+        if hi > N:
+            break
+        par = reach[:, lo:hi] & isp[:, lo:hi]
+        idx = np.arange(lo, hi)
+        reach[:, 2 * idx + 1] |= par
+        reach[:, 2 * idx + 2] |= par
+    # BFS slot order == heap-index order among reachable nodes
+    slot = reach.cumsum(axis=1) - 1
+    M = int(reach.sum(axis=1).max())
+    return reach, slot, M
+
+
+def flatten_cover(trees: Tree, max_depth: int) -> np.ndarray:
+    """[T, M] per-flat-node training weight mass (TreeSHAP's r_j),
+    slot-aligned with ``flatten_trees`` (the ``flat_cover`` part)."""
+    isp = _np(trees.is_split).astype(bool)
+    cov = _np(trees.cover).astype(np.float32)
+    reach, slot, M = _reach_slots(isp, max_depth)
+    out = np.zeros((isp.shape[0], M), dtype=np.float32)
+    tt, hh = np.nonzero(reach)
+    out[tt, slot[tt, hh]] = cov[tt, hh]
+    return out
+
+
+def flatten_trees(trees: Tree, edges_matrix, enum_mask, max_depth: int
+                  ) -> FlatTrees:
+    """Host (numpy) flattening of a stacked [T, N] heap Tree.
+
+    Thresholds reproduce the binned descent bitwise: a numeric split
+    at bin b < n_edges has thresh = edges[f, b] (``x >= thresh`` goes
+    right); b == n_edges (past the last body bin) has thresh = NaN, so
+    every non-NA row goes left; an enum split has thresh = b + 1. NA
+    routing stays explicit via na_left."""
+    sf = _np(trees.split_feat)
+    sb = _np(trees.split_bin)
+    nl = _np(trees.na_left).astype(bool)
+    isp = _np(trees.is_split).astype(bool)
+    val = _np(trees.value).astype(np.float32)
+    edges_matrix = _np(edges_matrix)
+    enum_mask = _np(enum_mask).astype(bool)
+    T, N = sf.shape
+    reach, slot, M = _reach_slots(isp, max_depth)
+    out_feat = np.full((T, M), -1, dtype=np.int32)
+    out_thresh = np.zeros((T, M), dtype=np.float32)
+    out_left = np.zeros((T, M), dtype=np.int32)
+    out_nal = np.zeros((T, M), dtype=bool)
+    out_val = np.zeros((T, M), dtype=np.float32)
+    tt, hh = np.nonzero(reach)
+    ss = slot[tt, hh]
+    sm = isp[tt, hh]                                      # split mask
+    f = np.where(sm, sf[tt, hh], 0)
+    b = sb[tt, hh]
+    width = edges_matrix.shape[1]
+    b_safe = np.minimum(b, width - 1)
+    with np.errstate(invalid="ignore"):
+        th = np.where(
+            enum_mask[f], (b + 1).astype(np.float32),
+            np.where(b < width, edges_matrix[f, b_safe].astype(np.float32),
+                     np.float32(np.nan)))
+    lh = np.minimum(2 * hh + 1, N - 1)                    # guarded gather
+    out_feat[tt, ss] = np.where(sm, sf[tt, hh], -1)
+    out_thresh[tt, ss] = np.where(sm, th, 0.0)
+    out_left[tt, ss] = np.where(sm, slot[tt, lh], 0)
+    out_nal[tt, ss] = nl[tt, hh] & sm
+    out_val[tt, ss] = np.where(sm, 0.0, val[tt, hh])
+    return FlatTrees(out_feat, out_thresh, out_left, out_nal, out_val)

@@ -33,11 +33,16 @@ def test_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in {k for k, v in sys.modules.items() if v}\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 15
+    names = set(r.stdout.split())
+    assert len(names) >= 20
+    # the training slice's modules are among them
+    assert {f"h2o_kubernetes_tpu_torch.{m}" for m in (
+        "frame.frame", "models.tree.binning", "ops.histogram", "ops._build",
+        "metrics", "models.gbm")} <= names
 
 
 def test_no_source_imports_jax_or_reference():
@@ -62,6 +67,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         port.FlatTreeScorer(meta, arrays, device="cuda")
     assert port.FlatTreeScorer(meta, arrays, device="cpu").device.type \
         == "cpu"
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    """Frame.from_arrays (and so GBM.train, which trains where the
+    frame lives) and the carried-across model default to the card."""
+    from h2o_kubernetes_tpu_torch.models.gbm import gbm_model_from_arrays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cols = {"x": [1.0, 2.0, 3.0], "y": ["a", "b", "a"]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.Frame.from_arrays(cols)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gbm_model_from_arrays({}, [[0.0, 1.0]], [False], 0.0, ["x"],
+                              "bernoulli", 2, 1)
+    fr = port.Frame.from_arrays(cols, device="cpu")
+    assert fr.device.type == "cpu" and fr["y"].is_enum()
 
 
 @pytest.mark.parametrize("alone", [False, True],

@@ -1,0 +1,98 @@
+"""PyTorch port, where the training slice's metrics run: on the model's
+device. ``model_performance`` (and so ``GBM.train(validation_frame=)``)
+hands the metrics the scores and the response as tensors on the model's
+device, rows with an NA response dropped there, so on a card the AUC's
+4096-bin score histogram is the CUDA kernel's. No JAX here, so the
+card-only cases (``-m cuda``) also run where the JAX package is absent.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from h2o_kubernetes_tpu_torch import GBM, Frame, metrics
+from h2o_kubernetes_tpu_torch.ops import histogram as H
+
+_KW = dict(ntrees=3, max_depth=3, learn_rate=0.2, seed=1)
+
+
+def _cols(rows, seed=0, na_every=0):
+    rng = np.random.default_rng(seed)
+    X = {f"x{i}": rng.normal(size=rows).astype(np.float32)
+         for i in range(3)}
+    X["c1"] = np.array(list("abcd"))[rng.integers(0, 4, size=rows)]
+    logit = 1.2 * X["x0"] - 0.8 * X["x1"] + rng.normal(scale=0.8,
+                                                       size=rows)
+    X["y"] = np.where(logit > 0, "late", "ontime").astype(object)
+    if na_every:
+        X["y"][::na_every] = None               # NA responses
+    return X
+
+
+def _host_metrics(model, frame, hold):
+    """The binomial metrics recomputed from host copies of the scores
+    and of the rows whose response is not NA."""
+    ok = np.array([v is not None for v in hold["y"]])
+    p1 = model.predict_raw(frame)[ok, 1]
+    y = (hold["y"][ok] == model.response_domain[1]).astype(np.float32)
+    return {"auc": metrics.roc_auc(y, p1), "logloss": metrics.logloss(y, p1),
+            "rmse": metrics.rmse(y, p1)}
+
+
+def test_model_performance_hands_the_metrics_device_tensors(monkeypatch):
+    model = GBM(**_KW).train(y="y", training_frame=Frame.from_arrays(
+        _cols(3000), device="cpu"))
+    hold = _cols(2000, seed=5, na_every=97)
+    frame = Frame.from_arrays(hold, device="cpu")
+    want = _host_metrics(model, frame, hold)
+    seen = []
+    for name in ("roc_auc", "logloss", "rmse"):
+        def spy(y, s, *a, _fn=getattr(metrics, name), **k):
+            seen.append((y, s))
+            return _fn(y, s, *a, **k)
+        monkeypatch.setattr(metrics, name, spy)
+    got = model.model_performance(frame, y="y")
+    assert len(seen) == 3
+    for y, s in seen:
+        assert isinstance(y, torch.Tensor) and isinstance(s, torch.Tensor)
+        assert y.device == s.device == model.device
+        assert y.shape == s.shape == (2000 - 21,)     # 21 NA responses
+    assert got.keys() == want.keys()
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-7, (k, got[k], want[k])
+
+
+def test_validation_frame_is_scored_like_model_performance():
+    hold = _cols(1500, seed=6, na_every=50)
+    model = GBM(**_KW).train(
+        y="y", training_frame=Frame.from_arrays(_cols(3000), device="cpu"),
+        validation_frame=Frame.from_arrays(hold, device="cpu"))
+    assert model.validation_metrics == model.model_performance(
+        Frame.from_arrays(hold, device="cpu"), y="y")
+
+
+@pytest.mark.cuda
+def test_model_performance_on_card_launches_the_histogram_kernel():
+    """Past 65,536 rows the AUC takes its histogram path: one launch of
+    the kernel in shared mode (1 node x 4096 bins), none of the split
+    mode, and the metrics agree with the host recomputation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    model = GBM(**_KW).train(y="y", training_frame=Frame.from_arrays(
+        _cols(5000), device="cuda"))
+    assert model.device.type == "cuda"
+    hold = _cols(70_000, seed=7, na_every=97)
+    frame = Frame.from_arrays(hold, device="cuda")
+    before = dict(H.LAUNCHES)
+    got = model.model_performance(frame, y="y")
+    assert H.LAUNCHES == {"shared": before["shared"] + 1,
+                          "split": before["split"]}
+    want = _host_metrics(model, frame, hold)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
+    before = dict(H.LAUNCHES)
+    GBM(**_KW).train(y="y", training_frame=Frame.from_arrays(
+        _cols(5000), device="cuda"), validation_frame=frame)
+    # 3 trees x 3 levels, the train AUC's exact path (5,000 rows), and
+    # the validation AUC's histogram
+    assert H.LAUNCHES["shared"] == before["shared"] + 3 * 3 + 1
