@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (h2o_kubernetes_tpu_torch): the
-scorer-replica serving path and binomial GBM training on one CUDA card.
+scorer-replica serving path, binomial GBM training, DRF and multinomial
+GBM training on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -45,11 +46,29 @@ Phases, in order; any failure exits non-zero:
    on 100,000 rows (shap_tab on trees the port grew), additivity
    against logit(p1) ≤ 1e-4; model_performance on the 1,000,000-row
    frame, whose AUC is one histogram-kernel launch on the card;
-12. report — one JSON line of kernel records, the card line, and as
-   the last line {"ok": true, "device": {...}}.
+12. drf — drf_higgs's shape (tools/bench_suite.py:225-232): 1,000,000
+   HIGGS-shaped rows, DRF ntrees=10 max_depth=8 seed=1 (64 bins, mtries
+   5, sample_rate 0.632: one batched histogram launch per level for all
+   10 trees, shared then split mode); a first train, five warm ones
+   (median and spread, rows·trees/s), train AUC, launches by mode; the
+   forest grown on the CPU from the same frame must equal the card's
+   bitwise in structure (leaves ≤ 1e-6); it serves through score_numpy
+   and contrib_numpy, Σφ = p1 ≤ 1e-4;
+13. multinomial — gbm_multinomial's shape (tools/bench_suite.py:
+   243-265): 500,000 rows x 10 features, 4 classes, GBM ntrees=5
+   max_depth=5 learn_rate=0.2; warm trains as rows·classtrees/s, train
+   logloss, model_performance (one AUC launch per class); card vs CPU
+   train logloss ≤ 1e-4 at 65,536 rows;
+14. B3 — the batched kernel against its plain version and one
+   index_add_ at the level inputs the two trains gave it (DRF: the
+   root, 320 and 640 nodes, C=2; multinomial: the root and 32 nodes,
+   C=3), held as in phase 9; a bf16 control over all compared levels
+   must exceed the limit;
+15. report — one JSON line of kernel records (B4, B1, B2, B3), the card
+   line, and as the last line {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
-contrib_numpy and train call.
+contrib_numpy, GBM train, DRF train and multinomial train call.
 """
 
 from __future__ import annotations
@@ -84,6 +103,14 @@ _L2_FLUSH_BYTES = 128 << 20     # > the H100's 50 MB L2
 _TRAIN_ROWS = 1_000_000
 _TRAIN_TREES = 10
 _PARITY_ROWS = 65_536
+# drf_higgs (tools/bench_suite.py:225-232): DRF on HIGGS, 10 trees of
+# depth 8; gbm_multinomial (tools/bench_suite.py:243-265): 500,000 rows,
+# 10 features, 4 classes, 5 rounds of depth 5
+_DRF_ROWS = 1_000_000
+_DRF_TREES = 10
+_DRF_DEPTH = 8
+_MN_ROWS = 500_000
+_MN_TREES = 5
 _WARM_TRAINS = 5                # timed warm trains; the median is reported
 # a histogram cell may be this far from the float64 sum, relative to
 # its Σ|v|: above the kernel's float32 rounding at 1,000,000 rows, below
@@ -218,34 +245,63 @@ def _bench_cols(rows: int, seed: int) -> dict:
     return X
 
 
+def _higgs_cols(rows: int, seed: int) -> tuple[dict, dict]:
+    """HIGGS shape (tools/datasets.py:159-170): 28 standard-normal
+    features and a binary response from nonlinear combinations."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, 28)).astype(np.float32)
+    logit = (0.8 * X[:, 0] - 0.6 * X[:, 1] * X[:, 2]
+             + 0.5 * np.abs(X[:, 3]) - 0.4 * (X[:, 4] ** 2)
+             + rng.normal(scale=0.7, size=rows))
+    cols = {f"f{i}": X[:, i] for i in range(28)}
+    cols["y"] = (logit > 0).astype(np.float32)
+    return cols, {"y": ["b", "s"]}
+
+
+def _multinomial_cols(rows: int, seed: int) -> dict:
+    """gbm_multinomial's table (tools/bench_suite.py:248-256): 10 normal
+    columns, classes a/b by a score's tails, c/d by a third column."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, 10)).astype(np.float32)
+    score = X[:, 0] + 0.5 * X[:, 1]
+    y = np.where(score > 0.6, "a", np.where(
+        score < -0.6, "b", np.where(X[:, 2] > 0, "c", "d")))
+    cols = {f"f{i}": X[:, i] for i in range(10)}
+    cols["y"] = y
+    return cols
+
+
 class _HistRecorder:
     """Keeps the first (binned, rel, vals) the training path hands the
-    histogram kernel per (n_nodes, n_bins, C, code dtype), so the kernel
-    can be compared and timed at exactly those inputs. It wraps the
-    wrapper, which still counts its own launches."""
+    histogram kernel per (K, n_nodes, n_bins, C, code dtype), so the
+    kernel can be compared and timed at exactly those inputs. It wraps
+    the batched wrapper (the single-tree wrapper is its K=1 call), which
+    still counts its own launches."""
 
     def __init__(self, hist_op):
         self.op, self.kernel, self.seen = hist_op, \
-            hist_op.build_histogram_kernel, {}
+            hist_op.build_histogram_batched, {}
 
     def __enter__(self):
         def record(binned, rel, vals, n_nodes, n_bins):
-            key = (n_nodes, n_bins, vals.shape[1], binned.dtype)
+            key = (rel.shape[0], n_nodes, n_bins, vals.shape[2],
+                   binned.dtype)
             self.seen.setdefault(key, (binned, rel, vals))
             return self.kernel(binned, rel, vals, n_nodes, n_bins)
 
-        self.op.build_histogram_kernel = record
+        self.op.build_histogram_batched = record
         return self
 
     def __exit__(self, *exc):
-        self.op.build_histogram_kernel = self.kernel
+        self.op.build_histogram_batched = self.kernel
 
 
 def _hist_compare(torch, hist_op, binned, rel, vals, n, B,
                   repeats: int) -> dict:
-    """The histogram kernel against its plain version (general values,
-    then dyadic ones) and one index_add_ at these inputs: errors,
-    median CUDA-event times and the bound.
+    """The histogram kernel (over K trees: rel [K, rows], vals [K, rows,
+    C]) against its plain version (general values, then dyadic ones)
+    and one index_add_ at these inputs: errors, median CUDA-event times
+    and the bound.
 
     Errors are per cell, relative to the cell's Σ|v|, against the
     float64 sum (the plain version on float64 values). A cell of a
@@ -253,47 +309,53 @@ def _hist_compare(torch, hist_op, binned, rel, vals, n, B,
     running sum of that many equal hessians drifts by up to ~1e-3 of the
     sum, so float32 results are held to the float64 sum, not to each
     other. The control is the kernel fed the values rounded to bf16
-    (what a kernel that accumulated in bf16 would at best give)."""
-    kern, plain = hist_op.build_histogram_kernel, hist_op.histogram_plain
+    (what a kernel that accumulated in bf16 would at best give); it
+    tells nothing where bf16 keeps the values (0/1 weights, DRF's
+    integer targets), and is then left out."""
+    kern, plain = hist_op.build_histogram_batched, \
+        hist_op.histogram_batched_plain
     F, rows = binned.shape
-    C = vals.shape[1]
+    K, C = rel.shape[0], vals.shape[2]
     out_k = kern(binned, rel, vals, n, B)
     out_p = plain(binned, rel, vals, n, B)
     exact = plain(binned, rel, vals.double(), n, B)
     scale = plain(binned, rel, vals.abs().double(), n, B)
     torch.cuda.synchronize()
-    if not (torch.isfinite(out_k).all() and out_k.shape == (n, F, B, C)):
-        raise RuntimeError(f"histogram {n}x{B}x{C}: bad output")
+    if not (torch.isfinite(out_k).all()
+            and out_k.shape == (K, n, F, B, C)):
+        raise RuntimeError(f"histogram {K}x{n}x{B}x{C}: bad output")
     if bool(((scale == 0) & (out_k != 0)).any()):
-        raise RuntimeError(f"histogram {n}x{B}x{C}: mass in an empty cell")
+        raise RuntimeError(f"histogram {K}x{n}x{B}x{C}: mass in an empty "
+                           "cell")
 
     def rel_err(out):
         return float(((out.double() - exact).abs()
                       / scale.clamp(min=1e-300)).max())
-    g = torch.Generator(device=vals.device).manual_seed(n * B + C)
+    g = torch.Generator(device=vals.device).manual_seed(K * n * B + C)
     dy = torch.randint(-2, 3, vals.shape, generator=g, device=vals.device
                        ).float() * 0.5
-    dy = torch.where(rel[:, None] >= 0, dy, 0.0)
+    dy = torch.where(rel[..., None] >= 0, dy, 0.0)
     dyadic_equal = torch.equal(kern(binned, rel, dy, n, B),
                                plain(binned, rel, dy, n, B))
     v16 = vals.bfloat16().float()
     control_rel_err = rel_err(kern(binned, rel, v16, n, B))
-    # the library call: one index_add_ into [(n+1)·F·B, C] on a flat
-    # index computed once (dead rows into the junk node n)
-    seg = torch.where(rel >= 0, rel, n).long()
+    # the library call: one index_add_ into [(K·n+1)·F·B, C] on a flat
+    # index computed once (dead rows into the junk node K·n)
+    kn = (torch.arange(K, device=rel.device)[:, None] * n + rel).long()
+    seg = torch.where(rel >= 0, kn, K * n).reshape(-1)       # [K·rows]
     idx = ((seg[None, :] * F + torch.arange(F, device=seg.device)[:, None])
-           * B + binned.long()).reshape(-1)
-    src = vals.repeat(F, 1)
-    acc = torch.zeros(((n + 1) * F * B, C), device=vals.device)
+           * B + binned.long().repeat(1, K)).reshape(-1)
+    src = vals.reshape(K * rows, C).repeat(F, 1)
+    acc = torch.zeros(((K * n + 1) * F * B, C), device=vals.device)
 
     def library():
         acc.zero_()
         acc.index_add_(0, idx, src)
 
     library()
-    lib_err = rel_err(acc[: n * F * B].view(n, F, B, C))
-    # the level's codes, rel and vals (~26 MB at 1M rows) fit the 50 MB
-    # L2: every timing starts from a flushed cache
+    lib_err = rel_err(acc[: K * n * F * B].view(K, n, F, B, C))
+    # a level's codes, rel and vals fit the 50 MB L2 at the smaller
+    # shapes: every timing starts from a flushed cache
     flush = torch.empty(_L2_FLUSH_BYTES, dtype=torch.uint8,
                         device=vals.device)
     ms = _cuda_ms(torch, lambda: kern(binned, rel, vals, n, B), repeats,
@@ -302,14 +364,15 @@ def _hist_compare(torch, hist_op, binned, rel, vals, n, B,
                         flush)
     library_ms = _cuda_ms(torch, library, repeats, flush)
     live = int((rel >= 0).sum())
-    nbytes = (F * rows * binned.element_size() + 4 * rows + 4 * C * rows
-              + 4 * n * F * B * C)
+    nbytes = (F * rows * binned.element_size() + 4 * K * rows
+              + 4 * K * C * rows + 4 * K * n * F * B * C)
     ops = F * C * live
     bytes_ms = nbytes / _HBM_BYTES_PER_S * 1e3
     ops_ms = ops / _FP32_OPS_PER_S * 1e3
-    return {"n_nodes": n, "n_bins": B, "C": C, "F": F, "rows": rows,
-            "live_rows": live, "codes": str(binned.dtype).split(".")[-1],
-            "mode": hist_op.hist_mode(n, B, C),
+    return {"K": K, "n_nodes": n, "n_bins": B, "C": C, "F": F,
+            "rows": rows, "live_rows": live,
+            "codes": str(binned.dtype).split(".")[-1],
+            "mode": hist_op.hist_mode(K * n, B, C),
             "max_abs_err": float((out_k - out_p).abs().max()),
             "max_rel_err": rel_err(out_k), "plain_rel_err": rel_err(out_p),
             "library_rel_err": lib_err, "dyadic_equal": dyadic_equal,
@@ -321,13 +384,40 @@ def _hist_compare(torch, hist_op, binned, rel, vals, n, B,
             "bytes": nbytes, "ops": ops}
 
 
+def _log_hist(name: str, res: dict, card: str) -> None:
+    _log(f"[hist] {name}: {res['mode']} mode, K={res['K']} x "
+         f"{res['n_nodes']} nodes x {res['n_bins']} bins x C={res['C']}, "
+         f"F={res['F']}, {res['rows']} rows ({res['live_rows']} live "
+         f"tree·rows), {res['codes']} codes: kernel {res['ms']:.4f} ms, "
+         f"plain {res['plain_ms']:.4f} ms, index_add_ "
+         f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
+         f"{res['bound_by']}; max |kernel - plain| {res['max_abs_err']:.3e}"
+         f"; max |x - float64 sum| / cell sum|v|: kernel "
+         f"{res['max_rel_err']:.3e}, plain {res['plain_rel_err']:.3e}, "
+         f"index_add_ {res['library_rel_err']:.3e}, control (kernel on "
+         f"bf16 values) {res['control_rel_err']:.3e}; dyadic bitwise "
+         f"{res['dyadic_equal']} [{card}]")
+    if res["max_rel_err"] > _HIST_REL_LIMIT or not res["dyadic_equal"]:
+        raise RuntimeError(f"histogram kernel disagrees at {name}")
+
+
+def _warm_trains(fit, n: int) -> tuple[list[float], object]:
+    """Wall seconds of n trains (each ends on host data: its metrics)."""
+    times, model = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        model = fit()
+        times.append(time.perf_counter() - t0)
+    return times, model
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm score_numpy and contrib_numpy "
-                         "call with torch.profiler and print where the "
-                         "device time goes")
+                    help="also trace one warm score_numpy, contrib_numpy "
+                         "and train call of each kind with torch.profiler "
+                         "and print where the device time goes")
     args = ap.parse_args()
 
     import torch
@@ -542,11 +632,7 @@ def main() -> int:
         train(frame)                       # warm-up: bins and caches them
         warm_s = time.perf_counter() - t0
     hk.update(shared=0, split=0)
-    train_times = []
-    for _ in range(_WARM_TRAINS):
-        t0 = time.perf_counter()
-        gbm = train(frame)
-        train_times.append(time.perf_counter() - t0)
+    train_times, gbm = _warm_trains(lambda: train(frame), _WARM_TRAINS)
     train_launches = dict(hk)
     train_s = statistics.median(train_times)
     hist = gbm.scoring_history[-1]
@@ -585,41 +671,19 @@ def main() -> int:
     # -- 9. hist: kernel vs plain vs index_add_ at the path's inputs ---------
     seen = {**rec10.seen, **rec5.seen}     # the depth-5 path's first
     u8, i16 = torch.uint8, torch.int16
-    root = seen[(1, 256, 3, u8)]
-    shapes = [("root", root, 1, 256), ("depth-4", seen[(8, 256, 3, u8)],
-                                       8, 256),
+    root = seen[(1, 1, 256, 3, u8)]
+    shapes = [("root", root, 1, 256),
+              ("depth-4", seen[(1, 8, 256, 3, u8)], 8, 256),
               ("root C=2", (root[0], root[1],
-                            root[2][:, [0, 2]].contiguous()), 1, 256),
-              ("auc", seen[(1, 4096, 3, i16)], 1, 4096),
-              ("128 nodes", seen[(128, 256, 3, u8)], 128, 256),
-              ("256 nodes", seen[(256, 256, 3, u8)], 256, 256)]
+                            root[2][..., [0, 2]].contiguous()), 1, 256),
+              ("auc", seen[(1, 1, 4096, 3, i16)], 1, 4096),
+              ("128 nodes", seen[(1, 128, 256, 3, u8)], 128, 256),
+              ("256 nodes", seen[(1, 256, 256, 3, u8)], 256, 256)]
     levels = {}
     for name, (b, r, v), n, B in shapes:
         res = _hist_compare(torch, hist_op, b, r, v, n, B, _REPEATS * 2)
         levels[name] = res
-        _log(f"[hist] {name}: {res['mode']} mode, {n} nodes x {B} bins x "
-             f"C={res['C']}, F={res['F']}, {res['rows']} rows "
-             f"({res['live_rows']} live), {res['codes']} codes: kernel "
-             f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-             f"index_add_ {res['library_ms']:.4f} ms, bound "
-             f"{res['bound_ms']:.4f} ms by {res['bound_by']}; max "
-             f"|kernel - plain| {res['max_abs_err']:.3e}; max |x - float64 "
-             f"sum| / cell sum|v|: kernel {res['max_rel_err']:.3e}, plain "
-             f"{res['plain_rel_err']:.3e}, index_add_ "
-             f"{res['library_rel_err']:.3e}, control (kernel on bf16 "
-             f"values) {res['control_rel_err']:.3e}; dyadic bitwise "
-             f"{res['dyadic_equal']} [{card}]")
-        if res["max_rel_err"] > _HIST_REL_LIMIT or not res["dyadic_equal"]:
-            raise RuntimeError(f"histogram kernel disagrees at {name}")
-    controls = [r["control_rel_err"] for r in levels.values()
-                if r["bf16_changes_vals"]]
-    _log(f"[hist] limit {_HIST_REL_LIMIT:.0e}: kernel at most "
-         f"{max(r['max_rel_err'] for r in levels.values()):.3e}, control "
-         f"at most {max(controls, default=0.0):.3e}")
-    if max(controls, default=0.0) <= _HIST_REL_LIMIT:
-        raise RuntimeError("the bf16 control stays within the histogram "
-                           "limit: the check cannot tell f32 from bf16")
-
+        _log_hist(name, res, card)
     # -- 10. parity: the card against the CPU --------------------------------
     binned = frame.binned(gbm.bin_spec)
     yv = frame.vec("y").as_float()
@@ -673,7 +737,162 @@ def main() -> int:
     if args.profile:
         _profile(torch, "train", lambda: train(frame), top=12)
 
-    # -- 12. report ----------------------------------------------------------
+    # -- 12. drf: a random forest at drf_higgs's shape ------------------------
+    from h2o_kubernetes_tpu_torch import DRF
+
+    bk = hist_op.BATCHED_LAUNCHES          # launches over K > 1 trees
+    hcols, hdom = _higgs_cols(_DRF_ROWS, args.seed)
+    t0 = time.perf_counter()
+    hframe = Frame.from_arrays(hcols, domains=hdom)
+    _log(f"[drf] HIGGS-shaped frame {_DRF_ROWS} rows x 28 features on "
+         f"{hframe.device} in {time.perf_counter() - t0:.2f}s")
+
+    def fit_drf(fr):
+        return DRF(ntrees=_DRF_TREES, max_depth=_DRF_DEPTH, seed=1).train(
+            y="y", training_frame=fr)
+
+    with _HistRecorder(hist_op) as rec_drf:
+        t0 = time.perf_counter()
+        fit_drf(hframe)                    # first: bins and caches them
+        drf_first_s = time.perf_counter() - t0
+    hk.update(shared=0, split=0)
+    bk.update(shared=0, split=0)
+    drf_times, drf = _warm_trains(lambda: fit_drf(hframe), _WARM_TRAINS)
+    drf_launches, drf_batched = dict(hk), dict(bk)
+    drf_s = statistics.median(drf_times)
+    dh = drf.scoring_history[-1]
+    drf_G = tree_core.drf_group_size(
+        _DRF_TREES, tree_core.TreeParams(max_depth=_DRF_DEPTH, n_bins=64,
+                                         unit_hess=True), 28)[0]
+    _log(f"[drf] DRF ntrees={_DRF_TREES} max_depth={_DRF_DEPTH} nbins="
+         f"{drf.params.nbins} mtries={drf.params.mtries} sample_rate="
+         f"{drf.params.sample_rate}: G={drf_G} trees per launch; "
+         f"first train {drf_first_s:.3f}s (binning included); "
+         f"{_WARM_TRAINS} warm trains {[round(t, 4) for t in drf_times]} s,"
+         f" median {drf_s:.4f}s (min {min(drf_times):.4f}, max "
+         f"{max(drf_times):.4f}) = drf rows·trees/s "
+         f"{_DRF_ROWS * _DRF_TREES / drf_s:.0f} at the median; train_auc "
+         f"{dh['train_auc']:.6f} train_logloss {dh['train_logloss']:.6f}; "
+         f"histogram launches {drf_launches} ({drf_batched} over 10 trees) "
+         f"over {_WARM_TRAINS} trains [{card}]")
+    if not (np.isfinite(dh["train_auc"]) and 0.5 < dh["train_auc"] <= 1):
+        raise RuntimeError(f"bad DRF training metrics {dh}")
+    if args.profile:
+        _profile(torch, "drf train", lambda: fit_drf(hframe), top=12)
+    # per train: the 8 histogrammed levels of one group of 10 trees (the
+    # deepest, 640 nodes, in split mode) and the train AUC's one launch
+    if drf_batched != {"shared": 7 * _WARM_TRAINS, "split": _WARM_TRAINS} \
+            or drf_launches != {"shared": 8 * _WARM_TRAINS,
+                                "split": _WARM_TRAINS}:
+        raise RuntimeError(f"unexpected DRF histogram launches "
+                           f"{drf_launches} / batched {drf_batched}")
+    t0 = time.perf_counter()
+    drf_cpu = fit_drf(Frame.from_arrays(hcols, domains=hdom, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    struct = all(torch.equal(getattr(drf.trees, f).cpu(),
+                             getattr(drf_cpu.trees, f))
+                 for f in ("split_feat", "split_bin", "na_left", "is_split"))
+    leaf_gap = float((drf.trees.value.cpu() - drf_cpu.trees.value).abs()
+                     .max())
+    _log(f"[drf] card vs CPU at {_DRF_ROWS} rows: split structure bitwise "
+         f"{struct} ({int(drf_cpu.trees.is_split.sum())} splits), max leaf "
+         f"gap {leaf_gap:.3e} (CPU train {cpu_s:.1f}s)")
+    if not struct or leaf_gap > 1e-6:
+        raise RuntimeError("the forest differs between card and CPU")
+    Xh = drf._design_matrix(hframe)[:_ROWS].cpu().numpy()
+    kern.launches = 0
+    p_h = drf.score_numpy(Xh)
+    phi_h = drf.contrib_numpy(Xh)
+    drf_shap_launches = kern.launches
+    add_h = float(np.abs(phi_h.astype(np.float64).sum(axis=1)
+                         - p_h[:, 1]).max())
+    _log(f"[drf] serve {Xh.shape[0]} rows: additivity max |sum(phi) - p1| "
+         f"= {add_h:.3e}; shap_tab launches {drf_shap_launches}")
+    if not (np.isfinite(phi_h).all() and phi_h.shape == (_ROWS, 29)
+            and add_h <= 1e-4):
+        raise RuntimeError("serving the forest failed")
+
+    # -- 13. multinomial: GBM at gbm_multinomial's shape --------------------
+    mcols = _multinomial_cols(_MN_ROWS, args.seed)
+    mframe = Frame.from_arrays(mcols)
+
+    def fit_mn(fr):
+        return GBM(ntrees=_MN_TREES, max_depth=5, learn_rate=0.2,
+                   seed=1).train(y="y", training_frame=fr)
+
+    with _HistRecorder(hist_op) as rec_mn:
+        t0 = time.perf_counter()
+        fit_mn(mframe)
+        mn_first_s = time.perf_counter() - t0
+    hk.update(shared=0, split=0)
+    bk.update(shared=0, split=0)
+    mn_times, mn = _warm_trains(lambda: fit_mn(mframe), _WARM_TRAINS)
+    mn_launches, mn_batched = dict(hk), dict(bk)
+    mn_s = statistics.median(mn_times)
+    K = mn.nclasses
+    mn_ll = mn.scoring_history[-1]["train_logloss"]
+    _log(f"[multinomial] GBM ntrees={_MN_TREES} max_depth=5 K={K}: first "
+         f"train {mn_first_s:.3f}s (binning included); {_WARM_TRAINS} warm "
+         f"trains {[round(t, 4) for t in mn_times]} s, median {mn_s:.4f}s "
+         f"(min {min(mn_times):.4f}, max {max(mn_times):.4f}) = "
+         f"rows·classtrees/s {_MN_ROWS * _MN_TREES * K / mn_s:.0f} at the "
+         f"median; train_logloss {mn_ll:.6f}; histogram launches "
+         f"{mn_launches} ({mn_batched} over {K} trees) over "
+         f"{_WARM_TRAINS} trains [{card}]")
+    if not (K == 4 and np.isfinite(mn_ll) and 0 < mn_ll < np.log(4)):
+        raise RuntimeError(f"bad multinomial training metrics {mn_ll}")
+    if args.profile:
+        _profile(torch, "multinomial train", lambda: fit_mn(mframe),
+                 top=12)
+    if mn_batched != {"shared": 5 * _MN_TREES * _WARM_TRAINS, "split": 0} \
+            or mn_launches != mn_batched:
+        raise RuntimeError(f"unexpected multinomial histogram launches "
+                           f"{mn_launches} / batched {mn_batched}")
+    hk.update(shared=0, split=0)
+    mperf = mn.model_performance(mframe, y="y")
+    mperf_launches = dict(hk)
+    _log(f"[multinomial] model_performance on {_MN_ROWS} rows: {mperf}; "
+         f"histogram launches {mperf_launches} (one AUC per class)")
+    if mperf_launches != {"shared": K, "split": 0} or not (
+            0.5 < mperf["auc"] <= 1 and abs(mperf["logloss"] - mn_ll)
+            <= 1e-4):
+        raise RuntimeError("multinomial model_performance is wrong")
+    small = {k: v[:_PARITY_ROWS] for k, v in mcols.items()}
+    ll_card = fit_mn(Frame.from_arrays(small)).scoring_history[-1]
+    ll_cpu = fit_mn(Frame.from_arrays(small, device="cpu")
+                    ).scoring_history[-1]
+    gap = abs(ll_card["train_logloss"] - ll_cpu["train_logloss"])
+    _log(f"[multinomial] {_PARITY_ROWS}-row train: card {ll_card}, CPU "
+         f"{ll_cpu}, gap {gap:.3e}")
+    if gap > 1e-4:
+        raise RuntimeError("card and CPU multinomial training disagree")
+
+    # -- 14. B3: the batched launches at the two trains' inputs --------------
+    b3 = {}
+    # DRF: the root, the last shared level (320 nodes) and the split one
+    # (640 nodes); multinomial: the root and the deepest level (32 nodes)
+    b3_shapes = [(f"drf level {d}", rec_drf.seen[(_DRF_TREES, n, 64, 2, u8)],
+                  n, 64) for d, n in ((0, 1), (6, 32), (7, 64))] + \
+        [(f"multinomial level {d}", rec_mn.seen[(K, n, 256, 3, u8)], n, 256)
+         for d, n in ((0, 1), (4, 8))]
+    for name, (b, r, v), n, B in b3_shapes:
+        res = _hist_compare(torch, hist_op, b, r, v, n, B, _REPEATS * 2)
+        b3[name] = res
+        _log_hist(name, res, card)
+    if {r["mode"] for r in b3.values()} != {"shared", "split"} or \
+            {r["C"] for r in b3.values()} != {2, 3}:
+        raise RuntimeError("B3 was not compared in both modes and widths")
+    allres = {**levels, **b3}
+    controls = [r["control_rel_err"] for r in allres.values()
+                if r["bf16_changes_vals"]]
+    _log(f"[hist] limit {_HIST_REL_LIMIT:.0e}: kernel at most "
+         f"{max(r['max_rel_err'] for r in allres.values()):.3e}, control "
+         f"at most {max(controls, default=0.0):.3e}")
+    if max(controls, default=0.0) <= _HIST_REL_LIMIT:
+        raise RuntimeError("the bf16 control stays within the histogram "
+                           "limit: the check cannot tell f32 from bf16")
+
+    # -- 15. report ----------------------------------------------------------
     record = {
         "name": "shap_tab", "route": "cuda",
         "source": "h2o_kubernetes_tpu_torch/csrc/shap_tab.cu",
@@ -704,6 +923,27 @@ def main() -> int:
             "level": level, "max_rel_err": res["max_rel_err"],
             "control_rel_err": res["control_rel_err"],
             "rel_limit": _HIST_REL_LIMIT})
+    # B3: launches over K > 1 trees in the two timed trains; time, bound
+    # and errors at the DRF's split-mode level (640 nodes)
+    res = b3["drf level 7"]
+    records.append({
+        "name": "histogram_batched", "route": "cuda",
+        "source": "h2o_kubernetes_tpu_torch/csrc/histogram.cu",
+        "replaces": "h2o_kubernetes_tpu/ops/histogram.py:399 "
+                    "(_hist_vmappable)",
+        "launches": sum(drf_batched.values()) + sum(mn_batched.values()),
+        "launches_drf": drf_batched, "launches_multinomial": mn_batched,
+        "max_abs_err": max(r["max_abs_err"] for r in b3.values()),
+        "ms": res["ms"], "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+        "library_ms": res["library_ms"], "level": "drf level 7",
+        "max_rel_err": max(r["max_rel_err"] for r in b3.values()),
+        "rel_limit": _HIST_REL_LIMIT, "drf_warm_train_s": drf_times,
+        "multinomial_warm_train_s": mn_times,
+        "levels": {k: {f: v[f] for f in (
+            "mode", "K", "n_nodes", "n_bins", "C", "ms", "plain_ms",
+            "library_ms", "bound_ms", "max_rel_err", "plain_rel_err",
+            "control_rel_err")} for k, v in b3.items()}})
     records[1]["launches_per_train"] = per_train
     records[1]["warm_train_s"] = train_times
     records[1]["levels"] = {

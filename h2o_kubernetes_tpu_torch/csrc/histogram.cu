@@ -1,38 +1,48 @@
 // Per-level histogram build of the tree learners, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of h2o_kubernetes_tpu/ops/histogram.py:
+// Replaces three TPU kernels of h2o_kubernetes_tpu/ops/histogram.py:
 // _hist_fact_kernel (B1, the factorized one-hot matmul used while
-// ceil(n_nodes*B/128) <= 256) and _hist_kernel (B2, the bin-blocked grid
-// for deeper levels). Both compute, for live rows (rel[r] >= 0),
-//   hist[rel[r], f, bins[f, r], c] += vals[r, c]     (f32, C channels)
-// into hist[n_nodes, F, B, C]. The one-hot matmul and its 3-term bf16
-// mantissa split are how a TPU scatters without atomics; on Hopper the
-// adds are plain f32 atomics into shared memory, so neither is carried
-// over.
+// ceil(n_nodes*B/128) <= 256), _hist_kernel (B2, the bin-blocked grid
+// for deeper levels) and _hist_vmappable (B3, K trees' histograms
+// against one binned matrix: the vmap rule relabels tree k's rows to
+// nodes [k*n_nodes, (k+1)*n_nodes) and re-reads the matrix K times).
+// All three compute, for tree k and its live rows (rel[k, r] >= 0),
+//   hist[k, rel[k, r], f, bins[f, r], c] += vals[k, r, c]   (f32, C chans)
+// into hist[K, n_nodes, F, B, C]; B1 and B2 are the K=1 case. The
+// one-hot matmul and its 3-term bf16 mantissa split are how a TPU
+// scatters without atomics; on Hopper the adds are plain f32 atomics
+// into shared memory, so neither is carried over.
 //
 // What bounds it on an H100: the bytes. Per level it reads F*rows codes
-// (uint8 for training, int16 for the 4096-bin AUC histogram), 4*rows of
-// rel and 4*C*rows of vals, and writes 4*n_nodes*F*B*C — ~26 MB at 1M
-// rows x 10 features, ~8 us at 3.35 TB/s — against F*C adds per live
-// row. The simple design below runs well above that floor: rows that
-// land in the same bin serialize on a shared-memory atomic (a column
-// with 8 levels sends every row of a CTA into 8 cells), and vals are
-// re-read once per feature.
+// (uint8 for training, int16 for the 4096-bin AUC histogram) ONCE for
+// all K trees, 4*K*rows of rel and 4*K*C*rows of vals, and writes
+// 4*K*n_nodes*F*B*C — ~26 MB at 1M rows x 10 features and K=1, ~8 us
+// at 3.35 TB/s — against F*C adds per live (tree, row). The simple
+// design below runs well above that floor: rows that land in the same
+// bin serialize on a shared-memory atomic (a column with 8 levels sends
+// every row of a CTA into 8 cells), and rel and vals are re-read once
+// per feature.
 //
-// Design: the grid is (feature, row block, node*bin range). A CTA zeroes
-// a private copy of its range of the feature's [n_nodes*B, C] histogram
-// in shared memory, adds its rows into it with shared-memory atomicAdd,
-// and then adds its nonzero cells into the global output with global
-// atomicAdd. The wrapper (ops/histogram.py) picks the range:
-// - shared mode: the whole n_nodes*B*C*4-byte histogram fits the 227 KB
-//   a block can opt into (up to 64 nodes at C=3, B=256) — one range;
+// Design: the grid is (feature, row block, node*bin range) over the
+// K*n_nodes nodes of all trees. A CTA zeroes a private copy of its
+// range of the feature's [K*n_nodes*B, C] histogram in shared memory. A
+// thread loads a row's code once, then loops over the trees: it reads
+// rel[k, r] and, for a live row whose cell falls in the CTA's range,
+// adds vals[k, r, :] into cell ((k*n_nodes + node)*B + code)*C with
+// shared-memory atomicAdd. The CTA then adds its nonzero cells into the
+// global output with global atomicAdd. The wrapper (ops/histogram.py)
+// picks the range:
+// - shared mode: the whole K*n_nodes*B*C*4-byte histogram fits the
+//   227 KB a block can opt into (up to 64 nodes at C=3, B=256) — one
+//   range;
 // - split mode: it does not (128 nodes and more at C=3, B=256), so the
 //   node*bin axis is cut into ranges that fit, one per blockIdx.z, and
-//   each CTA skips the rows outside its range (B2's bin-blocked grid as
-//   an idea).
+//   each CTA skips the cells outside its range (B2's bin-blocked grid
+//   as an idea).
 // Atomic order varies from run to run, so a result is reproducible only
-// where every partial sum is exact (e.g. dyadic values); elsewhere it
-// agrees with the plain version within f32 rounding.
+// where every partial sum is exact (e.g. dyadic values, or DRF's
+// integer counts); elsewhere it agrees with the plain version within
+// f32 rounding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,11 +54,11 @@ constexpr int kThreads = 512;
 template <typename Code>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const Code* __restrict__ bins,     // [F, rows]
-            const int32_t* __restrict__ rel,   // [rows], -1 = dead
-            const float* __restrict__ vals,    // [rows, C]
-            float* __restrict__ out,           // [n_nodes, F, B, C], zeroed
-            int F, int B, int C, long long rows, long long total_segs,
-            int range_segs) {
+            const int32_t* __restrict__ rel,   // [K, rows], -1 = dead
+            const float* __restrict__ vals,    // [K, rows, C]
+            float* __restrict__ out,           // [K, n_nodes, F, B, C], 0
+            int K, int n_nodes, int F, int B, int C, long long rows,
+            long long total_segs, int range_segs) {
   extern __shared__ float sh[];
   const int f = blockIdx.x;
   const long long seg_lo = static_cast<long long>(blockIdx.z) * range_segs;
@@ -63,14 +73,19 @@ hist_kernel(const Code* __restrict__ bins,     // [F, rows]
   const long long r1 = r0 + per_block < rows ? r0 + per_block : rows;
   const Code* fb = bins + static_cast<size_t>(f) * rows;
   for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int node = __ldg(rel + r);
     const int code = static_cast<int>(fb[r]);
-    if (node < 0 || code < 0 || code >= B) continue;
-    const long long s = static_cast<long long>(node) * B + code - seg_lo;
-    if (s < 0 || s >= n_segs) continue;
-    const float* v = vals + r * C;
-    float* cell = sh + s * C;
-    for (int c = 0; c < C; ++c) atomicAdd(cell + c, __ldg(v + c));
+    if (code < 0 || code >= B) continue;
+    for (int k = 0; k < K; ++k) {
+      const long long kr = static_cast<long long>(k) * rows + r;
+      const int node = __ldg(rel + kr);
+      if (node < 0 || node >= n_nodes) continue;
+      const long long s =
+          (static_cast<long long>(k) * n_nodes + node) * B + code - seg_lo;
+      if (s < 0 || s >= n_segs) continue;
+      const float* v = vals + kr * C;
+      float* cell = sh + s * C;
+      for (int c = 0; c < C; ++c) atomicAdd(cell + c, __ldg(v + c));
+    }
   }
   __syncthreads();
 
@@ -88,12 +103,12 @@ hist_kernel(const Code* __restrict__ bins,     // [F, rows]
 
 template <typename Code>
 int launch(const void* bins, const void* rel, const void* vals, void* out,
-           int n_nodes, int F, int B, int C, long long rows, int range_segs,
-           int row_blocks, int device, void* stream) {
+           int K, int n_nodes, int F, int B, int C, long long rows,
+           int range_segs, int row_blocks, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
-  const long long total = static_cast<long long>(n_nodes) * B;
+  const long long total = static_cast<long long>(K) * n_nodes * B;
   const long long n_ranges = (total + range_segs - 1) / range_segs;
   const long long seg_cap = total < range_segs ? total : range_segs;
   const size_t smem = static_cast<size_t>(seg_cap) * C * sizeof(float);
@@ -105,8 +120,8 @@ int launch(const void* bins, const void* rel, const void* vals, void* out,
   hist_kernel<Code><<<grid, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Code*>(bins), static_cast<const int32_t*>(rel),
-      static_cast<const float*>(vals), static_cast<float*>(out), F, B, C,
-      rows, total, range_segs);
+      static_cast<const float*>(vals), static_cast<float*>(out), K,
+      n_nodes, F, B, C, rows, total, range_segs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -116,19 +131,19 @@ int launch(const void* bins, const void* rel, const void* vals, void* out,
 // pointers; stream is a cudaStream_t. Returns cudaGetLastError() after
 // the launch (0 = launched).
 extern "C" int hist_launch_u8(const void* bins, const void* rel,
-                              const void* vals, void* out, int n_nodes,
-                              int F, int B, int C, long long rows,
-                              int range_segs, int row_blocks, int device,
-                              void* stream) {
-  return launch<uint8_t>(bins, rel, vals, out, n_nodes, F, B, C, rows,
+                              const void* vals, void* out, int K,
+                              int n_nodes, int F, int B, int C,
+                              long long rows, int range_segs,
+                              int row_blocks, int device, void* stream) {
+  return launch<uint8_t>(bins, rel, vals, out, K, n_nodes, F, B, C, rows,
                          range_segs, row_blocks, device, stream);
 }
 
 extern "C" int hist_launch_i16(const void* bins, const void* rel,
-                               const void* vals, void* out, int n_nodes,
-                               int F, int B, int C, long long rows,
-                               int range_segs, int row_blocks, int device,
-                               void* stream) {
-  return launch<int16_t>(bins, rel, vals, out, n_nodes, F, B, C, rows,
+                               const void* vals, void* out, int K,
+                               int n_nodes, int F, int B, int C,
+                               long long rows, int range_segs,
+                               int row_blocks, int device, void* stream) {
+  return launch<int16_t>(bins, rel, vals, out, K, n_nodes, F, B, C, rows,
                          range_segs, row_blocks, device, stream);
 }

@@ -1,4 +1,5 @@
-"""Model metrics of the training slice: AUC, logloss, RMSE, MAE, R².
+"""Model metrics of the training slices: AUC, logloss, multinomial
+logloss, accuracy, RMSE, MAE, R².
 
 Inputs may be numpy arrays or tensors; the metric runs on the device
 of ``score``/``pred`` when that is a tensor (the CPU otherwise) and
@@ -11,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["roc_auc", "logloss", "rmse", "mae", "r2",
-           "mean_residual_deviance"]
+__all__ = ["roc_auc", "logloss", "multinomial_logloss", "accuracy",
+           "rmse", "mae", "r2", "mean_residual_deviance"]
 
 _AUC_BINS = 4096        # score-histogram bins of the AUC's histogram path
 _AUC_EXACT_MAX = 65536  # above this many rows the histogram path is used
@@ -112,6 +113,32 @@ def logloss(y_true, p, eps: float = 1e-7, w=None) -> float:
     out = -torch.sum(wt * torch.where(live, ll, 0.0), dtype=_ACC) \
         / torch.sum(wt, dtype=_ACC)
     return float(torch.where(bad, float("nan"), out))
+
+
+def multinomial_logloss(y_true, probs, eps: float = 1e-7, w=None
+                        ) -> float:
+    """y_true: [n] class ids; probs: [n, K] -> mean -log p[y] with p
+    clamped to [eps, 1]."""
+    dev = probs.device if isinstance(probs, torch.Tensor) else "cpu"
+    yraw = _vec(y_true, dev)
+    y = torch.nan_to_num(yraw).long()
+    p = torch.as_tensor(probs, dtype=torch.float32, device=dev)
+    ll = torch.log(torch.clamp(p, eps, 1.0).gather(1, y[:, None])[:, 0])
+    if w is None:
+        return float(-torch.mean(ll, dtype=_ACC))
+    wt = _vec(w, dev)
+    live = wt > 0
+    bad = (live & torch.isnan(yraw)).any()
+    out = -torch.sum(wt * torch.where(live, ll, 0.0), dtype=_ACC) \
+        / torch.sum(wt, dtype=_ACC)
+    return float(torch.where(bad, float("nan"), out))
+
+
+def accuracy(y_true, label) -> float:
+    """Share of rows whose label equals the response."""
+    dev = label.device if isinstance(label, torch.Tensor) else "cpu"
+    y, lab = _vec(y_true, dev), _vec(label, dev)
+    return float(torch.mean((y == lab).to(_ACC)))
 
 
 def rmse(y_true, pred, w=None) -> float:

@@ -473,10 +473,11 @@ class Model:
 
     def model_performance(self, frame, y: str) -> dict[str, float]:
         """Metrics of this model on ``frame``'s response ``y`` (rows with
-        an NA response dropped): binomial auc/logloss/rmse; regression
-        rmse/mae/r2/mean_residual_deviance. Scores, response and metrics
-        stay on the model's device (on a card the AUC's score histogram
-        is the CUDA kernel's)."""
+        an NA response dropped): binomial auc/logloss/rmse; multinomial
+        logloss/accuracy/mean_per_class_error and the macro one-vs-rest
+        auc; regression rmse/mae/r2/mean_residual_deviance. Scores,
+        response and metrics stay on the model's device (on a card each
+        AUC's score histogram is the CUDA kernel's)."""
         from .. import metrics as M
 
         out = self._predict_device(frame)
@@ -491,9 +492,20 @@ class Model:
             return {"auc": M.roc_auc(yt, p1), "logloss": M.logloss(yt, p1),
                     "rmse": M.rmse(yt, p1)}
         if self.nclasses > 2:
-            raise NotImplementedError(
-                "multinomial metrics are not ported (ROADMAP Queue 1 "
-                "item 6)")
+            lab = out.argmax(dim=1)
+            yc = yt.long()
+            present = [k for k in range(self.nclasses)
+                       if bool((yc == k).any())]
+            # mean per-class error: the mean of 1 - recall over the
+            # classes present; auc: the macro one-vs-rest mean
+            errs = [float((lab[yc == k] != k).double().mean())
+                    for k in present]
+            aucs = [M.roc_auc((yc == k).float(), out[:, k])
+                    for k in present]
+            return {"logloss": M.multinomial_logloss(yt, out),
+                    "accuracy": M.accuracy(yt, lab),
+                    "mean_per_class_error": float(np.mean(errs)),
+                    "auc": float(np.mean(aucs))}
         return {"rmse": M.rmse(yt, out), "mae": M.mae(yt, out),
                 "r2": M.r2(yt, out),
                 "mean_residual_deviance": M.mean_residual_deviance(yt, out)}

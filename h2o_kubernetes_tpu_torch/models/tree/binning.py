@@ -8,12 +8,12 @@ contiguous code ranges share bins through synthetic numeric edges.
 The port stores the binned matrix FEATURE-MAJOR, [F, rows] uint8: a
 histogram CTA that reads one feature's codes gets coalesced loads.
 
-Quantile edges match the JAX package bit for bit at up to
-``_QUANTILE_SAMPLE`` (65,536) rows. Above that both packages fit the
-edges on a 65,536-row sample drawn with replacement, but the JAX
-package draws it with threefry (``jax.random.key(0x51BB)``) and the
-port with a ``torch.Generator`` seeded with the same number, so the
-samples — and the edges — differ.
+Quantile edges match the JAX package bit for bit. Above
+``_QUANTILE_SAMPLE`` (65,536) rows both packages fit the edges on a
+65,536-row sample drawn with replacement by
+``randint(key(0x51BB), (65536,), 0, rows)``: the JAX package with
+``jax.random``, the port with its threefry twin (``runtime/prng.py``),
+so the samples are the same rows.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ...runtime import prng
 
 __all__ = ["BinSpec", "fit_bins", "apply_bins", "bin_frame",
            "fused_fit_bins"]
@@ -93,9 +95,8 @@ def _sampled_feature_matrix(num_cols: list[torch.Tensor]) -> torch.Tensor:
     sample of them past ``_QUANTILE_SAMPLE`` rows (the ONE draw site)."""
     n = num_cols[0].shape[0]
     if n > _QUANTILE_SAMPLE:
-        g = torch.Generator().manual_seed(_SAMPLE_SEED)
-        idx = torch.randint(0, n, (_QUANTILE_SAMPLE,), generator=g)
-        idx = idx.to(num_cols[0].device)
+        idx = prng.randint(prng.key(_SAMPLE_SEED, num_cols[0].device),
+                           (_QUANTILE_SAMPLE,), 0, n)
         num_cols = [c[idx] for c in num_cols]
     return torch.stack(num_cols, dim=0)
 

@@ -1,20 +1,29 @@
-"""The tree core: histogram tree growing, the plain GBM boosting loop,
-and flattened tree-ensemble scoring on raw features.
+"""The tree core: histogram tree growing, the GBM (binomial, gaussian,
+multinomial) and DRF loops, and flattened tree-ensemble scoring on raw
+features.
 
-Growing (the JAX package's ``_grow_tree_shard``, on one device): per
-level every live row's (g·w, h·w, w) is added into a per-node,
-per-feature, per-bin histogram (``ops/histogram.build_histogram``, the
-CUDA kernel on a card), and the best split per node is an argmax over
-(feature, bin). Rows carry a relative node id, -1 once dead; trees are
-dense heaps padded to ``max_depth`` (node i has children 2i+1, 2i+2).
+Growing (the JAX package's ``_grow_tree_shard``, on one device) grows
+T trees at once against one binned matrix: per level every live row's
+(g·w, h·w, w) is added, per tree, into a per-node, per-feature, per-bin
+histogram (``ops/histogram.build_histogram``, one batched CUDA kernel
+launch for all T trees on a card), and the best split per node is an
+argmax over (feature, bin) among the node's allowed features (a
+per-tree column sample and DRF's per-node ``mtries`` draw). Binomial
+GBM grows T=1; multinomial GBM the K class trees of a round; DRF a
+group of G forest trees. Every random draw is the JAX package's, from
+the threefry twin (``runtime/prng.py``). Rows carry a relative node
+id, -1 once dead; trees are dense heaps padded to ``max_depth`` (node
+i has children 2i+1, 2i+2).
 Split semantics: ``bin <= split_bin`` goes left; the NA bin is the last
 bin and ``na_left`` records the learned NA direction. The binned matrix
 is feature-major, [F, rows] uint8.
 
-The JAX package sums each level's histograms over 8 row shards
+The JAX package sums each level's histograms over its row shards
 (``lax.psum``); the port sums on one device in another f32 order, so
 trees agree bitwise only where every sum is exact (dyadic gradients and
-weights) and within f32 rounding elsewhere.
+weights; DRF's integer counts) and within f32 rounding elsewhere. Row
+sampling folds the shard index into its key: the port draws as shard 0
+of a one-shard mesh.
 
 ``FlatTrees`` are the compact serving arrays a MOJO-v2 artifact
 carries (``flat_*``): per tree, the reachable nodes in BFS slot order,
@@ -29,10 +38,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...config import hist_bytes_budget
 from ...ops.histogram import build_histogram, expand_unit_hess
+from ...runtime import prng
 
 __all__ = ["TreeParams", "Tree", "BoostParams", "grow_tree",
-           "boost_trees", "descend_tree", "predict_tree", "flatten_trees",
+           "boost_trees", "boost_trees_multi", "boost_trees_drf",
+           "draws_random", "drf_group_size", "level_hist_bytes", "descend_tree",
+           "predict_tree", "flatten_trees",
            "flatten_cover", "FlatTrees", "flat_margin"]
 
 # rounds descended together: bounds the [rounds·K, rows] int64 node
@@ -49,6 +62,7 @@ class TreeParams(NamedTuple):
     gamma: float = 0.0              # min split gain improvement
     min_child_weight: float = 0.0   # min hessian mass per child
     unit_hess: bool = False         # h ≡ 1 loss: 2-channel histograms
+    mtries: int = -1                # features drawn per node (DRF); <= 0 all
 
 
 class Tree(NamedTuple):
@@ -91,11 +105,12 @@ def _split_gains(left, tot4, p: TreeParams):
     return torch.where(ok, raw, float("-inf"))
 
 
-def _find_splits(hist, p: TreeParams):
+def _find_splits(hist, p: TreeParams, feat_ok=None):
     """Best split per node from a [n_nodes, F, B, 3] histogram.
 
     Every (feature, threshold-bin) cut is scored with the NA bin (last)
-    on each side in turn; the argmax runs over the feature-major,
+    on each side in turn, over the features ``feat_ok`` ([n_nodes, F]
+    bool, None = all) allows; the argmax runs over the feature-major,
     bin-minor flattening and the first maximum wins. Returns (feat, bin,
     na_left, can_split, node_value, best_gain, cover, left, right);
     left/right are the chosen split's side totals [n, 3], which are the
@@ -110,6 +125,8 @@ def _find_splits(hist, p: TreeParams):
     gain_na_l = _split_gains(cum_na, tot4, p)           # NA goes left
     na_left_better = gain_na_l > gain_na_r
     gain = torch.maximum(gain_na_l, gain_na_r)          # [n, F, B-1]
+    if feat_ok is not None:
+        gain = torch.where(feat_ok[:, :, None], gain, float("-inf"))
     n_nodes, F = gain.shape[0], gain.shape[1]
     flat = gain.reshape(n_nodes, F * (nb - 1))
     best = torch.argmax(flat, dim=1)
@@ -142,28 +159,56 @@ def _hist(binned, rel, g, h, w, n_nodes, n_bins, p: TreeParams):
     return expand_unit_hess(hist) if p.unit_hess else hist
 
 
-def _grow_tree(binned, g, h, w, p: TreeParams):
-    """One tree over all rows -> (Tree, leaf_node): ``leaf_node`` is each
-    row's final heap index, so the boosting loop reads
-    ``tree.value[leaf_node]`` instead of re-descending.
+def _feat_ok(col_mask, keys, d: int, n_nodes: int, F: int,
+             p: TreeParams):
+    """[T, n_nodes, F] allowed features of a level, or None for all:
+    the per-tree column mask, then (DRF) exactly ``mtries`` features per
+    node — the ``mtries`` smallest of ``uniform(fold_in(key_t, d),
+    (n_nodes, F))`` among the allowed ones."""
+    if col_mask is None and not 0 < p.mtries < F:
+        return None
+    T = keys.shape[0] if keys is not None else col_mask.shape[0]
+    dev = keys.device if keys is not None else col_mask.device
+    ok = torch.ones((T, n_nodes, F), dtype=torch.bool, device=dev)
+    if col_mask is not None:
+        ok = ok & col_mask[:, None, :]
+    if 0 < p.mtries < F:
+        r = prng.uniform(prng.fold_in(keys, d), (n_nodes, F))
+        r = torch.where(ok, r, float("inf"))
+        kth = torch.sort(r, dim=2).values[..., p.mtries - 1: p.mtries]
+        ok = ok & (r <= kth)
+    return ok
 
-    Per level after the root, only LEFT children are histogrammed and
-    right = parent - left (sibling subtraction; children of unsplit
-    parents are zeroed). The final level's leaves take their totals
-    from the parent split's side stats, with no histogram pass, except
-    for a depth-0 stump, which needs one single-bin pass."""
+
+def _grow_trees(binned, g, h, w, p: TreeParams, keys=None, col_mask=None):
+    """T trees at once over all rows -> (Tree [T, N], leaf [T, rows]):
+    ``leaf`` is each row's final heap index per tree, so the boosting
+    loop reads ``tree.value[leaf]`` instead of re-descending.
+
+    g, h, w: [T, rows], or [rows] shared by every tree (broadcast).
+    keys: [T, 2] per-tree threefry keys, needed when ``p.mtries`` is in
+    (0, F); col_mask: [T, F] bool per-tree column sample, or None.
+
+    Each level builds ONE batched histogram for all T trees (kernel B3
+    on a card). Per level after the root, only LEFT children are
+    histogrammed and right = parent - left per tree (sibling
+    subtraction; children of unsplit parents are zeroed). The final
+    level's leaves take their totals from the parent split's side
+    stats, with no histogram pass, except for a depth-0 stump, which
+    needs one single-bin pass."""
     F, rows = binned.shape
     dev = binned.device
+    T = torch.broadcast_shapes(g.shape, h.shape, w.shape, (1, rows))[0]
     N = 2 ** (p.max_depth + 1) - 1
-    split_feat = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    split_bin = torch.zeros(N, dtype=torch.int32, device=dev)
-    na_left = torch.zeros(N, dtype=torch.bool, device=dev)
-    is_split = torch.zeros(N, dtype=torch.bool, device=dev)
-    value = torch.zeros(N, dtype=torch.float32, device=dev)
-    gain = torch.zeros(N, dtype=torch.float32, device=dev)
-    cover = torch.zeros(N, dtype=torch.float32, device=dev)
-    rel = torch.zeros(rows, dtype=torch.int32, device=dev)
-    abs_node = torch.zeros(rows, dtype=torch.int64, device=dev)
+    split_feat = torch.full((T, N), -1, dtype=torch.int32, device=dev)
+    split_bin = torch.zeros((T, N), dtype=torch.int32, device=dev)
+    na_left = torch.zeros((T, N), dtype=torch.bool, device=dev)
+    is_split = torch.zeros((T, N), dtype=torch.bool, device=dev)
+    value = torch.zeros((T, N), dtype=torch.float32, device=dev)
+    gain = torch.zeros((T, N), dtype=torch.float32, device=dev)
+    cover = torch.zeros((T, N), dtype=torch.float32, device=dev)
+    rel = torch.zeros((T, rows), dtype=torch.int32, device=dev)
+    abs_node = torch.zeros((T, rows), dtype=torch.int64, device=dev)
     ar = torch.arange(rows, device=dev)
     for d in range(p.max_depth + 1):
         n_nodes = 2 ** d
@@ -172,48 +217,61 @@ def _grow_tree(binned, g, h, w, p: TreeParams):
             if d == 0:
                 zero_bin = torch.zeros((1, rows), dtype=torch.uint8,
                                        device=dev)
-                tot = _hist(zero_bin, rel, g, h, w, 1, 1, p)[:, 0, 0, :]
+                tot = _hist(zero_bin, rel, g, h, w, 1, 1, p)[:, :, 0, 0]
             else:
-                tot = torch.where(can_prev[:, None, None],
-                                  torch.stack([left_prev, right_prev], 1),
-                                  0.0).reshape(n_nodes, 3)
-            value[idx] = _leaf_value(tot[:, 0], tot[:, 1], p)
-            cover[idx] = tot[:, 2]
+                tot = torch.where(can_prev[..., None, None],
+                                  torch.stack([left_prev, right_prev], 2),
+                                  0.0).reshape(T, n_nodes, 3)
+            value[:, idx] = _leaf_value(tot[..., 0], tot[..., 1], p)
+            cover[:, idx] = tot[..., 2]
             break
         if d == 0:
             hist = _hist(binned, rel, g, h, w, 1, p.n_bins, p)
         else:
-            left_rel = torch.where((rel >= 0) & (rel % 2 == 0), rel // 2, -1)
+            left_rel = torch.where((rel >= 0) & (rel % 2 == 0), rel // 2,
+                                   -1)
             hist_l = _hist(binned, left_rel, g, h, w, n_nodes // 2,
                            p.n_bins, p)
-            keep = can_prev[:, None, None, None]
+            keep = can_prev[..., None, None, None]
             hist_l = torch.where(keep, hist_l, 0.0)
             hist_r = torch.where(keep, hist_prev, 0.0) - hist_l
-            hist = torch.stack([hist_l, hist_r], dim=1).reshape(
-                n_nodes, F, p.n_bins, 3)
+            hist = torch.stack([hist_l, hist_r], dim=2).reshape(
+                T, n_nodes, F, p.n_bins, 3)
+        ok = _feat_ok(col_mask, keys, d, n_nodes, F, p)
+        out = _find_splits(hist.reshape(T * n_nodes, F, p.n_bins, 3), p,
+                           None if ok is None else ok.reshape(-1, F))
         (feat, bin_, na_l, can, val, g_best, cov, left_prev,
-         right_prev) = _find_splits(hist, p)
-        split_feat[idx] = torch.where(can, feat, -1)
-        split_bin[idx] = bin_
-        na_left[idx] = na_l
-        is_split[idx] = can
-        value[idx] = val
-        gain[idx] = torch.where(can, g_best, 0.0)
-        cover[idx] = cov
+         right_prev) = (a.reshape((T, n_nodes) + a.shape[1:])
+                        for a in out)
+        split_feat[:, idx] = torch.where(can, feat, -1)
+        split_bin[:, idx] = bin_
+        na_left[:, idx] = na_l
+        is_split[:, idx] = can
+        value[:, idx] = val
+        gain[:, idx] = torch.where(can, g_best, 0.0)
+        cover[:, idx] = cov
         hist_prev, can_prev = hist, can
         # descend: dead rows stay dead; rows in unsplit nodes die
         live = rel >= 0
         safe = torch.where(live, rel, 0).long()
-        rowbin = row_orig_bins(binned, feat[safe], ar)
-        go_right = torch.where(rowbin == p.n_bins - 1, ~na_l[safe],
-                               rowbin > bin_[safe])
+        rowbin = row_orig_bins(binned, feat.gather(1, safe), ar)
+        go_right = torch.where(rowbin == p.n_bins - 1,
+                               ~na_l.gather(1, safe),
+                               rowbin > bin_.gather(1, safe))
         child = 2 * rel + go_right.to(torch.int32)
-        moved = live & can[safe]
+        moved = live & can.gather(1, safe)
         rel = torch.where(moved, child, -1).to(torch.int32)
         abs_node = torch.where(moved, (2 ** (d + 1) - 1) + child.long(),
                                abs_node)
     return Tree(split_feat, split_bin, na_left, is_split, value, gain,
                 cover), abs_node
+
+
+def _grow_tree(binned, g, h, w, p: TreeParams):
+    """One tree: the T=1 case of ``_grow_trees`` -> (Tree [N],
+    leaf [rows])."""
+    tree, leaf = _grow_trees(binned, g, h, w, p)
+    return Tree(*(a[0] for a in tree)), leaf[0]
 
 
 def grow_tree(binned, g, h, w, p: TreeParams) -> Tree:
@@ -230,8 +288,8 @@ def _grad_hess(distribution: str, margin, y):
         pr = torch.sigmoid(margin)
         return pr - y, pr * (1.0 - pr)
     raise NotImplementedError(
-        f"distribution '{distribution}' is not ported (bernoulli and "
-        "gaussian are; the rest: ROADMAP Queue 1 item 6)")
+        f"distribution '{distribution}' is not ported (bernoulli, "
+        "gaussian and multinomial are; the rest: ROADMAP Queue 1 item 6b)")
 
 
 class BoostParams(NamedTuple):
@@ -239,21 +297,139 @@ class BoostParams(NamedTuple):
 
     distribution: str = "gaussian"
     learn_rate: float = 0.1
+    sample_rate: float = 1.0
+    col_sample_rate_per_tree: float = 1.0
+    drf_mode: bool = False
+
+
+def draws_random(p: TreeParams, bp: BoostParams, F: int) -> bool:
+    """Whether a round draws random numbers: a row sample, a column
+    sample, or a per-node feature draw. Without any, no keys are made."""
+    return (bp.sample_rate < 1.0 or bp.col_sample_rate_per_tree < 1.0
+            or 0 < p.mtries < F)
+
+
+def _round_subkeys(keys, n: int):
+    """[n, 2] round keys (or None) -> per round (row, column, tree) keys,
+    each [n, 1, 2] (or Nones): one batched split for every round."""
+    if keys is None:
+        return [None] * n, [None] * n, [None] * n
+    sub = prng.split(keys, 3)                                 # [n, 3, 2]
+    return sub[:, 0:1], sub[:, 1:2], sub[:, 2:3]
+
+
+def _round_sampling(bp: BoostParams, w, F: int, k_row, k_col):
+    """Row and column sampling of a round, per key: [T, 2] keys ->
+    (w_t [T, rows] or w itself, col_mask [T, F] or None). The JAX
+    package folds its row-shard index into the row key; the port is one
+    shard, index 0."""
+    w_t = w
+    if bp.sample_rate < 1.0:
+        keep = prng.uniform(prng.fold_in(k_row, 0), w.shape) \
+            < bp.sample_rate
+        w_t = w * keep
+    col_mask = None
+    if bp.col_sample_rate_per_tree < 1.0:
+        col_mask = prng.uniform(k_col, (F,)) < bp.col_sample_rate_per_tree
+    return w_t, col_mask
 
 
 def boost_trees(binned, y, w, margin, n_trees: int, p: TreeParams,
-                bp: BoostParams) -> tuple[torch.Tensor, Tree]:
-    """``n_trees`` boosting rounds: grad/hess -> grow -> margin update,
-    with the margin kept on its device. Returns (margin, trees stacked
-    [T, N])."""
+                bp: BoostParams, keys=None) -> tuple[torch.Tensor, Tree]:
+    """``n_trees`` boosting rounds, one tree each: sampling -> grad/hess
+    -> grow -> margin update, with the margin kept on its device.
+    ``keys``: the [n_trees, 2] round keys when ``draws_random``.
+    Returns (margin, trees stacked [T, N])."""
+    F = binned.shape[0]
+    k_row, k_col, k_tree = _round_subkeys(keys, n_trees)
     trees = []
-    for _ in range(n_trees):
+    for r in range(n_trees):
+        w_t, col_mask = _round_sampling(bp, w, F, k_row[r], k_col[r])
         g, h = _grad_hess(bp.distribution, margin, y)
-        tree, leaf = _grow_tree(binned, g, h, w, p)
+        tree, leaf = _grow_trees(binned, g, h, w_t, p, k_tree[r], col_mask)
         tree = tree._replace(value=bp.learn_rate * tree.value)
-        margin = margin + tree.value[leaf]
+        margin = margin + tree.value[0][leaf[0]]
         trees.append(tree)
-    return margin, Tree(*(torch.stack(a) for a in zip(*trees)))
+    return margin, Tree(*(torch.cat(a) for a in zip(*trees)))
+
+
+def boost_trees_multi(binned, y, w, margin, n_trees: int, K: int,
+                      p: TreeParams, bp: BoostParams, G: int, keys=None
+                      ) -> tuple[torch.Tensor, Tree]:
+    """Multinomial rounds: K class trees per round from one row sample
+    and one column mask, grown G at a time through the batched
+    histogram, softmax gradients (DRF: g = -onehot(y), h = 1, margin
+    untouched). ``margin`` is [rows, K]; ``keys`` as in
+    ``boost_trees``. Returns (margin, trees interleaved class-fastest
+    [n_trees·K, N])."""
+    F = binned.shape[0]
+    cls = torch.arange(K, dtype=y.dtype, device=y.device)
+    yk = (y[None, :] == cls[:, None]).to(torch.float32)      # [K, rows]
+    k_row, k_col, k_tree = _round_subkeys(keys, n_trees)
+    trees = []
+    for r in range(n_trees):
+        w_t, col_mask = _round_sampling(bp, w, F, k_row[r], k_col[r])
+        if bp.drf_mode:
+            g, h = -yk, torch.ones_like(yk)
+        else:
+            probs = torch.softmax(margin, dim=1).T             # [K, rows]
+            g, h = probs - yk, probs * (1.0 - probs)
+        keys_k = None if keys is None else prng.split(k_tree[r][0], K)
+        parts = []
+        for k0 in range(0, K, G):
+            k1 = min(K, k0 + G)
+            cm = None if col_mask is None else col_mask.expand(k1 - k0, F)
+            parts.append(_grow_trees(
+                binned, g[k0:k1], h[k0:k1], w_t, p,
+                None if keys_k is None else keys_k[k0:k1], cm))
+        tree = Tree(*(torch.cat(a) for a in zip(*(t for t, _ in parts))))
+        tree = tree._replace(value=bp.learn_rate * tree.value)
+        if not bp.drf_mode:
+            leaf = torch.cat([lf for _, lf in parts])          # [K, rows]
+            margin = margin + tree.value.gather(1, leaf).T
+        trees.append(tree)
+    return margin, Tree(*(torch.cat(a) for a in zip(*trees)))
+
+
+def drf_group_size(n_trees: int, p: TreeParams, F: int) -> tuple[int, int]:
+    """(G, rounds): trees grown at once, G ≤ 16, so that G trees' live
+    level histograms fit min(2^30, ``H2O_TPU_HIST_BYTES_BUDGET``) bytes
+    (the JAX package's rule for its vmapped groups), then rebalanced to
+    ceil(n_trees / rounds) for the least padding."""
+    budget = min(2 ** 30, int(hist_bytes_budget()))
+    G = int(max(1, min(n_trees, 16, budget // level_hist_bytes(p, F))))
+    rounds = -(-n_trees // G)
+    return -(-n_trees // rounds), rounds
+
+
+def boost_trees_drf(binned, y, w, n_trees: int, p: TreeParams,
+                    bp: BoostParams, keys=None) -> Tree:
+    """A forest of ``n_trees`` independent trees, G at a time
+    (``drf_group_size``): per tree a bootstrap row sample and a column
+    mask from its own [2] key of ``keys`` (as in ``boost_trees``),
+    g = -y, h = 1. The trees cannot depend on G: each tree's draws come
+    from its own key, and the threefry draws are prefix-stable."""
+    F = binned.shape[0]
+    G, _ = drf_group_size(n_trees, p, F)
+    g, h = -y, torch.ones_like(y)
+    trees = []
+    for t0 in range(0, n_trees, G):
+        k_row = k_col = k_tree = None
+        if keys is not None:
+            k_row, k_col, k_tree = prng.split(keys[t0:t0 + G], 3).unbind(1)
+        w_t, col_mask = _round_sampling(bp, w, F, k_row, k_col)
+        if w_t.dim() == 1:                 # no row sample: G copies of w
+            w_t = w_t.expand(min(G, n_trees - t0), -1)
+        trees.append(_grow_trees(binned, g, h, w_t, p, k_tree,
+                                 col_mask)[0])
+    return Tree(*(torch.cat(a) for a in zip(*trees)))
+
+
+def level_hist_bytes(p: TreeParams, F: int) -> int:
+    """Peak live histogram bytes of one tree's deepest level (parent,
+    left, right and the stacked level), the budget check's measure."""
+    C = 2 if p.unit_hess else 3
+    return 5 * (2 ** max(p.max_depth - 1, 0)) * F * p.n_bins * C * 4
 
 
 def descend_tree(tree: Tree, binned, max_depth: int, n_bins: int):

@@ -1,0 +1,128 @@
+"""A bitwise twin of ``jax.random``'s default generator, threefry2x32.
+
+The JAX package draws every random number of training with
+``jax.random`` (the default ``threefry2x32`` implementation, with
+``jax_threefry_partitionable`` on): the bin-edge row sample, DRF's
+per-tree bootstrap, the per-tree column mask and the per-node mtries
+feature draw. A ``torch.Generator`` gives other numbers from the same
+seed, so a seeded model would grow other trees. This module computes
+the same bits:
+
+- ``key(seed)``: the raw key ``[seed >> 32, seed & 0xFFFFFFFF]``;
+- ``split(key, n)``: the partitionable ("fold-like") split, threefry of
+  the counters ``(i >> 32, i & 0xFFFFFFFF)`` for i < n;
+- ``fold_in(key, data)``: threefry of the pair ``(0, data)``;
+- ``random_bits(key, shape)``: 32-bit draws, ``y0 ^ y1`` of the
+  threefry of each element's row-major counter;
+- ``uniform(key, shape)``: the mantissa trick,
+  ``f32(bits >> 9 | 0x3F800000) - 1``;
+- ``randint(key, shape, lo, hi)``: two 32-bit draws per value combined
+  by the multiply-mod of ``jax.random.randint`` (int32 sampling).
+
+Keys are explicit int64 tensors of shape [..., 2] holding uint32 words;
+there is no global state. A leading batch of keys ([T, 2]) draws T
+independent streams at once ([T, *shape]). torch's uint32 lacks the
+shifts and arithmetic, so every word is an int64 masked to 32 bits.
+Because every draw is a function of the element's counter alone,
+draws are prefix-stable: ``split(k, 16)[:10] == split(k, 10)`` and
+``uniform(k, (10,))[:5] == uniform(k, (5,))``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint",
+           "threefry2x32"]
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The threefry2x32 block (20 rounds) of ``jax._src.prng``: key
+    words k0, k1 and counter words x0, x1 (int64 tensors of uint32
+    values, broadcast together) -> the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.key(seed)`` as its raw [2] words."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & _M32, seed & _M32],
+                        dtype=torch.int64, device=device)
+
+
+def _counts(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return i >> 32, i & _M32
+
+
+def _words(k: torch.Tensor, extra_dims: int):
+    """The key words of a [..., 2] key, shaped to broadcast against
+    ``extra_dims`` trailing counter dimensions."""
+    shape = k.shape[:-1] + (1,) * extra_dims
+    return k[..., 0].reshape(shape), k[..., 1].reshape(shape)
+
+
+def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """[..., 2] key -> [..., n, 2] keys (``jax.random.split``)."""
+    c0, c1 = _counts(n, k.device)
+    k0, k1 = _words(k, 1)
+    y0, y1 = threefry2x32(k0, k1, c0, c1)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
+    """[..., 2] key -> [..., 2] key (``jax.random.fold_in``)."""
+    y0, y1 = threefry2x32(k[..., 0], k[..., 1], 0, int(data) & _M32)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
+    """[..., 2] key -> [..., *shape] uint32 words (int64)."""
+    shape = tuple(int(s) for s in shape)
+    c0, c1 = _counts(math.prod(shape), k.device)
+    k0, k1 = _words(k, 1)
+    y0, y1 = threefry2x32(k0, k1, c0, c1)
+    return (y0 ^ y1).reshape(k.shape[:-1] + shape)
+
+
+def uniform(k: torch.Tensor, shape) -> torch.Tensor:
+    """[..., 2] key -> [..., *shape] float32 in [0, 1)
+    (``jax.random.uniform``)."""
+    bits = (random_bits(k, shape) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(k: torch.Tensor, shape, lo: int, hi: int) -> torch.Tensor:
+    """[..., 2] key -> [..., *shape] int64 in [lo, hi)
+    (``jax.random.randint`` with its default int32 sampling)."""
+    if not -2 ** 31 <= lo < hi <= 2 ** 31 - 1:
+        raise ValueError(f"randint needs -2^31 <= lo < hi < 2^31, got "
+                         f"[{lo}, {hi})")
+    ks = split(k, 2)
+    higher = random_bits(ks[..., 0, :], shape)
+    lower = random_bits(ks[..., 1, :], shape)
+    span = hi - lo
+    # uint32 arithmetic: every product and sum wraps at 2^32
+    mult = (((2 ** 16 % span) ** 2) & _M32) % span
+    off = (((higher % span) * mult) & _M32) + (lower % span)
+    off = (off & _M32) % span
+    return lo + off

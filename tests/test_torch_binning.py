@@ -4,8 +4,9 @@ BITWISE (the port stores the codes feature-major, [F, rows]).
 
 The frame has NaNs, a tied (rounded) column, an all-NA column, an enum
 with an NA and an enum with more than 255 levels (range-grouped into
-numeric bins). Parity holds at up to 65,536 rows, where neither package
-samples rows for the quantiles.
+numeric bins). Past 65,536 rows both packages fit the quantiles on the
+same threefry row sample, so parity holds there too (70,000 rows, a
+multiple of the 8-shard mesh, so the JAX frame has no padding rows).
 """
 
 import numpy as np
@@ -56,6 +57,20 @@ def test_edges_and_codes_bitwise(frames, n_bins):
     # the NA bin is the last one; the 300-level enum is range-grouped
     assert tb[names.index("all_na")].eq(n_bins - 1).all()
     assert int(tb[names.index("wide")].max()) <= n_bins - 2
+
+
+def test_sampled_edges_and_codes_bitwise_past_the_sample(mesh8):
+    """70,000 rows: the quantile sample is randint(key(0x51BB), (65536,),
+    0, 70000) in both packages, so edges and codes stay bitwise."""
+    cols = _cols(n=70_000, seed=12)
+    names = list(cols)
+    js, jb = jbin.fused_fit_bins(h2o.Frame.from_arrays(cols), names, 256)
+    ts, tb = tbin.fused_fit_bins(Frame.from_arrays(cols, device="cpu"),
+                                 names, 256)
+    want = np.asarray(js.edges_matrix())
+    np.testing.assert_array_equal(ts.edges.numpy().view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb)[:70_000].T)
 
 
 def test_fit_then_bin_frame_equals_fused(frames):

@@ -207,7 +207,7 @@ def test_carried_across_model_scores_bitwise(trained):
 @pytest.mark.parametrize("kw,item", [
     ({"nfolds": 3}, "item 11"),
     ({"score_every": 2}, "item 11"),
-    ({"sample_rate": 0.5}, "item 8"),
+    ({"checkpoint": object()}, "item 6b"),
     ({"distribution": "poisson"}, "item 6"),
 ])
 def test_unported_options_raise(kw, item):

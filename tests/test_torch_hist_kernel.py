@@ -7,6 +7,9 @@ agree with the plain version within 1e-6 of each cell's Σ|v| on general
 data (atomic adds land in any order), and BITWISE on dyadic data, where
 every order gives the same sum — in both modes: the whole histogram in
 one block's shared memory, and the node·bin range split across blocks.
+The batched launch over K trees (kernel B3) is held to its plain
+version bitwise on dyadic data, and its K=1 call to the single-tree
+wrapper.
 """
 
 import numpy as np
@@ -118,3 +121,42 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         H.build_histogram_kernel(binned, rel, torch.zeros(
             1000, 4, device=dev), 2, 16)
+
+
+# (K, rows, F, n_nodes, n_bins, C): DRF's forest levels of 32 left
+# children (shared mode) and 64 (split mode), 2 channels; a 4-class
+# multinomial level of 8 nodes, 3 channels
+_BATCHED = [(10, 200_000, 4, 32, 64, 2), (10, 200_000, 4, 64, 64, 2),
+            (4, 200_000, 3, 8, 256, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _BATCHED, ids=lambda s: "x".join(
+    map(str, s)))
+def test_batched_kernel_bitwise_on_dyadic_data(shape):
+    dev = _card()
+    K, rows, F, n, B, C = shape
+    g = torch.Generator().manual_seed(K * n)
+    binned = torch.randint(0, B, (F, rows), generator=g).to(torch.uint8)
+    rel = torch.randint(-1, n, (K, rows), generator=g).to(torch.int32)
+    vals = (torch.randint(-2, 3, (K, rows, C), generator=g) * 0.5).float()
+    vals[rel < 0] = 0.0
+    binned, rel, vals = binned.to(dev), rel.to(dev), vals.to(dev)
+    before = dict(H.BATCHED_LAUNCHES)
+    got = H.build_histogram_batched(binned, rel, vals, n, B)
+    mode = H.hist_mode(K * n, B, C)
+    assert H.BATCHED_LAUNCHES[mode] == before[mode] + 1
+    assert got.shape == (K, n, F, B, C)
+    assert torch.equal(got, H.histogram_batched_plain(binned, rel, vals, n,
+                                                      B))
+
+
+@pytest.mark.cuda
+def test_k1_batched_call_equals_single_tree_kernel():
+    dev = _card()
+    binned, rel, vals = _case(200_000, 10, 8, 256, 3, seed=11, dyadic=True,
+                              device=dev)
+    one = H.build_histogram_kernel(binned, rel, vals, 8, 256)
+    assert torch.equal(H.build_histogram_batched(
+        binned, rel[None], vals[None], 8, 256)[0], one)
+    assert torch.equal(one, H.histogram_plain(binned, rel, vals, 8, 256))

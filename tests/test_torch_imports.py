@@ -39,10 +39,10 @@ def test_imports_without_jax():
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split())
     assert len(names) >= 20
-    # the training slice's modules are among them
+    # the training slices' modules are among them
     assert {f"h2o_kubernetes_tpu_torch.{m}" for m in (
         "frame.frame", "models.tree.binning", "ops.histogram", "ops._build",
-        "metrics", "models.gbm")} <= names
+        "metrics", "models.gbm", "models.drf", "runtime.prng")} <= names
 
 
 def test_no_source_imports_jax_or_reference():
@@ -70,8 +70,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
-    """Frame.from_arrays (and so GBM.train, which trains where the
-    frame lives) and the carried-across model default to the card."""
+    """Frame.from_arrays (and so GBM.train and DRF.train, which train
+    where the frame lives) and the carried-across model default to the
+    card."""
     from h2o_kubernetes_tpu_torch.models.gbm import gbm_model_from_arrays
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -83,6 +84,9 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
                               "bernoulli", 2, 1)
     fr = port.Frame.from_arrays(cols, device="cpu")
     assert fr.device.type == "cpu" and fr["y"].is_enum()
+    model = port.DRF(ntrees=1, max_depth=1, min_rows=1.0).train(
+        y="y", training_frame=fr)
+    assert model.device.type == "cpu" and model.algo == "drf"
 
 
 @pytest.mark.parametrize("alone", [False, True],
