@@ -30,15 +30,20 @@ Phases, in order; any failure exits non-zero:
    bernoulli) on the card, a warm-up train then five timed ones:
    rows·trees/s at their median (and their spread), train AUC and
    logloss, histogram launches per train;
-8. deep    — the same frame at max_depth=10, ntrees=2: the levels of
-   128 and 256 nodes take the histogram kernel's split mode;
+8. deep    — the same frame at max_depth=10, ntrees=2: the deep levels
+   (64, 128 and 256 nodes, B2's) take the histogram kernel's
+   partitioned regime (the row partition kernels, then the histogram
+   over each tile's sorted rows);
 9. hist    — the histogram kernel against its plain version and against
-   one index_add_ at the inputs the two trains gave it (the root, a
-   depth-4 level, 2 channels, the AUC's 4096 int16 bins, 128 and 256
-   nodes): each cell's distance from the float64 sum, relative to the
-   cell's Σ|v|, at most 1e-4, and exactly 0 difference on dyadic values;
-   a control (the kernel fed bf16-rounded values) must exceed that
-   limit; median times (CUDA events, from a flushed L2) and the bound;
+   one index_add_ at every level input the two trains gave it (depth 5:
+   levels 0-4, the root at 2 channels, the AUC's 4096 int16 bins; depth
+   10: levels 0-9): each cell's distance from the float64 sum, relative
+   to the cell's Σ|v|, at most 1e-4, and exactly 0 difference on dyadic
+   values; a control (the kernel fed bf16-rounded values) must exceed
+   that limit; median times (CUDA events, from a flushed L2) and the
+   bound; per train, the kernel's summed time against the summed bound
+   over its launches; the row partition kernels against their plain
+   version (a stable sort) at the 256-node level, bitwise;
 10. parity — one tree grown from dyadic gradients at 1,000,000 rows on
    the card and on the CPU, bitwise equal; a 65,536-row slice trained
    on both, train AUC and logloss within 1e-4;
@@ -49,7 +54,8 @@ Phases, in order; any failure exits non-zero:
 12. drf — drf_higgs's shape (tools/bench_suite.py:225-232): 1,000,000
    HIGGS-shaped rows, DRF ntrees=10 max_depth=8 seed=1 (64 bins, mtries
    5, sample_rate 0.632: one batched histogram launch per level for all
-   10 trees, shared then split mode); a first train, five warm ones
+   10 trees, streamed at the shallow levels, partitioned at the deep
+   ones); a first train, five warm ones
    (median and spread, rows·trees/s), train AUC, launches by mode; the
    forest grown on the CPU from the same frame must equal the card's
    bitwise in structure (leaves ≤ 1e-6); it serves through score_numpy
@@ -60,12 +66,14 @@ Phases, in order; any failure exits non-zero:
    logloss, model_performance (one AUC launch per class); card vs CPU
    train logloss ≤ 1e-4 at 65,536 rows;
 14. B3 — the batched kernel against its plain version and one
-   index_add_ at the level inputs the two trains gave it (DRF: the
-   root, 320 and 640 nodes, C=2; multinomial: the root and 32 nodes,
-   C=3), held as in phase 9; a bf16 control over all compared levels
-   must exceed the limit;
-15. report — one JSON line of kernel records (B4, B1, B2, B3), the card
-   line, and as the last line {"ok": true, "device": {...}}.
+   index_add_ at every level input the two trains gave it (DRF: levels
+   0-7, 10 to 640 tree·nodes, C=2; multinomial: levels 0-4, 4 to 32
+   tree·nodes, C=3), held as in phase 9, with the per-train sums; the
+   row partition at the DRF's deepest level; a bf16 control over all
+   compared levels must exceed the limit;
+15. report — one JSON line of kernel records (B4, B1, B2, B3, each
+   histogram record with the regimes it ran in, and the row partition),
+   the card line, and as the last line {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
 contrib_numpy, GBM train, DRF train and multinomial train call.
@@ -273,20 +281,31 @@ def _multinomial_cols(rows: int, seed: int) -> dict:
 
 class _HistRecorder:
     """Keeps the first (binned, rel, vals) the training path hands the
-    histogram kernel per (K, n_nodes, n_bins, C, code dtype), so the
-    kernel can be compared and timed at exactly those inputs. It wraps
-    the batched wrapper (the single-tree wrapper is its K=1 call), which
-    still counts its own launches."""
+    histogram kernel at each level, and counts the calls per level, so
+    the kernel can be compared and timed at exactly those inputs and
+    weighted by its launches. A level is keyed (K, n_bins, C, code
+    dtype, depth): after the root only left children are histogrammed,
+    so depth d >= 1 has max(1, 2**(d-1)) nodes and a one-node call
+    right after a root is depth 1. It wraps the batched wrapper (the
+    single-tree wrapper is its K=1 call), which still counts its own
+    launches."""
 
     def __init__(self, hist_op):
         self.op, self.kernel, self.seen = hist_op, \
             hist_op.build_histogram_batched, {}
+        self.calls, self.last = {}, {}
 
     def __enter__(self):
         def record(binned, rel, vals, n_nodes, n_bins):
-            key = (rel.shape[0], n_nodes, n_bins, vals.shape[2],
-                   binned.dtype)
-            self.seen.setdefault(key, (binned, rel, vals))
+            kind = (rel.shape[0], n_bins, vals.shape[2], binned.dtype)
+            if n_nodes > 1:
+                depth = n_nodes.bit_length()
+            else:
+                depth = 1 if self.last.get(kind) == 0 else 0
+            self.last[kind] = depth
+            key = kind + (depth,)
+            self.seen.setdefault(key, (binned, rel, vals, n_nodes))
+            self.calls[key] = self.calls.get(key, 0) + 1
             return self.kernel(binned, rel, vals, n_nodes, n_bins)
 
         self.op.build_histogram_batched = record
@@ -294,6 +313,11 @@ class _HistRecorder:
 
     def __exit__(self, *exc):
         self.op.build_histogram_batched = self.kernel
+
+    def levels(self, K, n_bins, C, dtype):
+        """[(depth, inputs, calls)] of one kind, by depth."""
+        return sorted((k[4], v, self.calls[k]) for k, v in self.seen.items()
+                      if k[:4] == (K, n_bins, C, dtype))
 
 
 def _hist_compare(torch, hist_op, binned, rel, vals, n, B,
@@ -316,7 +340,13 @@ def _hist_compare(torch, hist_op, binned, rel, vals, n, B,
         hist_op.histogram_batched_plain
     F, rows = binned.shape
     K, C = rel.shape[0], vals.shape[2]
+    before = dict(hist_op.LAUNCHES)
     out_k = kern(binned, rel, vals, n, B)
+    ran = {m: c - before[m] for m, c in hist_op.LAUNCHES.items()
+           if c != before[m]}
+    if list(ran.values()) != [1]:
+        raise RuntimeError(f"histogram {K}x{n}x{B}x{C}: one launch "
+                           f"expected, counted {ran}")
     out_p = plain(binned, rel, vals, n, B)
     exact = plain(binned, rel, vals.double(), n, B)
     scale = plain(binned, rel, vals.abs().double(), n, B)
@@ -372,7 +402,7 @@ def _hist_compare(torch, hist_op, binned, rel, vals, n, B,
     return {"K": K, "n_nodes": n, "n_bins": B, "C": C, "F": F,
             "rows": rows, "live_rows": live,
             "codes": str(binned.dtype).split(".")[-1],
-            "mode": hist_op.hist_mode(K * n, B, C),
+            "mode": next(iter(ran)),
             "max_abs_err": float((out_k - out_p).abs().max()),
             "max_rel_err": rel_err(out_k), "plain_rel_err": rel_err(out_p),
             "library_rel_err": lib_err, "dyadic_equal": dyadic_equal,
@@ -399,6 +429,57 @@ def _log_hist(name: str, res: dict, card: str) -> None:
          f"{res['dyadic_equal']} [{card}]")
     if res["max_rel_err"] > _HIST_REL_LIMIT or not res["dyadic_equal"]:
         raise RuntimeError(f"histogram kernel disagrees at {name}")
+
+
+def _partition_compare(torch, hist_op, binned, rel, vals, n, repeats: int,
+                       name: str, card: str) -> dict:
+    """The row partition kernels (count, scan, scatter) against their
+    plain version (a stable sort) at a level's inputs: bitwise equal,
+    median times from a flushed L2, and the byte bound (rel and codes
+    read once, the live pairs' vals read once; the sorted codes, vals
+    and segment starts written once)."""
+    F, rows = binned.shape
+    K, C = rel.shape[0], vals.shape[2]
+    stride = 16 * -(-F * binned.element_size() // 16)
+    def kern():
+        return hist_op.row_partition(binned, rel, vals, n, stride)
+
+    def plain():
+        return hist_op.row_partition_plain(binned, rel, vals, n, stride)
+
+    got, want = kern(), plain()
+    live = int(want[0][-1])
+    equal = (torch.equal(got[0], want[0]) and torch.equal(got[1][:live],
+                                                          want[1])
+             and torch.equal(got[2][:live], want[2]))
+    flush = torch.empty(_L2_FLUSH_BYTES, dtype=torch.uint8,
+                        device=vals.device)
+    ms = _cuda_ms(torch, kern, repeats, flush)
+    plain_ms = _cuda_ms(torch, plain, 3, flush)
+    nbytes = (4 * K * rows + F * rows * binned.element_size()
+              + live * (4 * C + stride + 4 * C) + 4 * (K * n + 1))
+    res = {"K": K, "n_nodes": n, "F": F, "rows": rows, "live_pairs": live,
+           "equal": equal, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": nbytes / _HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "max_abs_err": 0.0 if equal else float("nan"), "bytes": nbytes}
+    _log(f"[hist] row partition at {name}: K={K} x {n} nodes, F={F}, "
+         f"{rows} rows ({live} live pairs): kernels {ms:.4f} ms, plain "
+         f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms by bytes; "
+         f"bitwise equal to the plain version {equal} [{card}]")
+    if not equal:
+        raise RuntimeError(f"the row partition disagrees at {name}")
+    return res
+
+
+def _log_sums(sums: dict, names, card: str) -> None:
+    """Per train: its histogram launches, the kernel's time summed over
+    them (each level's median times its launches) against the summed
+    bound — the launches x gap that orders the kernel work."""
+    for name in names:
+        calls, ms, bound = sums[name]
+        _log(f"[hist] {name} train: {calls} launches per train, kernel "
+             f"{ms:.4f} ms against a bound of {bound:.4f} ms (gap "
+             f"{ms - bound:.4f} ms) [{card}]")
 
 
 def _warm_trains(fit, n: int) -> tuple[list[float], object]:
@@ -457,7 +538,8 @@ def main() -> int:
     for lib, secs in zip(libs, build_s):
         _log(f"[build] {lib.source.name} built+loaded in {secs:.2f}s")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
                 _log(f"[build] {lib.source.name} ptxas: {line.strip()}")
 
     # -- 3. model ------------------------------------------------------------
@@ -616,7 +698,7 @@ def main() -> int:
     from h2o_kubernetes_tpu_torch import GBM, Frame
     from h2o_kubernetes_tpu_torch.models.tree import core as tree_core
 
-    hk = hist_op.LAUNCHES                  # histogram launches by mode
+    hk = hist_op.LAUNCHES                  # histogram launches by regime
     cols = _bench_cols(_TRAIN_ROWS, args.seed)
     t0 = time.perf_counter()
     frame = Frame.from_arrays(cols)
@@ -631,7 +713,7 @@ def main() -> int:
         t0 = time.perf_counter()
         train(frame)                       # warm-up: bins and caches them
         warm_s = time.perf_counter() - t0
-    hk.update(shared=0, split=0)
+    hist_op.reset_launches()
     train_times, gbm = _warm_trains(lambda: train(frame), _WARM_TRAINS)
     train_launches = dict(hk)
     train_s = statistics.median(train_times)
@@ -649,13 +731,13 @@ def main() -> int:
             and np.isfinite(hist["train_logloss"])):
         raise RuntimeError(f"bad training metrics {hist}")
     per_train = 5 * _TRAIN_TREES + 1
-    if train_launches != {"shared": _WARM_TRAINS * per_train, "split": 0}:
+    if sum(train_launches.values()) != _WARM_TRAINS * per_train:
         raise RuntimeError(f"expected {per_train} histogram launches per "
                            f"train, got {train_launches} over "
                            f"{_WARM_TRAINS} trains")
 
-    # -- 8. deep: the split mode on the same path ----------------------------
-    hk.update(shared=0, split=0)
+    # -- 8. deep: B2's levels on the same path -------------------------------
+    hist_op.reset_launches()
     with _HistRecorder(hist_op) as rec10:
         t0 = time.perf_counter()
         deep = train(frame, depth=10, ntrees=2)
@@ -663,27 +745,51 @@ def main() -> int:
     deep_launches = dict(hk)
     _log(f"[deep] GBM ntrees=2 max_depth=10: {deep_s:.3f}s, train_auc "
          f"{deep.scoring_history[-1]['train_auc']:.6f}; histogram launches "
-         f"{deep_launches} [{card}]")
-    if deep_launches["split"] <= 0 or deep_launches["shared"] <= 0:
-        raise RuntimeError("the depth-10 train did not launch both "
-                           f"histogram modes: {deep_launches}")
+         f"{deep_launches}, row partitions "
+         f"{hist_op.PARTITION_LAUNCHES['row_partition']} [{card}]")
+    deep_parts = hist_op.PARTITION_LAUNCHES["row_partition"]
+    if deep_launches["partitioned"] <= 0 or deep_parts <= 0 or \
+            sum(deep_launches.values()) != 10 * 2 + 1:
+        raise RuntimeError("the depth-10 train did not launch 21 histograms"
+                           f" with partitioned ones among them: "
+                           f"{deep_launches}, {deep_parts} partitions")
 
     # -- 9. hist: kernel vs plain vs index_add_ at the path's inputs ---------
-    seen = {**rec10.seen, **rec5.seen}     # the depth-5 path's first
     u8, i16 = torch.uint8, torch.int16
-    root = seen[(1, 1, 256, 3, u8)]
-    shapes = [("root", root, 1, 256),
-              ("depth-4", seen[(1, 8, 256, 3, u8)], 8, 256),
-              ("root C=2", (root[0], root[1],
-                            root[2][..., [0, 2]].contiguous()), 1, 256),
-              ("auc", seen[(1, 1, 4096, 3, i16)], 1, 4096),
-              ("128 nodes", seen[(1, 128, 256, 3, u8)], 128, 256),
-              ("256 nodes", seen[(1, 256, 256, 3, u8)], 256, 256)]
-    levels = {}
-    for name, (b, r, v), n, B in shapes:
-        res = _hist_compare(torch, hist_op, b, r, v, n, B, _REPEATS * 2)
-        levels[name] = res
-        _log_hist(name, res, card)
+    levels, sums = {}, {}
+
+    def compare(train_name, rec, K, B, C, dtype, label, extra=()):
+        """Every level of one kind the train handed the kernel, plus
+        ``extra`` (name, inputs, n_bins, calls) cases, each held and
+        timed; the train's calls x times are summed into ``sums``."""
+        cases = [(f"{label} level {d}", inp, B, calls)
+                 for d, inp, calls in rec.levels(K, B, C, dtype)]
+        tot = sums.setdefault(train_name, [0, 0.0, 0.0])
+        for name, (b, r, v, n), nb, calls in cases + list(extra):
+            res = _hist_compare(torch, hist_op, b, r, v, n, nb,
+                                _REPEATS * 2)
+            res["calls_per_train"] = calls
+            levels[name] = res
+            _log_hist(name, res, card)
+            tot[0] += calls
+            tot[1] += calls * res["ms"]
+            tot[2] += calls * res["bound_ms"]
+
+    def auc(rec, label):
+        (_, inp, calls), = rec.levels(1, 4096, 3, i16)
+        return (f"auc ({label})", inp, 4096, calls)
+
+    b, r, v, n = rec5.levels(1, 256, 3, u8)[0][1]
+    compare("gbm depth 5", rec5, 1, 256, 3, u8, "gbm d5", [
+        ("gbm d5 level 0 C=2", (b, r, v[..., [0, 2]].contiguous(), n), 256,
+         0), auc(rec5, "gbm d5")])
+    compare("gbm depth 10", rec10, 1, 256, 3, u8, "gbm d10",
+            [auc(rec10, "gbm d10")])
+    (_, (b, r, v, n), _), = [lv for lv in rec10.levels(1, 256, 3, u8)
+                             if lv[0] == 9]
+    parts = {"gbm d10 level 9": _partition_compare(
+        torch, hist_op, b, r, v, n, _REPEATS * 2, "gbm d10 level 9", card)}
+    _log_sums(sums, ("gbm depth 5", "gbm depth 10"), card)
     # -- 10. parity: the card against the CPU --------------------------------
     binned = frame.binned(gbm.bin_spec)
     yv = frame.vec("y").as_float()
@@ -724,13 +830,13 @@ def main() -> int:
     if not (np.isfinite(phi_t).all() and phi_t.shape == (_ROWS, 11)
             and add_t <= 1e-4 and trained_launches > 0):
         raise RuntimeError("serving the trained model failed")
-    hk.update(shared=0, split=0)
+    hist_op.reset_launches()
     perf = gbm.model_performance(frame, y="y")
     perf_launches = dict(hk)
     _log(f"[serve trained] model_performance on {_TRAIN_ROWS} rows: "
          f"{perf}; histogram launches {perf_launches} (train_auc "
          f"{hist['train_auc']:.6f})")
-    if perf_launches != {"shared": 1, "split": 0} \
+    if sum(perf_launches.values()) != 1 \
             or abs(perf["auc"] - hist["train_auc"]) > 1e-4:
         raise RuntimeError("model_performance did not take the card's "
                            "histogram AUC or disagrees with the train AUC")
@@ -755,10 +861,10 @@ def main() -> int:
         t0 = time.perf_counter()
         fit_drf(hframe)                    # first: bins and caches them
         drf_first_s = time.perf_counter() - t0
-    hk.update(shared=0, split=0)
-    bk.update(shared=0, split=0)
+    hist_op.reset_launches()
     drf_times, drf = _warm_trains(lambda: fit_drf(hframe), _WARM_TRAINS)
     drf_launches, drf_batched = dict(hk), dict(bk)
+    drf_parts = hist_op.PARTITION_LAUNCHES["row_partition"]
     drf_s = statistics.median(drf_times)
     dh = drf.scoring_history[-1]
     drf_G = tree_core.drf_group_size(
@@ -774,16 +880,17 @@ def main() -> int:
          f"{_DRF_ROWS * _DRF_TREES / drf_s:.0f} at the median; train_auc "
          f"{dh['train_auc']:.6f} train_logloss {dh['train_logloss']:.6f}; "
          f"histogram launches {drf_launches} ({drf_batched} over 10 trees) "
-         f"over {_WARM_TRAINS} trains [{card}]")
+         f"and {drf_parts} row partitions over {_WARM_TRAINS} trains "
+         f"[{card}]")
     if not (np.isfinite(dh["train_auc"]) and 0.5 < dh["train_auc"] <= 1):
         raise RuntimeError(f"bad DRF training metrics {dh}")
     if args.profile:
         _profile(torch, "drf train", lambda: fit_drf(hframe), top=12)
     # per train: the 8 histogrammed levels of one group of 10 trees (the
-    # deepest, 640 nodes, in split mode) and the train AUC's one launch
-    if drf_batched != {"shared": 7 * _WARM_TRAINS, "split": _WARM_TRAINS} \
-            or drf_launches != {"shared": 8 * _WARM_TRAINS,
-                                "split": _WARM_TRAINS}:
+    # deeper ones partitioned) and the train AUC's one launch
+    if sum(drf_batched.values()) != 8 * _WARM_TRAINS \
+            or drf_batched["partitioned"] <= 0 or drf_parts <= 0 \
+            or sum(drf_launches.values()) != 9 * _WARM_TRAINS:
         raise RuntimeError(f"unexpected DRF histogram launches "
                            f"{drf_launches} / batched {drf_batched}")
     t0 = time.perf_counter()
@@ -824,10 +931,10 @@ def main() -> int:
         t0 = time.perf_counter()
         fit_mn(mframe)
         mn_first_s = time.perf_counter() - t0
-    hk.update(shared=0, split=0)
-    bk.update(shared=0, split=0)
+    hist_op.reset_launches()
     mn_times, mn = _warm_trains(lambda: fit_mn(mframe), _WARM_TRAINS)
     mn_launches, mn_batched = dict(hk), dict(bk)
+    mn_parts = hist_op.PARTITION_LAUNCHES["row_partition"]
     mn_s = statistics.median(mn_times)
     K = mn.nclasses
     mn_ll = mn.scoring_history[-1]["train_logloss"]
@@ -837,23 +944,23 @@ def main() -> int:
          f"(min {min(mn_times):.4f}, max {max(mn_times):.4f}) = "
          f"rows·classtrees/s {_MN_ROWS * _MN_TREES * K / mn_s:.0f} at the "
          f"median; train_logloss {mn_ll:.6f}; histogram launches "
-         f"{mn_launches} ({mn_batched} over {K} trees) over "
-         f"{_WARM_TRAINS} trains [{card}]")
+         f"{mn_launches} ({mn_batched} over {K} trees) and {mn_parts} row "
+         f"partitions over {_WARM_TRAINS} trains [{card}]")
     if not (K == 4 and np.isfinite(mn_ll) and 0 < mn_ll < np.log(4)):
         raise RuntimeError(f"bad multinomial training metrics {mn_ll}")
     if args.profile:
         _profile(torch, "multinomial train", lambda: fit_mn(mframe),
                  top=12)
-    if mn_batched != {"shared": 5 * _MN_TREES * _WARM_TRAINS, "split": 0} \
+    if sum(mn_batched.values()) != 5 * _MN_TREES * _WARM_TRAINS \
             or mn_launches != mn_batched:
         raise RuntimeError(f"unexpected multinomial histogram launches "
                            f"{mn_launches} / batched {mn_batched}")
-    hk.update(shared=0, split=0)
+    hist_op.reset_launches()
     mperf = mn.model_performance(mframe, y="y")
     mperf_launches = dict(hk)
     _log(f"[multinomial] model_performance on {_MN_ROWS} rows: {mperf}; "
          f"histogram launches {mperf_launches} (one AUC per class)")
-    if mperf_launches != {"shared": K, "split": 0} or not (
+    if sum(mperf_launches.values()) != K or not (
             0.5 < mperf["auc"] <= 1 and abs(mperf["logloss"] - mn_ll)
             <= 1e-4):
         raise RuntimeError("multinomial model_performance is wrong")
@@ -868,25 +975,25 @@ def main() -> int:
         raise RuntimeError("card and CPU multinomial training disagree")
 
     # -- 14. B3: the batched launches at the two trains' inputs --------------
-    b3 = {}
-    # DRF: the root, the last shared level (320 nodes) and the split one
-    # (640 nodes); multinomial: the root and the deepest level (32 nodes)
-    b3_shapes = [(f"drf level {d}", rec_drf.seen[(_DRF_TREES, n, 64, 2, u8)],
-                  n, 64) for d, n in ((0, 1), (6, 32), (7, 64))] + \
-        [(f"multinomial level {d}", rec_mn.seen[(K, n, 256, 3, u8)], n, 256)
-         for d, n in ((0, 1), (4, 8))]
-    for name, (b, r, v), n, B in b3_shapes:
-        res = _hist_compare(torch, hist_op, b, r, v, n, B, _REPEATS * 2)
-        b3[name] = res
-        _log_hist(name, res, card)
-    if {r["mode"] for r in b3.values()} != {"shared", "split"} or \
+    compare("drf", rec_drf, _DRF_TREES, 64, 2, u8, "drf",
+            [auc(rec_drf, "drf")])
+    compare("multinomial", rec_mn, K, 256, 3, u8, "multinomial")
+    (_, (b, r, v, n), _), = [lv for lv in rec_drf.levels(_DRF_TREES, 64, 2, u8)
+                             if lv[0] == _DRF_DEPTH - 1]
+    parts["drf level 7"] = _partition_compare(
+        torch, hist_op, b, r, v, n, _REPEATS * 2, "drf level 7", card)
+    _log_sums(sums, ("drf", "multinomial"), card)
+    b3 = {k: v for k, v in levels.items() if v["K"] > 1}
+    b3_modes = {r["mode"] for r in b3.values()}
+    if len(b3) != _DRF_DEPTH + 5 or "partitioned" not in b3_modes or \
+            not b3_modes & {"grouped", "replicated"} or \
             {r["C"] for r in b3.values()} != {2, 3}:
-        raise RuntimeError("B3 was not compared in both modes and widths")
-    allres = {**levels, **b3}
-    controls = [r["control_rel_err"] for r in allres.values()
+        raise RuntimeError("B3 was not compared at every level, in both "
+                           f"regime families and widths: {b3_modes}")
+    controls = [r["control_rel_err"] for r in levels.values()
                 if r["bf16_changes_vals"]]
     _log(f"[hist] limit {_HIST_REL_LIMIT:.0e}: kernel at most "
-         f"{max(r['max_rel_err'] for r in allres.values()):.3e}, control "
+         f"{max(r['max_rel_err'] for r in levels.values()):.3e}, control "
          f"at most {max(controls, default=0.0):.3e}")
     if max(controls, default=0.0) <= _HIST_REL_LIMIT:
         raise RuntimeError("the bf16 control stays within the histogram "
@@ -905,53 +1012,72 @@ def main() -> int:
         "rows": rows, "ms_at_chunk": c_ms, "chunk_rows": chunk,
     }
     records = [record]
-    # one record per histogram mode: shared at the root of the timed
-    # depth-5 train, split at the 256-node level of the depth-10 train
-    for mode, level, launches, replaces in (
-            ("shared", "root", train_launches["shared"],
-             "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)"),
-            ("split", "256 nodes", deep_launches["split"],
-             "h2o_kubernetes_tpu/ops/histogram.py:300 (_hist_kernel)")):
+    # the histogram kernel by the TPU kernel each level replaces: B1 the
+    # depth-5 train (its root timed), B2 the depth-10 train's partitioned
+    # levels (64 nodes and more; 256 timed), B3 the launches over K > 1
+    # trees of the DRF and multinomial trains (DRF level 7 timed); each
+    # with the regimes its launches ran in, every level it was held at,
+    # and the per-train sums
+    # the depth-10 train's partitioned launches are its calls at the
+    # levels held in the partitioned regime (its deepest ones)
+    deep_levels = {f"gbm d10 level {d}": c
+                   for d, _, c in rec10.levels(1, 256, 3, u8)
+                   if levels[f"gbm d10 level {d}"]["mode"] == "partitioned"}
+    if deep_launches["partitioned"] != sum(deep_levels.values()) or \
+            "gbm d10 level 9" not in deep_levels:
+        raise RuntimeError(f"{deep_launches['partitioned']} partitioned "
+                           "launches in the depth-10 train, calls at its "
+                           f"partitioned levels {deep_levels}")
+    fields = ("mode", "K", "n_nodes", "n_bins", "C", "calls_per_train",
+              "ms", "plain_ms", "library_ms", "bound_ms", "max_rel_err",
+              "plain_rel_err", "control_rel_err")
+    for name, level, launches, regimes, replaces, trains, keep in (
+            ("histogram", "gbm d5 level 0", sum(train_launches.values()),
+             train_launches,
+             "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)",
+             ("gbm depth 5",),
+             lambda k, v: k.startswith(("gbm d5", "auc"))),
+            ("histogram_deep", "gbm d10 level 9",
+             deep_launches["partitioned"],
+             {"partitioned": deep_launches["partitioned"]},
+             "h2o_kubernetes_tpu/ops/histogram.py:300 (_hist_kernel)",
+             ("gbm depth 10",),
+             lambda k, v: k in deep_levels),
+            ("histogram_batched", "drf level 7",
+             sum(drf_batched.values()) + sum(mn_batched.values()),
+             {r: drf_batched[r] + mn_batched[r] for r in drf_batched},
+             "h2o_kubernetes_tpu/ops/histogram.py:399 (_hist_vmappable)",
+             ("drf", "multinomial"), lambda k, v: v["K"] > 1)):
         res = levels[level]
+        held = {k: v for k, v in levels.items() if keep(k, v)}
         records.append({
-            "name": f"histogram_{mode}", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "h2o_kubernetes_tpu_torch/csrc/histogram.cu",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-            "level": level, "max_rel_err": res["max_rel_err"],
-            "control_rel_err": res["control_rel_err"],
-            "rel_limit": _HIST_REL_LIMIT})
-    # B3: launches over K > 1 trees in the two timed trains; time, bound
-    # and errors at the DRF's split-mode level (640 nodes)
-    res = b3["drf level 7"]
+            "replaces": replaces, "launches": launches, "regimes": regimes,
+            "max_abs_err": max(v["max_abs_err"] for v in held.values()),
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"], "level": level,
+            "max_rel_err": max(v["max_rel_err"] for v in held.values()),
+            "rel_limit": _HIST_REL_LIMIT,
+            "train_sums": {t: dict(zip(("launches", "ms", "bound_ms"),
+                                       sums[t])) for t in trains},
+            "levels": {k: {f: v[f] for f in fields}
+                       for k, v in held.items()}})
+    res = parts["drf level 7"]
     records.append({
-        "name": "histogram_batched", "route": "cuda",
+        "name": "row_partition", "route": "cuda",
         "source": "h2o_kubernetes_tpu_torch/csrc/histogram.cu",
-        "replaces": "h2o_kubernetes_tpu/ops/histogram.py:399 "
-                    "(_hist_vmappable)",
-        "launches": sum(drf_batched.values()) + sum(mn_batched.values()),
-        "launches_drf": drf_batched, "launches_multinomial": mn_batched,
-        "max_abs_err": max(r["max_abs_err"] for r in b3.values()),
+        "replaces": "h2o_kubernetes_tpu/ops/histogram.py:300 (_hist_kernel: "
+                    "its node·bin blocking of the deep levels)",
+        "launches": deep_parts + drf_parts + mn_parts,
+        "max_abs_err": max(v["max_abs_err"] for v in parts.values()),
         "ms": res["ms"], "plain_ms": res["plain_ms"],
         "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-        "library_ms": res["library_ms"], "level": "drf level 7",
-        "max_rel_err": max(r["max_rel_err"] for r in b3.values()),
-        "rel_limit": _HIST_REL_LIMIT, "drf_warm_train_s": drf_times,
-        "multinomial_warm_train_s": mn_times,
-        "levels": {k: {f: v[f] for f in (
-            "mode", "K", "n_nodes", "n_bins", "C", "ms", "plain_ms",
-            "library_ms", "bound_ms", "max_rel_err", "plain_rel_err",
-            "control_rel_err")} for k, v in b3.items()}})
-    records[1]["launches_per_train"] = per_train
+        "library_ms": None, "level": "drf level 7", "levels": parts})
     records[1]["warm_train_s"] = train_times
-    records[1]["levels"] = {
-        k: {f: v[f] for f in ("mode", "n_nodes", "n_bins", "C", "ms",
-                              "plain_ms", "library_ms", "bound_ms",
-                              "max_rel_err", "plain_rel_err",
-                              "control_rel_err")}
-        for k, v in levels.items()}
+    records[3]["drf_warm_train_s"] = drf_times
+    records[3]["multinomial_warm_train_s"] = mn_times
     _log(json.dumps({"kernels": records}))
     _log(card)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,8 @@ class KernelLib:
 
     def load(self) -> ctypes.CDLL:
         """Build (once per source hash) and bind the library."""
+        if self._lib is not None:
+            return self._lib
         with self._lock:
             if self._lib is not None:
                 return self._lib

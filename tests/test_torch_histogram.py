@@ -112,8 +112,9 @@ def test_expand_unit_hess_matches_reference():
 
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrapper IS the plain version and launches
-    nothing; the mode rule keeps up to 64 nodes × 256 bins × 3 channels
-    in one block's shared memory."""
+    nothing; the launch plan streams a root in feature groups (with
+    spare copies where shared memory allows) and partitions the rows of
+    the 128- and 256-node levels of 256 bins by node."""
     binned, rel, g, h, w = _case(700, 3, 4, 32, seed=5)
     codes = torch.as_tensor(np.ascontiguousarray(binned.T))
     vals = torch.as_tensor(np.stack([np.nan_to_num(g), np.nan_to_num(h),
@@ -123,7 +124,7 @@ def test_cpu_tensors_take_the_plain_version():
     got = thist.build_histogram_kernel(codes, rel_t, vals, 4, 32)
     assert thist.LAUNCHES == before
     assert torch.equal(got, thist.histogram_plain(codes, rel_t, vals, 4, 32))
-    assert thist.hist_mode(1, 4096, 3) == "shared"
-    assert thist.hist_mode(64, 256, 3) == "shared"
-    assert thist.hist_mode(128, 256, 3) == "split"
-    assert thist.hist_mode(256, 256, 2) == "split"
+    assert thist.hist_mode(1, 1, 10, 256, 3) == "replicated"
+    assert thist.hist_mode(1, 1, 1, 4096, 3, code_bytes=2) == "grouped"
+    assert thist.hist_mode(1, 128, 10, 256, 3) == "partitioned"
+    assert thist.hist_mode(1, 256, 10, 256, 2) == "partitioned"

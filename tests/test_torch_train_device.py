@@ -74,8 +74,8 @@ def test_validation_frame_is_scored_like_model_performance():
 @pytest.mark.cuda
 def test_model_performance_on_card_launches_the_histogram_kernel():
     """Past 65,536 rows the AUC takes its histogram path: one launch of
-    the kernel in shared mode (1 node x 4096 bins), none of the split
-    mode, and the metrics agree with the host recomputation."""
+    the kernel (1 node x 4096 int16 bins, in the regime its plan picks),
+    no other launch, and the metrics agree with the host recomputation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     model = GBM(**_KW).train(y="y", training_frame=Frame.from_arrays(
@@ -85,8 +85,8 @@ def test_model_performance_on_card_launches_the_histogram_kernel():
     frame = Frame.from_arrays(hold, device="cuda")
     before = dict(H.LAUNCHES)
     got = model.model_performance(frame, y="y")
-    assert H.LAUNCHES == {"shared": before["shared"] + 1,
-                          "split": before["split"]}
+    regime = H.hist_mode(1, 1, 1, 4096, 3, code_bytes=2)
+    assert H.LAUNCHES == {**before, regime: before[regime] + 1}
     want = _host_metrics(model, frame, hold)
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
@@ -95,4 +95,4 @@ def test_model_performance_on_card_launches_the_histogram_kernel():
         _cols(5000), device="cuda"), validation_frame=frame)
     # 3 trees x 3 levels, the train AUC's exact path (5,000 rows), and
     # the validation AUC's histogram
-    assert H.LAUNCHES["shared"] == before["shared"] + 3 * 3 + 1
+    assert sum(H.LAUNCHES.values()) == sum(before.values()) + 3 * 3 + 1
