@@ -15,16 +15,19 @@ Phases, in order; any failure exits non-zero:
    grown out to depth 5) as MOJO-v2 artifact bytes, HIGGS-shaped rows
    (normals, ~1% NaN), and margins checked against a float64 numpy
    descent;
-4. kernels — shap_tab against its plain torch version at the shapes
-   the serving path gives it (the 100,000-row batch, the contributions
-   chunk, the smallest and largest warm buckets): max abs difference,
-   and median times (CUDA events) at the batch and the chunk;
+4. kernels — shap_tab against its plain torch version at every depth
+   group of the serving model, at the rows the serving path hands it
+   (the 100,000-row batch, whole, and 1, 127, 128 and 4,096 rows):
+   bitwise equal, the launch variant per group (staged / unstaged
+   ctab, phi on chip / in device memory), and median times (CUDA
+   events, from a flushed L2) against the bound;
 5. serve   — the serving main path: start_server on the card, load the
    artifact over REST, POST predictions and contributions requests,
    check them (additivity of contributions against logit(p1)), and
    count the kernel launches the path made;
 6. direct  — score_numpy and contrib_numpy on 100,000 rows, warm, as
-   rows/s;
+   rows/s; contrib_numpy must launch shap_tab once per depth group per
+   call (the whole batch, unchunked);
 7. train   — the training main path: bench.py's workload (1,000,000
    rows, 10 features, GBM ntrees=10 max_depth=5 learn_rate=0.2
    bernoulli) on the card, a warm-up train then five timed ones:
@@ -48,9 +51,11 @@ Phases, in order; any failure exits non-zero:
    the card and on the CPU, bitwise equal; a 65,536-row slice trained
    on both, train AUC and logloss within 1e-4;
 11. serve trained — score_numpy and contrib_numpy of the trained model
-   on 100,000 rows (shap_tab on trees the port grew), additivity
-   against logit(p1) ≤ 1e-4; model_performance on the 1,000,000-row
-   frame, whose AUC is one histogram-kernel launch on the card;
+   on 100,000 rows (shap_tab on trees the port grew, one launch per
+   group), additivity against logit(p1) ≤ 1e-4, and shap_tab held and
+   timed at its groups as in phase 4; model_performance on the
+   1,000,000-row frame, whose AUC is one histogram-kernel launch on the
+   card;
 12. drf — drf_higgs's shape (tools/bench_suite.py:225-232): 1,000,000
    HIGGS-shaped rows, DRF ntrees=10 max_depth=8 seed=1 (64 bins, mtries
    5, sample_rate 0.632: one batched histogram launch per level for all
@@ -59,7 +64,9 @@ Phases, in order; any failure exits non-zero:
    (median and spread, rows·trees/s), train AUC, launches by mode; the
    forest grown on the CPU from the same frame must equal the card's
    bitwise in structure (leaves ≤ 1e-6); it serves through score_numpy
-   and contrib_numpy, Σφ = p1 ≤ 1e-4;
+   and contrib_numpy, Σφ = p1 ≤ 1e-4, one shap_tab launch per group,
+   and shap_tab is held and timed at its groups as in phase 4 (its
+   depth-8 group reads ctab through the read-only path);
 13. multinomial — gbm_multinomial's shape (tools/bench_suite.py:
    243-265): 500,000 rows x 10 features, 4 classes, GBM ntrees=5
    max_depth=5 learn_rate=0.2; warm trains as rows·classtrees/s, train
@@ -71,8 +78,9 @@ Phases, in order; any failure exits non-zero:
    tree·nodes, C=3), held as in phase 9, with the per-train sums; the
    row partition at the DRF's deepest level; a bf16 control over all
    compared levels must exceed the limit;
-15. report — one JSON line of kernel records (B4, B1, B2, B3, each
-   histogram record with the regimes it ran in, and the row partition),
+15. report — one JSON line of kernel records (B4 with its variants,
+   B1, B2, B3, each histogram record with the regimes it ran in, and the
+   row partition),
    the card line, and as the last line {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
@@ -139,11 +147,16 @@ def _card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(torch, fn, repeats: int, flush=None) -> float:
-    """Median milliseconds of fn() on the current stream, warm; with a
-    ``flush`` buffer larger than the L2 cache, that buffer is rewritten
-    before each timed call, so fn() finds its inputs in device memory."""
-    fn()
+def _cuda_ms(torch, fn, repeats: int, flush=None, warm: int = 1,
+             lead_cycles: int = 0) -> float:
+    """Median milliseconds of fn() on the current stream after ``warm``
+    untimed calls; with a ``flush`` buffer larger than the L2 cache, that
+    buffer is rewritten before each timed call, so fn() finds its inputs
+    in device memory. ``lead_cycles`` keeps the card spinning that long
+    before the start event, so that the wrapper's host work is done
+    before the card reaches it and the time is the kernel's alone."""
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
@@ -151,6 +164,8 @@ def _cuda_ms(torch, fn, repeats: int, flush=None) -> float:
         e = torch.cuda.Event(enable_timing=True)
         if flush is not None:
             flush.zero_()
+        if lead_cycles:
+            torch.cuda._sleep(lead_cycles)
         s.record()
         fn()
         e.record()
@@ -482,6 +497,88 @@ def _log_sums(sums: dict, names, card: str) -> None:
              f"{ms - bound:.4f} ms) [{card}]")
 
 
+def _shap_compare(torch, shap_kernel, model, X: np.ndarray, label: str,
+                  card: str) -> dict:
+    """shap_tab against its plain version at every depth group of
+    ``model``: bitwise equal at the whole batch and at 1, 127, 128 and
+    4,096 rows, median times from a flushed L2 at the batch, and the
+    bound — the bytes of X and phi (each read or written once) plus the
+    tables over 3.35 TB/s, or the _SHAP_OPS_PER_SLOT operations per (row,
+    real slot) and one per (row, tree) over 67 TFLOP/s, the larger; per
+    group and over all groups."""
+    kern, plain = (shap_kernel.flat_shap_tab_kernel,
+                   shap_kernel.flat_shap_tab_plain)
+    groups, ctabs = model._contrib_prepare()
+    em = model._contrib_enum_mask()
+    Xd = torch.as_tensor(X, device=model.device)
+    rows, F = Xd.shape
+    flush = torch.empty(_L2_FLUSH_BYTES, dtype=torch.uint8,
+                        device=model.device)
+    res = {"groups": [], "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    bytes_moved, ops = 0, 0
+    for gi, (g, ct, sl) in enumerate(zip(groups, ctabs, model._shap_slots)):
+        if ct is None:
+            raise RuntimeError(f"{label} group {gi} has no pattern table")
+        T, L, D = g.feat.shape
+        plan = shap_kernel.shap_plan(F, T, L, D, rows)
+        equal, d = True, 0.0
+        for n in (rows, 1, 127, 128, 4096):
+            Xn = Xd[:n]
+            out_k = kern(g, ct, Xn, em, slots=sl)
+            out_p = plain(g, ct, Xn, em)
+            torch.cuda.synchronize()
+            if not (out_k.shape == (min(n, rows), F + 1)
+                    and torch.isfinite(out_k).all()
+                    and torch.isfinite(out_p).all()):
+                raise RuntimeError(f"{label} group {gi}: bad output at "
+                                   f"{n} rows")
+            equal &= torch.equal(out_k, out_p)
+            d = max(d, float((out_k - out_p).abs().max()))
+        # ten warm calls: the plain version's small launches before this
+        # leave the card's clocks low; the wrapper's host work (checks,
+        # plan) is hidden behind a spin of ~0.5 ms
+        gk = _cuda_ms(torch, lambda: kern(g, ct, Xd, em, slots=sl),
+                      _REPEATS * 2, flush, warm=10, lead_cycles=1_000_000)
+        gp = _cuda_ms(torch, lambda: plain(g, ct, Xd, em), 2, flush)
+        slots = int((g.feat >= 0).sum())
+        tab_bytes = sum(t.numel() * t.element_size() for t in
+                        (g.feat, g.lo, g.hi, g.na_ok, g.bias, ct))
+        g_bytes = rows * (2 * F + 1) * 4 + tab_bytes
+        g_ops = rows * (slots * _SHAP_OPS_PER_SLOT + T)
+        bytes_moved += g_bytes
+        ops += g_ops
+        g_bound = max(g_bytes / _HBM_BYTES_PER_S, g_ops / _FP32_OPS_PER_S) \
+            * 1e3
+        _log(f"[kernels] shap_tab {label} group {gi}: T={T} L={L} D={D} "
+             f"real slots={slots}; {plan.variant} (rows/block "
+             f"{plan.threads}, {plan.stages} ctab stages, "
+             f"{plan.smem_bytes} B shared, {plan.blocks_per_sm} blocks/SM); "
+             f"bitwise {equal}; kernel {gk:.4f} ms plain {gp:.4f} ms bound "
+             f"{g_bound:.4f} ms = {gk / g_bound:.1f}x [{card}]")
+        if not equal:
+            raise RuntimeError(f"shap_tab differs from its plain version at "
+                               f"{label} group {gi} by {d}")
+        res["groups"].append({"T": T, "L": L, "D": D, "variant": plan.variant,
+                              "threads": plan.threads, "stages": plan.stages,
+                              "ms": gk, "plain_ms": gp, "bound_ms": g_bound})
+        res["ms"] += gk
+        res["plain_ms"] += gp
+        res["max_abs_err"] = max(res["max_abs_err"], d)
+    bytes_ms = bytes_moved / _HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / _FP32_OPS_PER_S * 1e3
+    res.update(rows=rows, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               bytes=bytes_moved, ops=ops,
+               variants=sorted({g["variant"] for g in res["groups"]}))
+    _log(f"[kernels] shap_tab {label}, all {len(groups)} groups at {rows} "
+         f"rows: kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms; "
+         f"bound {res['bound_ms']:.4f} ms by {res['bound_by']} "
+         f"({bytes_moved} bytes, {ops} ops) = "
+         f"{res['ms'] / res['bound_ms']:.1f}x; variants {res['variants']} "
+         f"[{card}]")
+    return res
+
+
 def _warm_trains(fit, n: int) -> tuple[list[float], object]:
     """Wall seconds of n trains (each ends on host data: its metrics)."""
     times, model = [], None
@@ -566,66 +663,14 @@ def main() -> int:
         raise RuntimeError("device margins disagree with the reference")
 
     # -- 4. kernels vs plain -------------------------------------------------
-    groups, ctabs = model._contrib_prepare()
-    em = model._contrib_enum_mask()
-    Xd = torch.as_tensor(X, device=dev)
-    kern, plain = (shap_kernel.flat_shap_tab_kernel,
-                   shap_kernel.flat_shap_tab_plain)
-    max_err, k_ms, p_ms, c_ms = 0.0, 0.0, 0.0, 0.0
-    bytes_moved, ops = 0, 0
+    kern = shap_kernel.flat_shap_tab_kernel
+    shap = {"serving": _shap_compare(torch, shap_kernel, model, X,
+                                     "serving", card)}
     rows = X.shape[0]
-    # contrib_numpy hands the kernel chunks of this many rows
-    chunk = min(model._contrib_chunk(), rows)
-    Xchunk = Xd[:chunk].contiguous()
-    # the batch, the chunk, and the largest and smallest warm buckets
-    compare_at = (Xd, Xchunk, Xd[:4096].contiguous(),
-                  Xd[:128].contiguous())
-    for gi, (g, ct) in enumerate(zip(groups, ctabs)):
-        if ct is None:
-            raise RuntimeError(f"group {gi} has no pattern table at the "
-                               "bench shape")
-        d = 0.0
-        for Xc in compare_at:
-            out_k = kern(g, ct, Xc, em)
-            out_p = plain(g, ct, Xc, em)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(out_k).all()
-                    and torch.isfinite(out_p).all()):
-                raise RuntimeError(f"group {gi}: output not finite at "
-                                   f"{Xc.shape[0]} rows")
-            d = max(d, float((out_k - out_p).abs().max()))
-        gk = _cuda_ms(torch, lambda: kern(g, ct, Xd, em), _REPEATS)
-        gp = _cuda_ms(torch, lambda: plain(g, ct, Xd, em), 2)
-        gc = _cuda_ms(torch, lambda: kern(g, ct, Xchunk, em), _REPEATS)
-        T, L, D = g.feat.shape
-        slots = int((g.feat >= 0).sum())
-        tab_bytes = sum(t.numel() * t.element_size() for t in
-                        (g.feat, g.lo, g.hi, g.na_ok, g.bias, ct))
-        bytes_moved += rows * (2 * F + 1) * 4 + tab_bytes
-        ops += rows * (slots * _SHAP_OPS_PER_SLOT + T)
-        _log(f"[kernels] shap_tab group {gi}: T={T} L={L} D={D} "
-             f"real slots={slots} max|kernel-plain|={d:.3e} "
-             f"kernel {gk:.4f} ms plain {gp:.4f} ms; kernel at the "
-             f"{chunk}-row chunk {gc:.4f} ms")
-        max_err = max(max_err, d)
-        k_ms += gk
-        c_ms += gc
-        p_ms += gp
-    bytes_s = bytes_moved / _HBM_BYTES_PER_S * 1e3
-    ops_s = ops / _FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_s, ops_s)
-    bound_by = "operations" if ops_s >= bytes_s else "bytes"
-    _log(f"[kernels] shap_tab all {len(groups)} groups at {rows} rows: "
-         f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms max err {max_err:.3e}"
-         f"; bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved} bytes, "
-         f"{ops} ops); at the {chunk}-row chunk {c_ms:.4f} ms; "
-         f"{kern.launches} comparison launches [{card}]")
-    if max_err != 0.0:
-        raise RuntimeError(f"kernel differs from its plain version by "
-                           f"{max_err} (expected bitwise equality)")
+    n_groups = len(shap["serving"]["groups"])
 
     # -- 5. main path through REST -------------------------------------------
-    kern.launches = 0
+    shap_kernel.reset_launches()
     srv = start_server(port=0)
     port = srv.server_address[1]
     try:
@@ -655,6 +700,7 @@ def main() -> int:
                            np.asarray(cr["contributions"],
                                       dtype=np.float64)))
         main_launches = kern.launches
+        main_variants = dict(shap_kernel.LAUNCHES)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -671,24 +717,32 @@ def main() -> int:
             phi - model.contrib_numpy(X[:n])).max()))
     _log(f"[serve] additivity max |sum(phi) - logit(p1)| = {worst_add:.3e}"
          f"; REST vs direct: p1 {worst_p:.3e}, phi {worst_c:.3e}")
-    _log(f"[serve] shap_tab launches: {main_launches} on the main path, "
-         f"{launches_contrib} during the contributions requests")
+    _log(f"[serve] shap_tab launches: {main_launches} on the main path "
+         f"({main_variants}), {launches_contrib} during the contributions "
+         "requests")
     if worst_add > 1e-4 or worst_p > 1e-6 or worst_c > 1e-6:
         raise RuntimeError("served results are wrong")
-    if launches_contrib <= 0 or main_launches <= 0:
-        raise RuntimeError("the contributions requests did not launch the "
-                           "shap_tab kernel")
+    if launches_contrib != len(served) * n_groups or main_launches <= 0:
+        raise RuntimeError(f"the {len(served)} contributions requests made "
+                           f"{launches_contrib} shap_tab launches, not one "
+                           f"per group ({n_groups}) each")
 
     # -- 6. full width, direct -----------------------------------------------
     score_s = _host_s(lambda: model.score_numpy(X), _REPEATS)
     before = kern.launches
     contrib_s = _host_s(lambda: model.contrib_numpy(X), _REPEATS)
-    per_call = (kern.launches - before) // (_REPEATS + 1)
+    launched = kern.launches - before
+    per_call = launched // (_REPEATS + 1)
     _log(f"[direct] score_numpy {rows} rows: {score_s * 1e3:.3f} ms "
          f"= {rows / score_s:.0f} rows/s [{card}]")
     _log(f"[direct] contrib_numpy {rows} rows: {contrib_s * 1e3:.3f} ms "
          f"= {rows / contrib_s:.0f} rows/s, {per_call} shap_tab launches "
-         f"per call, chunk {model._contrib_chunk()} [{card}]")
+         f"per call over {n_groups} groups; dispatch (rows, padded) "
+         f"{model._contrib_dispatch()} [{card}]")
+    if launched != (_REPEATS + 1) * n_groups:
+        raise RuntimeError(f"contrib_numpy made {launched} shap_tab launches "
+                           f"in {_REPEATS + 1} calls, not one per group "
+                           f"({n_groups}) per call")
     if args.profile:
         _profile(torch, "score_numpy", lambda: model.score_numpy(X))
         _profile(torch, "contrib_numpy", lambda: model.contrib_numpy(X))
@@ -817,7 +871,7 @@ def main() -> int:
 
     # -- 11. serve the trained model -----------------------------------------
     Xt = gbm._design_matrix(frame)[:_ROWS].cpu().numpy()
-    kern.launches = 0
+    shap_kernel.reset_launches()
     p_t = gbm.score_numpy(Xt)
     phi_t = gbm.contrib_numpy(Xt)
     trained_launches = kern.launches
@@ -828,8 +882,14 @@ def main() -> int:
          f"|sum(phi) - logit(p1)| = {add_t:.3e}; shap_tab launches "
          f"{trained_launches}; contrib_numpy {serve_s * 1e3:.3f} ms [{card}]")
     if not (np.isfinite(phi_t).all() and phi_t.shape == (_ROWS, 11)
-            and add_t <= 1e-4 and trained_launches > 0):
+            and add_t <= 1e-4):
         raise RuntimeError("serving the trained model failed")
+    shap["trained gbm"] = _shap_compare(torch, shap_kernel, gbm, Xt,
+                                        "trained gbm", card)
+    if trained_launches != len(shap["trained gbm"]["groups"]):
+        raise RuntimeError(f"contrib_numpy of the trained model made "
+                           f"{trained_launches} shap_tab launches, not one "
+                           "per group")
     hist_op.reset_launches()
     perf = gbm.model_performance(frame, y="y")
     perf_launches = dict(hk)
@@ -907,7 +967,7 @@ def main() -> int:
     if not struct or leaf_gap > 1e-6:
         raise RuntimeError("the forest differs between card and CPU")
     Xh = drf._design_matrix(hframe)[:_ROWS].cpu().numpy()
-    kern.launches = 0
+    shap_kernel.reset_launches()
     p_h = drf.score_numpy(Xh)
     phi_h = drf.contrib_numpy(Xh)
     drf_shap_launches = kern.launches
@@ -918,6 +978,15 @@ def main() -> int:
     if not (np.isfinite(phi_h).all() and phi_h.shape == (_ROWS, 29)
             and add_h <= 1e-4):
         raise RuntimeError("serving the forest failed")
+    shap["drf"] = _shap_compare(torch, shap_kernel, drf, Xh, "drf", card)
+    if drf_shap_launches != len(shap["drf"]["groups"]):
+        raise RuntimeError(f"contrib_numpy of the forest made "
+                           f"{drf_shap_launches} shap_tab launches, not one "
+                           "per group")
+    held = {g["variant"] for r in shap.values() for g in r["groups"]}
+    if not {"staged", "unstaged"} <= held:
+        raise RuntimeError(f"shap_tab was held in variants {held}: both "
+                           "ctab variants must run")
 
     # -- 13. multinomial: GBM at gbm_multinomial's shape --------------------
     mcols = _multinomial_cols(_MN_ROWS, args.seed)
@@ -1000,16 +1069,23 @@ def main() -> int:
                            "limit: the check cannot tell f32 from bf16")
 
     # -- 15. report ----------------------------------------------------------
+    sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
         "source": "h2o_kubernetes_tpu_torch/csrc/shap_tab.cu",
         "replaces": "h2o_kubernetes_tpu/ops/shap_kernel.py:120 "
                     "(_shap_tab_kernel)",
-        "launches": main_launches, "max_abs_err": max_err,
-        "max_abs_diff_vs_plain": max_err,
-        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "rows": rows, "ms_at_chunk": c_ms, "chunk_rows": chunk,
+        "launches": main_launches, "variants": main_variants,
+        "max_abs_err": max(r["max_abs_err"] for r in shap.values()),
+        "ms": sv["ms"], "plain_ms": sv["plain_ms"],
+        "bound_ms": sv["bound_ms"], "bound_by": sv["bound_by"],
+        "library_ms": None, "rows": rows,
+        "launches_per_contrib_call": {"serving": per_call,
+                                      "trained gbm": trained_launches,
+                                      "drf": drf_shap_launches},
+        "models": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "variants", "groups")}
+                   for k, r in shap.items()},
     }
     records = [record]
     # the histogram kernel by the TPU kernel each level replaces: B1 the

@@ -15,7 +15,7 @@ dispatches on the tensor's device (ops/histogram.py).
 | H2O_TPU_SCORE_QUEUE_MAX | 256 | scoring admission-queue bound: requests past it are load-shed with 429 + Retry-After; <=0 unbounded (rest.py) |
 | H2O_TPU_SCORE_MAX_ROWS | 100000 | per-request row cap on the inline scoring route (413 past it) |
 | H2O_TPU_CONTRIB_MAX_ROWS | 100000 | per-request row cap on the TreeSHAP contributions route (413 past it; rest.py) |
-| H2O_TPU_CONTRIB_CHUNK | 16384 | upper bound on rows per device TreeSHAP dispatch, pow2-floored (models/base.py) |
+| H2O_TPU_CONTRIB_CHUNK | unset (16384 where chunked) | cap on rows per TreeSHAP dispatch, pow2-floored. On a CUDA device whose depth groups all have pattern tables the kernel takes the whole batch, unpadded, and the knob caps it only when set; on the CPU and where a group takes the DP path, the JAX rule: chunks of the cap (16384 when unset) shrunk until rows × leaves × depth ≤ 2²⁴, each padded to its pow2 bucket (models/base.py `contrib_dispatch`) |
 | H2O_TPU_POOL_WARM_BUCKETS | 128,1024 | default warm-up ladder: Model.warm_up runs every pow2 batch bucket up to the largest listed before a replica's readyz flips (models/base.py) |
 | H2O_TPU_BREAKER_FAILURES | 5 | consecutive device-dispatch errors that trip the serving circuit breaker open (runtime/lifecycle.py) |
 | H2O_TPU_BREAKER_COOLDOWN | 30 | seconds the breaker stays open before admitting the half-open probe (runtime/lifecycle.py) |

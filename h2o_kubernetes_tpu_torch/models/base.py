@@ -10,9 +10,11 @@ tables — once, on its device, the first time it scores. The cache
 counts hits and misses per model and process-wide: a miss is a call
 that had to build device state, so warm serving adds only hits.
 
-Batches are padded to power-of-two buckets (``_batch_bucket``) and
-contributions are dispatched in chunks of ``_contrib_chunk()`` rows,
-the JAX package's serving shapes.
+Scoring batches are padded to power-of-two buckets (``_batch_bucket``).
+Contributions follow ``contrib_dispatch``: on a CUDA device whose depth
+groups all have pattern tables the kernel takes the whole batch,
+unpadded; elsewhere the JAX package's serving shapes (chunks of
+``_contrib_chunk()`` rows, each padded to its bucket).
 """
 
 from __future__ import annotations
@@ -26,9 +28,15 @@ import numpy as np
 import torch
 
 __all__ = ["Model", "TrainData", "resolve_xy", "scorer_cache_stats",
-           "model_scorer_counters"]
+           "model_scorer_counters", "contrib_dispatch"]
 
 _SCORE_MIN_BATCH = 128          # smallest padded-batch bucket
+_CONTRIB_CHUNK = 16384          # default rows per chunk of the JAX rule
+# device bytes of the [rows, F+1] float32 outputs a whole-batch
+# contributions dispatch may hold at once: a group's output, the running
+# sum over groups and its scaled copy
+_CONTRIB_OUT_BYTES = 1 << 30
+_CONTRIB_OUT_COPIES = 3
 
 _SCORER_STATS = {"hits": 0, "misses": 0, "models": 0}
 # guards device-state creation + stats: an HTTP handler thread and the
@@ -133,6 +141,46 @@ def _batch_bucket(n: int) -> int:
     return b
 
 
+def _pow2_cap(cap: int) -> int:
+    """``cap`` floored to a power of two, at least _SCORE_MIN_BATCH."""
+    c = _SCORE_MIN_BATCH
+    while c * 2 <= cap:
+        c *= 2
+    return c
+
+
+def contrib_dispatch(device_type: str,
+                     groups: "Sequence[tuple[int, int, bool]]",
+                     cap: "int | None", n_features: int
+                     ) -> tuple[int, bool]:
+    """(rows per TreeSHAP dispatch, pad each dispatch to its pow2
+    bucket) for a model on ``device_type`` whose depth groups are
+    ``(leaves, depth, has a pattern table)``; ``cap`` is
+    H2O_TPU_CONTRIB_CHUNK, None when unset.
+
+    On a CUDA device where every group has a pattern table the kernel
+    has no per-row transient and nothing is traced, so it takes the
+    whole batch, unpadded: only the cap, when set, and the device bytes
+    of the [rows, F+1] outputs cut it. Elsewhere (the CPU, or a group
+    on the DP path, whose [L, D, rows] transients are real) the JAX
+    package's rule: chunks of the cap (default 16384), shrunk until
+    rows × L × D ≤ 2^24, each padded to its bucket. Rows are
+    independent, so both give the same bits."""
+    if device_type == "cuda" and all(tab for _, _, tab in groups):
+        rows = max(_SCORE_MIN_BATCH, _CONTRIB_OUT_BYTES // (
+            _CONTRIB_OUT_COPIES * 4 * (n_features + 1)))
+        if cap is not None:
+            rows = min(rows, _pow2_cap(cap))
+        return rows, False
+    chunk = _pow2_cap(_CONTRIB_CHUNK if cap is None else cap)
+    ld = max((L * D for L, D, _ in groups), default=0)
+    if ld:
+        fit = max((1 << 24) // ld, _SCORE_MIN_BATCH)
+        while chunk > _SCORE_MIN_BATCH and chunk > fit:
+            chunk //= 2
+    return chunk, True
+
+
 class Model:
     """Serving surface shared by servable models. Subclasses set
     ``feature_names``, ``nclasses``, ``device`` and implement
@@ -220,6 +268,7 @@ class Model:
                     remaining -= c.nbytes
                 ctabs.append(c)
             self._shap_ctab_np = ctabs
+        from ..ops.shap_kernel import pack_slots
         from .tree.shap import ShapTables
 
         dev = self.device
@@ -227,6 +276,10 @@ class Model:
               for g in stn]
         ct = [None if c is None else torch.as_tensor(c, device=dev)
               for c in self.__dict__["_shap_ctab_np"]]
+        # the kernel's 16-byte slot records, once per model; set before
+        # the tables, whose presence marks the state built
+        self._shap_slots = [None if c is None else pack_slots(g)
+                            for g, c in zip(st, ct)]
         self._shap_ctab = ct
         self._shap_tables = st
         return st, ct
@@ -241,48 +294,49 @@ class Model:
         from .tree.shap import flat_shap
 
         groups, ctabs = self._contrib_prepare()
+        slots = self.__dict__["_shap_slots"]
         em = self._contrib_enum_mask()
         phi = None
-        for g, ct in zip(groups, ctabs):
+        for g, ct, sl in zip(groups, ctabs, slots):
             if ct is None:
                 p = flat_shap(g, X, em)
             else:
-                p = flat_shap_tab_kernel(g, ct, X, em)
+                p = flat_shap_tab_kernel(g, ct, X, em, slots=sl)
             phi = p if phi is None else phi + p
         scale, init = self._contrib_scale_init()
         phi = phi * float(np.float32(scale))
         phi[:, -1] += float(np.float32(init))
         return phi
 
+    def _contrib_dispatch(self) -> tuple[int, bool]:
+        """``contrib_dispatch`` for this model (its groups as built by
+        ``_contrib_prepare``) under H2O_TPU_CONTRIB_CHUNK, read now."""
+        raw = os.environ.get("H2O_TPU_CONTRIB_CHUNK")
+        cap = None
+        if raw is not None:
+            try:
+                cap = int(float(raw))
+            except ValueError:
+                cap = _CONTRIB_CHUNK
+        stn = self.__dict__.get("_shap_tables_np") or []
+        cts = self.__dict__.get("_shap_ctab_np") or [None] * len(stn)
+        groups = [(g.feat.shape[1], g.feat.shape[2], c is not None)
+                  for g, c in zip(stn, cts)]
+        return contrib_dispatch(self.device.type, groups, cap,
+                                len(self.feature_names))
+
     def _contrib_chunk(self) -> int:
-        """Rows per TreeSHAP device dispatch: H2O_TPU_CONTRIB_CHUNK
-        (default 16384) floored to a power of two, shrunk for
-        deep/wide ensembles so [rows × leaves × depth] stays bounded."""
-        try:
-            cap = int(float(os.environ.get("H2O_TPU_CONTRIB_CHUNK",
-                                           "16384")))
-        except ValueError:
-            cap = 16384
-        cap = max(_SCORE_MIN_BATCH, cap)
-        c = _SCORE_MIN_BATCH
-        while c * 2 <= cap:
-            c *= 2
-        cap = c
-        stn = self.__dict__.get("_shap_tables_np")
-        if stn:
-            ld = max(g.feat.shape[1] * g.feat.shape[2] for g in stn)
-            fit = max((1 << 24) // max(ld, 1), _SCORE_MIN_BATCH)
-            while cap > _SCORE_MIN_BATCH and cap > fit:
-                cap //= 2
-        return cap
+        """Rows per TreeSHAP dispatch (``_contrib_dispatch``)."""
+        return self._contrib_dispatch()[0]
 
     def contrib_numpy(self, X) -> np.ndarray:
         """Serving entry for per-row TreeSHAP contributions: raw [n, F]
         ndarray (training value space, enum codes / NaN NAs) -> [n, F+1]
         float32 contributions, last column the bias term — additive to
-        the raw margin. Batches are chunked to ``_contrib_chunk()``
-        rows, each padded to its pow2 bucket, under the circuit breaker
-        and the device guard."""
+        the raw margin. Batches are dispatched as ``contrib_dispatch``
+        says (the whole batch on a CUDA device whose groups all have
+        pattern tables; else chunks, each padded to its pow2 bucket),
+        under the circuit breaker and the device guard."""
         from ..runtime.health import device_dispatch, require_healthy
         from ..runtime.lifecycle import breaker_guard
 
@@ -301,11 +355,11 @@ class Model:
         with breaker_guard("contributions scoring"), \
                 device_dispatch("contributions scoring", locking=False):
             self._cached("contrib")
-            chunk = self._contrib_chunk()
+            chunk, pad = self._contrib_dispatch()
             outs = []
             for s in range(0, n, chunk):
                 xs = X[s:s + chunk]
-                b = _batch_bucket(xs.shape[0])
+                b = _batch_bucket(xs.shape[0]) if pad else xs.shape[0]
                 if b != xs.shape[0]:
                     Xp = np.zeros((b, X.shape[1]), dtype=np.float32)
                     Xp[: xs.shape[0]] = xs
@@ -324,9 +378,11 @@ class Model:
         """Run the serving path once at every pow2 batch bucket up to
         the largest requested one (128, 256, ... top), so device state
         is built and the kernel library loaded before a replica's
-        ``/readyz`` flips. ``buckets=None`` reads
+        ``/readyz`` flips; with ``contributions``, contributions too:
+        once at the top bucket where the whole batch goes to the
+        kernel, else at each chunk size. ``buckets=None`` reads
         ``H2O_TPU_POOL_WARM_BUCKETS`` (default ``128,1024``). Returns
-        the bucket sizes warmed, ascending."""
+        the scoring bucket sizes warmed, ascending."""
         if buckets is None:
             raw = os.environ.get("H2O_TPU_POOL_WARM_BUCKETS", "128,1024")
             buckets = [b for b in raw.replace(" ", "").split(",") if b]
@@ -356,12 +412,12 @@ class Model:
             reason = self.contrib_support()
             if reason:
                 raise ValueError(reason)
-            done: set[int] = set()
-            for b in padded:
-                be = min(b, self._contrib_chunk())
-                if be in done:
-                    continue
-                done.add(be)
+            # the whole-batch dispatch launches the same kernels at any
+            # row count: one call warms them; chunks warm each size
+            self._cached("contrib")
+            chunk, pad = self._contrib_dispatch()
+            sizes = {min(b, chunk) for b in padded} if pad else {top}
+            for be in sorted(sizes):
                 self.contrib_numpy(np.zeros((be, F), dtype=np.float32))
         return padded
 

@@ -3,7 +3,8 @@ so the card-only cases also run where the JAX package is absent).
 
 On the CPU the wrapper is its plain version. On a CUDA card
 (``-m cuda``) the kernel must agree with the plain version BITWISE —
-both add the same f32 values in the same order — and a whole
+both add the same f32 values to each phi entry in the same order — in
+every launch variant and at every plan that fits a block, and a whole
 ``contrib_numpy`` on the card must equal the same call on the CPU
 bitwise too.
 """
@@ -103,3 +104,73 @@ def test_serving_on_card_equals_cpu(case):
     np.testing.assert_array_equal(phi, on_cpu.contrib_numpy(X))
     np.testing.assert_allclose(on_card.score_numpy(X),
                                on_cpu.score_numpy(X), atol=1e-6, rtol=0)
+
+
+_VARIANT_ROWS = (1, 127, 128, 4096, 100_000)
+_VARIANT_ENUMS = (3, 7)
+
+
+def _forced_plans(F, T, L, D, rows):
+    """Every (rows per block, stage buffers) that fits a block, and the
+    device-memory variant: each launch the plan could pick."""
+    LD = L * D
+    buf = -(-(4 * LD + (LD << D)) // 4) * 4
+    plans = []
+    for R in (256, 128, 64, 32):
+        for stages in (2, 1, 0):
+            smem = 4 * (stages * buf + R * shap_kernel._row_floats(F))
+            if smem <= shap_kernel.BLOCK_SMEM:
+                plans.append(shap_kernel.ShapPlan(
+                    "staged" if stages else "unstaged", R, stages,
+                    buf if stages else 0, smem, -(-rows // R), 1))
+    plans.append(shap_kernel.ShapPlan("global_phi", 128, 0, 0, 0,
+                                      -(-rows // 128), 1))
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,depth,ntrees", [(28, 9, 4), (1000, 5, 6)],
+                         ids=["F28", "wideF"])
+def test_every_variant_bitwise_vs_plain_on_card(F, depth, ntrees):
+    """The wrapper's own plan and every other plan that fits, at 1 / 127
+    / 128 / 4,096 / 100,000 rows with NaNs and negative enum codes, equal
+    the plain version bitwise. The depth-9 model's groups take both the
+    staged and the unstaged variant; at 1,000 features phi and X of 32
+    rows do not fit a block, and the wrapper keeps phi in device
+    memory."""
+    dev = _card()
+    blob = random_tree_artifact(71, n_features=F, ntrees=ntrees,
+                                max_depth=depth, p_leaf=0.05,
+                                enum_features=_VARIANT_ENUMS)
+    X = random_rows(72, max(_VARIANT_ROWS), F, nan_frac=0.02,
+                    enum_features=_VARIANT_ENUMS)
+    m = load_artifact(blob, device=dev)
+    groups, ctabs = m._contrib_prepare()
+    em = m._contrib_enum_mask()
+    Xd = torch.as_tensor(X, device=dev)
+    chosen = set()
+    for g, ct, sl in zip(groups, ctabs, m._shap_slots):
+        T, L, D = g.feat.shape
+        for n in _VARIANT_ROWS:
+            Xn = Xd[:n]
+            want = shap_kernel.flat_shap_tab_plain(g, ct, Xn, em)
+            before = dict(shap_kernel.LAUNCHES)
+            got = shap_kernel.flat_shap_tab_kernel(g, ct, Xn, em, slots=sl)
+            plan = shap_kernel.shap_plan(F, T, L, D, n)
+            assert shap_kernel.LAUNCHES[plan.variant] \
+                == before[plan.variant] + 1
+            assert torch.equal(got, want), (plan, n)
+            chosen.add(plan.variant)
+            for p in _forced_plans(F, T, L, D, n):
+                out = shap_kernel._launch(g, ct, Xn, em, sl, p)
+                torch.cuda.synchronize()
+                assert torch.equal(out, want), (p, n)
+        # a table 4 bytes off 16-byte alignment takes the 4-byte copies
+        off = torch.cat([ct.new_zeros(1), ct.reshape(-1)])[1:].view(ct.shape)
+        assert off.data_ptr() % 16
+        Xn = Xd[:4096]
+        assert torch.equal(
+            shap_kernel.flat_shap_tab_kernel(g, off, Xn, em, slots=sl),
+            shap_kernel.flat_shap_tab_plain(g, ct, Xn, em))
+    assert chosen == ({"staged", "unstaged"} if F == 28 else
+                      {"global_phi"})
