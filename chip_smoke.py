@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (h2o_kubernetes_tpu_torch): the
 scorer-replica serving path, binomial GBM training, DRF and multinomial
-GBM training on one CUDA card.
+GBM training, the other GBM distributions, checkpoint continuation, and
+the train -> export -> registry -> replica loop on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -54,8 +55,8 @@ Phases, in order; any failure exits non-zero:
    on 100,000 rows (shap_tab on trees the port grew, one launch per
    group), additivity against logit(p1) ≤ 1e-4, and shap_tab held and
    timed at its groups as in phase 4; model_performance on the
-   1,000,000-row frame, whose AUC is one histogram-kernel launch on the
-   card;
+   1,000,000-row frame, whose AUC and threshold table (pr_auc, F1, ...)
+   share one histogram-kernel launch on the card;
 12. drf — drf_higgs's shape (tools/bench_suite.py:225-232): 1,000,000
    HIGGS-shaped rows, DRF ntrees=10 max_depth=8 seed=1 (64 bins, mtries
    5, sample_rate 0.632: one batched histogram launch per level for all
@@ -76,15 +77,41 @@ Phases, in order; any failure exits non-zero:
    index_add_ at every level input the two trains gave it (DRF: levels
    0-7, 10 to 640 tree·nodes, C=2; multinomial: levels 0-4, 4 to 32
    tree·nodes, C=3), held as in phase 9, with the per-train sums; the
-   row partition at the DRF's deepest level; a bf16 control over all
-   compared levels must exceed the limit;
-15. report — one JSON line of kernel records (B4 with its variants,
+   row partition at the DRF's deepest level;
+15. distributions — poisson, gamma and tweedie on a positive response
+   and laplace, quantile and huber on a heavy-tailed one, derived from
+   the bench frame (1,000,000 rows, ntrees=10 max_depth=5
+   learn_rate=0.2): a warm-up train and five timed ones each, as
+   rows·trees/s at the median (and the spread; a bernoulli train on the
+   same frame is timed first as the control), with the histogram
+   launches by regime and channel count (C=2 for laplace, quantile and
+   huber, C=3 for the others); card vs CPU at 65,536 rows: split
+   structure equal up to float64 near-ties, train RMSE within 1e-4;
+   B1's two-channel levels 0-4 held as in phase 9 at the inputs the
+   huber train gave them, then a bf16 control over all compared levels
+   must exceed the limit; huber's δ over 20,000,000 float32 values on
+   the card bitwise equal to a numpy transcription of jnp.nanquantile;
+16. checkpoint — on the bench frame, 5 trees then a continuation to 10
+   on the card: the first 5 trees bitwise the checkpoint's, warm
+   continuation time; card vs CPU at 65,536 rows (structure up to
+   near-ties, train AUC and logloss within 1e-4); a DRF continuation at
+   drf_higgs's shape (5 to 10 trees, B3's batched launches);
+17. registry — the phase-7 binomial GBM and the phase-15 poisson GBM
+   published into a ModelRegistry on a file root under build/registry,
+   pushed (path + sha256) to start_server on the card: predictions over
+   REST bitwise equal to score_numpy, the binomial model's contributions
+   one shap_tab launch per depth group per request and additive to
+   logit(p1) within 1e-4, single-request latencies, a tampered digest
+   answered 409, and MojoModel on the fetched bytes within 1e-6 of
+   score_numpy on 4,096 rows (relative where a prediction passes 1);
+18. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
-   row partition),
-   the card line, and as the last line {"ok": true, "device": {...}}.
+   row partition; the launches of phases 15-17 beside each), the card
+   line, and as the last line {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
-contrib_numpy, GBM train, DRF train and multinomial train call.
+contrib_numpy, GBM train, DRF train and multinomial train call, and of
+one train of each family in phase 15 (and of its bernoulli control).
 """
 
 from __future__ import annotations
@@ -128,6 +155,9 @@ _DRF_DEPTH = 8
 _MN_ROWS = 500_000
 _MN_TREES = 5
 _WARM_TRAINS = 5                # timed warm trains; the median is reported
+# huber's delta is held to jnp.nanquantile's arithmetic at this many
+# values, past where torch.nanquantile refuses its input
+_HUBER_ROWS = 20_000_000
 # a histogram cell may be this far from the float64 sum, relative to
 # its Σ|v|: above the kernel's float32 rounding at 1,000,000 rows, below
 # what bf16-rounded values give
@@ -188,7 +218,9 @@ def _host_s(fn, repeats: int) -> float:
 def _profile(torch, name: str, fn, top: int = 6) -> None:
     """One warm call of fn under torch.profiler: wall time, the device
     time summed over device-side events (kernels and copies on one
-    stream, so the busy time) and the top of them by device time."""
+    stream, so the busy time), the top of them by device time, and the
+    top host-side ops by their own host time (where a host-bound call
+    spends its wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -213,6 +245,12 @@ def _profile(torch, name: str, fn, top: int = 6) -> None:
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
         _log(f"[profile] {name}:   {e.key[:70]}: "
              f"{e.self_device_time_total / 1e3:.3f} ms over {e.count} "
+             "calls")
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
+        _log(f"[profile] {name}:   host {e.key[:64]}: "
+             f"{e.self_cpu_time_total / 1e3:.3f} ms own over {e.count} "
              "calls")
 
 
@@ -292,6 +330,55 @@ def _multinomial_cols(rows: int, seed: int) -> dict:
     cols = {f"f{i}": X[:, i] for i in range(10)}
     cols["y"] = y
     return cols
+
+
+def _dist_responses(cols: dict, seed: int) -> dict:
+    """Responses for the other GBM families, derived from the bench
+    frame's columns: ``ypos`` (positive: a log-linear mean times gamma
+    noise) and ``yheavy`` (a linear signal plus Student-t(2) noise)."""
+    rng = np.random.default_rng(seed + 77)
+    rows = cols["x0"].shape[0]
+    lin = 0.4 * cols["x0"] - 0.3 * cols["x1"] + 0.01 * cols["dep_delay"]
+    return {"ypos": (np.exp(lin) * rng.gamma(2.0, 0.5, rows)
+                     ).astype(np.float32),
+            "yheavy": (2.0 * lin + rng.standard_t(2, rows)
+                       ).astype(np.float32)}
+
+
+class _LaunchesByC:
+    """Counts the histogram kernel's launches by regime and channel
+    count (C=2 under unit hess, 3 otherwise) while active: it wraps the
+    module's launch (which still counts its own launches)."""
+
+    def __init__(self, hist_op):
+        self.op, self.launch, self.n = hist_op, hist_op._launch, {}
+
+    def __enter__(self):
+        def launch(binned, rel, vals, out, plan):
+            key = f"{plan.regime} C={plan.C}"
+            self.n[key] = self.n.get(key, 0) + 1
+            return self.launch(binned, rel, vals, out, plan)
+
+        self.op._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.op._launch = self.launch
+
+
+def _near_ties(tm, other, frame, y, kw, n_old=0):
+    """Walk ``tm``'s trees against ``other``'s (tools/torch_tree_parity:
+    a differing decision must be a float64 near-tie, or this raises);
+    returns (nodes compared, ties, the largest gap of a compared leaf
+    relative to its tree's largest |leaf|)."""
+    from tools.torch_tree_parity import round_stats, walk
+
+    stats, binned = round_stats(tm, frame, y, kw, n_old=n_old)
+    try:
+        compared, ties, gaps = walk(tm, other, stats, binned, n_old=n_old)
+    except AssertionError as e:
+        raise RuntimeError(f"a split differs beyond a near-tie: {e}")
+    return compared, ties, float(gaps.max()) if gaps.size else 0.0
 
 
 class _HistRecorder:
@@ -495,6 +582,24 @@ def _log_sums(sums: dict, names, card: str) -> None:
         _log(f"[hist] {name} train: {calls} launches per train, kernel "
              f"{ms:.4f} ms against a bound of {bound:.4f} ms (gap "
              f"{ms - bound:.4f} ms) [{card}]")
+
+
+def _xla_nanquantile(x: np.ndarray, q: float) -> np.float32:
+    """``jnp.nanquantile(x, q)`` of float32 ``x`` as XLA computes it,
+    transcribed in numpy with no JAX: the live count in float32, the
+    position ``q * (count - 1)``, floor/ceil, weights ``hw = pos -
+    floor`` and ``lw = 1 - hw`` in float32, and XLA's contraction
+    ``fma(hi, hw, lo * lw)`` (float64 product and sum rounded once)."""
+    f32 = np.float32
+    s = np.sort(x)                                  # NaN last
+    count = f32(np.count_nonzero(~np.isnan(x)))
+    pos = f32(q) * (count - f32(1))
+    hw = f32(pos - np.floor(pos))
+    lw = f32(1) - hw
+    last = count - f32(1)
+    lo = s[int(max(min(np.floor(pos), last), 0))]
+    hi = s[int(max(min(np.ceil(pos), last), 0))]
+    return f32(np.float64(hi) * np.float64(hw) + np.float64(f32(lo * lw)))
 
 
 def _shap_compare(torch, shap_kernel, model, X: np.ndarray, label: str,
@@ -830,8 +935,9 @@ def main() -> int:
             tot[2] += calls * res["bound_ms"]
 
     def auc(rec, label):
-        (_, inp, calls), = rec.levels(1, 4096, 3, i16)
-        return (f"auc ({label})", inp, 4096, calls)
+        """The score histogram's launches, held at the first."""
+        lv = rec.levels(1, 4096, 3, i16)
+        return (f"auc ({label})", lv[0][1], 4096, sum(c for _, _, c in lv))
 
     b, r, v, n = rec5.levels(1, 256, 3, u8)[0][1]
     compare("gbm depth 5", rec5, 1, 256, 3, u8, "gbm d5", [
@@ -896,10 +1002,13 @@ def main() -> int:
     _log(f"[serve trained] model_performance on {_TRAIN_ROWS} rows: "
          f"{perf}; histogram launches {perf_launches} (train_auc "
          f"{hist['train_auc']:.6f})")
+    # one launch for the AUC and the threshold table
     if sum(perf_launches.values()) != 1 \
-            or abs(perf["auc"] - hist["train_auc"]) > 1e-4:
+            or abs(perf["auc"] - hist["train_auc"]) > 1e-4 \
+            or not 0 < perf["f1"] <= 1:
         raise RuntimeError("model_performance did not take the card's "
-                           "histogram AUC or disagrees with the train AUC")
+                           "histogram AUC and threshold table, or "
+                           "disagrees with the train AUC")
     if args.profile:
         _profile(torch, "train", lambda: train(frame), top=12)
 
@@ -947,7 +1056,8 @@ def main() -> int:
     if args.profile:
         _profile(torch, "drf train", lambda: fit_drf(hframe), top=12)
     # per train: the 8 histogrammed levels of one group of 10 trees (the
-    # deeper ones partitioned) and the train AUC's one launch
+    # deeper ones partitioned) and the train metrics' one launch (the
+    # AUC and the threshold table)
     if sum(drf_batched.values()) != 8 * _WARM_TRAINS \
             or drf_batched["partitioned"] <= 0 or drf_parts <= 0 \
             or sum(drf_launches.values()) != 9 * _WARM_TRAINS:
@@ -1059,6 +1169,98 @@ def main() -> int:
             {r["C"] for r in b3.values()} != {2, 3}:
         raise RuntimeError("B3 was not compared at every level, in both "
                            f"regime families and widths: {b3_modes}")
+
+    # -- 15. distributions: the other GBM families at bench.py's shape ------
+    from h2o_kubernetes_tpu_torch.models.tree.core import huber_delta
+
+    resp = {"poisson": "ypos", "gamma": "ypos", "tweedie": "ypos",
+            "laplace": "yheavy", "quantile": "yheavy", "huber": "yheavy"}
+    dcols = {**cols, **_dist_responses(cols, args.seed)}
+    t0 = time.perf_counter()
+    dframe = Frame.from_arrays(dcols)
+    _log(f"[distributions] bench frame + ypos, yheavy on {dframe.device} "
+         f"in {time.perf_counter() - t0:.2f}s")
+
+    def fit_dist(fr, dist, ntrees=_TRAIN_TREES):
+        y = resp[dist]
+        return GBM(ntrees=ntrees, max_depth=5, learn_rate=0.2, seed=1,
+                   distribution=dist).train(
+            y=y, training_frame=fr,
+            ignored_columns=[c for c in ("y", "ypos", "yheavy") if c != y])
+
+    def fit_bern(fr):
+        return GBM(ntrees=_TRAIN_TREES, max_depth=5, learn_rate=0.2,
+                   seed=1).train(y="y", training_frame=fr,
+                                 ignored_columns=["ypos", "yheavy"])
+
+    # bernoulli on the same frame, in the same minute: the control the
+    # six families' times are read against
+    fit_bern(dframe)
+    bern_times, _ = _warm_trains(lambda: fit_bern(dframe), _WARM_TRAINS)
+    _log(f"[distributions] control: bernoulli on this frame, "
+         f"{_WARM_TRAINS} warm trains {[round(t, 4) for t in bern_times]} "
+         f"s, median {statistics.median(bern_times):.4f}s [{card}]")
+    if args.profile:
+        _profile(torch, "bernoulli train (control)",
+                 lambda: fit_bern(dframe), top=12)
+    dists, dist_models = {}, {}
+    for dist in resp:
+        if dist == "huber":
+            with _HistRecorder(hist_op) as rec_hub:
+                fit_dist(dframe, dist)         # warm-up, its levels kept
+        else:
+            fit_dist(dframe, dist)             # warm-up
+        with _LaunchesByC(hist_op) as byc:
+            times, dm = _warm_trains(lambda: fit_dist(dframe, dist),
+                                     _WARM_TRAINS)
+        med = statistics.median(times)
+        rmse = dm.scoring_history[-1]["train_rmse"]
+        want_c = 2 if dist in ("laplace", "quantile", "huber") else 3
+        per_train = {k: v // _WARM_TRAINS for k, v in byc.n.items()}
+        dists[dist] = {"median_s": med, "min_s": min(times),
+                       "max_s": max(times), "train_s": times,
+                       "rows_trees_per_s": _TRAIN_ROWS * _TRAIN_TREES / med,
+                       "launches_per_train": per_train, "train_rmse": rmse}
+        dist_models[dist] = dm
+        if args.profile:
+            _profile(torch, f"{dist} train", lambda: fit_dist(dframe, dist),
+                     top=12)
+        _log(f"[distributions] {dist} ({resp[dist]}): {_WARM_TRAINS} warm "
+             f"trains {[round(t, 4) for t in times]} s, median {med:.4f}s "
+             f"(min {min(times):.4f}, max {max(times):.4f}) = rows·trees/s "
+             f"{_TRAIN_ROWS * _TRAIN_TREES / med:.0f} at the median; "
+             f"train_rmse {rmse:.6f}; histogram launches per train "
+             f"{per_train} [{card}]")
+        if not (np.isfinite(rmse) and sum(per_train.values()) == 50
+                and all(k.endswith(f"C={want_c}") for k in per_train)):
+            raise RuntimeError(f"{dist}: bad metric {rmse} or histogram "
+                               f"launches {byc.n} (want 50 per train at "
+                               f"C={want_c})")
+    small = {k: v[:_PARITY_ROWS] for k, v in dcols.items()}
+    sf_card, sf_cpu = Frame.from_arrays(small), \
+        Frame.from_arrays(small, device="cpu")
+    for dist in resp:
+        m_card, m_cpu = fit_dist(sf_card, dist), fit_dist(sf_cpu, dist)
+        y = resp[dist]
+        kw = {"ignored_columns": [c for c in ("y", "ypos", "yheavy")
+                                  if c != y]}
+        compared, ties, leaf_gap = _near_ties(m_card, m_cpu, sf_card, y,
+                                              kw)
+        gap = abs(m_card.scoring_history[-1]["train_rmse"]
+                  - m_cpu.scoring_history[-1]["train_rmse"])
+        dists[dist].update(parity_nodes=compared, parity_ties=len(ties),
+                           parity_leaf_gap=leaf_gap, parity_rmse_gap=gap)
+        _log(f"[distributions] {dist} card vs CPU at {_PARITY_ROWS} rows: "
+             f"{compared} nodes equal, {len(ties)} near-ties {ties}, "
+             f"compared leaves within {leaf_gap:.3e} of the tree's largest "
+             f"|leaf|, train_rmse gap {gap:.3e}")
+        if gap > 1e-4:
+            raise RuntimeError(f"{dist}: card and CPU training disagree")
+    # B1's two-channel levels at the inputs the huber train gave them
+    compare("huber depth 5", rec_hub, 1, 256, 2, u8, "huber d5")
+    if len(rec_hub.levels(1, 256, 2, u8)) != 5:
+        raise RuntimeError("the huber train did not hand B1 five C=2 levels")
+    _log_sums(sums, ("huber depth 5",), card)
     controls = [r["control_rel_err"] for r in levels.values()
                 if r["bf16_changes_vals"]]
     _log(f"[hist] limit {_HIST_REL_LIMIT:.0e}: kernel at most "
@@ -1067,8 +1269,174 @@ def main() -> int:
     if max(controls, default=0.0) <= _HIST_REL_LIMIT:
         raise RuntimeError("the bf16 control stays within the histogram "
                            "limit: the check cannot tell f32 from bf16")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    r20 = torch.randn(_HUBER_ROWS, device=dev, generator=gen) * 3.0
+    w20 = (torch.rand(_HUBER_ROWS, device=dev, generator=gen) > 0.05
+           ).float()
+    d_card = huber_delta(r20, w20, 0.9)
+    d_ms = _cuda_ms(torch, lambda: huber_delta(r20, w20, 0.9), _REPEATS)
+    absr = np.where(w20.cpu().numpy() > 0, np.abs(r20.cpu().numpy()),
+                    np.nan).astype(np.float32)
+    d_ref = _xla_nanquantile(absr, 0.9)
+    same = d_card.cpu().numpy().tobytes() == d_ref.tobytes()
+    _log(f"[distributions] huber delta over {_HUBER_ROWS} float32 values: "
+         f"card {float(d_card)!r}, jnp.nanquantile's arithmetic in numpy "
+         f"{float(d_ref)!r}, bitwise {same}; {d_ms:.3f} ms on the card "
+         f"[{card}]")
+    if not same:
+        raise RuntimeError("huber's delta differs from jnp.nanquantile's "
+                           "arithmetic")
 
-    # -- 15. report ----------------------------------------------------------
+    # -- 16. checkpoint: continue a GBM and a forest on the card ------------
+    def fit_ck(fr, n, ck=None):
+        return GBM(ntrees=n, max_depth=5, learn_rate=0.2, seed=1,
+                   checkpoint=ck).train(y="y", training_frame=fr)
+
+    ck5 = fit_ck(frame, 5)
+    fit_ck(frame, 10, ck5)                     # warm-up
+    hist_op.reset_launches()
+    ck_times, cont = _warm_trains(lambda: fit_ck(frame, 10, ck5),
+                                  _WARM_TRAINS)
+    ck_launches = dict(hk)
+    kept = all(torch.equal(a[:5], b) for a, b in zip(cont.trees, ck5.trees))
+    ck_s = statistics.median(ck_times)
+    ch = cont.scoring_history[-1]
+    _log(f"[checkpoint] GBM 5 -> 10 trees at {_TRAIN_ROWS} rows: first 5 "
+         f"trees bitwise the checkpoint's {kept}; {_WARM_TRAINS} warm "
+         f"continuations {[round(t, 4) for t in ck_times]} s, median "
+         f"{ck_s:.4f}s (min {min(ck_times):.4f}, max {max(ck_times):.4f}) "
+         f"= {_TRAIN_ROWS * 5 / ck_s:.0f} new rows·trees/s; train_auc "
+         f"{ch['train_auc']:.6f} (checkpoint "
+         f"{ck5.scoring_history[-1]['train_auc']:.6f}); histogram launches "
+         f"{ck_launches} over {_WARM_TRAINS} continuations [{card}]")
+    if not kept or sum(ck_launches.values()) != _WARM_TRAINS * (5 * 5 + 1) \
+            or not ch["train_auc"] > ck5.scoring_history[-1]["train_auc"]:
+        raise RuntimeError("the continuation did not keep the checkpoint's "
+                           "trees, improve on it, or launch 26 histograms")
+    small = {k: v[:_PARITY_ROWS] for k, v in cols.items()}
+    sc_card, sc_cpu = Frame.from_arrays(small), \
+        Frame.from_arrays(small, device="cpu")
+    c_card = fit_ck(sc_card, 10, fit_ck(sc_card, 5))
+    c_cpu = fit_ck(sc_cpu, 10, fit_ck(sc_cpu, 5))
+    compared, ties, leaf_gap = _near_ties(c_card, c_cpu, sc_card, "y", {})
+    gaps = {k: abs(c_card.scoring_history[-1][k]
+                   - c_cpu.scoring_history[-1][k])
+            for k in ("train_auc", "train_logloss")}
+    _log(f"[checkpoint] card vs CPU at {_PARITY_ROWS} rows: {compared} nodes "
+         f"equal, {len(ties)} near-ties, compared leaves within "
+         f"{leaf_gap:.3e}, metric gaps {gaps}")
+    if max(gaps.values()) > 1e-4:
+        raise RuntimeError("card and CPU continuations disagree")
+    drf5 = DRF(ntrees=5, max_depth=_DRF_DEPTH, seed=1).train(
+        y="y", training_frame=hframe)
+    hist_op.reset_launches()
+    t0 = time.perf_counter()
+    drf10 = DRF(ntrees=_DRF_TREES, max_depth=_DRF_DEPTH, seed=1,
+                checkpoint=drf5).train(y="y", training_frame=hframe)
+    drf_ck_s = time.perf_counter() - t0
+    drf_ck_batched = dict(bk)
+    drf_kept = all(torch.equal(a[:5], b)
+                   for a, b in zip(drf10.trees, drf5.trees))
+    _log(f"[checkpoint] DRF 5 -> {_DRF_TREES} trees at drf_higgs's shape: "
+         f"first 5 bitwise {drf_kept}, {drf_ck_s:.4f}s, batched launches "
+         f"{drf_ck_batched}, train_auc "
+         f"{drf10.scoring_history[-1]['train_auc']:.6f} [{card}]")
+    if not drf_kept or sum(drf_ck_batched.values()) != _DRF_DEPTH:
+        raise RuntimeError("the forest continuation did not keep its trees "
+                           "or grow its 5 new trees in one batched launch "
+                           "per level")
+
+    # -- 17. registry: train -> export -> registry -> replica ----------------
+    import hashlib
+    import os
+    import shutil
+
+    from h2o_kubernetes_tpu_torch import ModelRegistry, MojoModel
+
+    pois = dist_models["poisson"]
+    reg_root = os.path.join("build", "registry", f"smoke-{os.getpid()}")
+    reg = ModelRegistry(reg_root)
+    n_req = 4096
+    Xg = gbm._design_matrix(frame)[:n_req].cpu().numpy()
+    Xp = pois._design_matrix(dframe)[:n_req].cpu().numpy()
+    rcols = list(gbm.feature_names)
+    rows_req = [[dcols[c][i] if c == "c1" else float(dcols[c][i])
+                 for c in rcols] for i in range(n_req)]
+    body = {"rows": rows_req, "columns": rcols}
+    rest.BATCHER.reset()                       # phase 6 stopped it
+    srv = start_server(port=0)
+    port = srv.server_address[1]
+    url = f"http://127.0.0.1:{port}"
+    lat = {}
+    try:
+        versions = {"bench_gbm": reg.publish(gbm, "bench_gbm"),
+                    "bench_poisson": reg.publish(pois, "bench_poisson")}
+        pushed = {name: reg.push(url, name, v, name,
+                                 warm_buckets=[128, n_req])
+                  for name, v in versions.items()}
+        _log(f"[registry] published {versions} under {reg_root}; pushed "
+             f"by path + sha256: {pushed}")
+        code, pg = _post(port, "/3/Predictions/models/bench_gbm", body)
+        code2, pp = _post(port, "/3/Predictions/models/bench_poisson", body)
+        if code != 200 or code2 != 200:
+            raise RuntimeError(f"predictions: {code} {pg} / {code2} {pp}")
+        pos = gbm.response_domain[1]
+        same_g = np.array_equal(np.asarray(pg[f"p{pos}"], np.float32),
+                                gbm.score_numpy(Xg)[:, 1])
+        same_p = np.array_equal(np.asarray(pp["predict"], np.float32),
+                                pois.score_numpy(Xp))
+        n_groups_g = len(gbm._contrib_prepare()[0])
+        before = kern.launches
+        code, cg = _post(port, "/3/Predictions/models/bench_gbm/contributions",
+                         body)
+        reg_launches = kern.launches - before
+        if code != 200:
+            raise RuntimeError(f"contributions: {code} {cg}")
+        phi = np.asarray(cg["contributions"], np.float64)
+        p1 = np.asarray(pg[f"p{pos}"], np.float64)
+        add = float(np.abs(phi.sum(axis=1) - np.log(p1 / (1 - p1))).max())
+        for name, path in (("predictions", "/3/Predictions/models/bench_gbm"),
+                           ("contributions", "/3/Predictions/models/"
+                            "bench_gbm/contributions")):
+            ts = []
+            for _ in range(_REPEATS):
+                t0 = time.perf_counter()
+                _post(port, path, body)
+                ts.append(time.perf_counter() - t0)
+            lat[name] = statistics.median(ts) * 1e3
+        tamper, _ = _post(port, "/3/ModelRegistry/load", {
+            "model_id": "tampered",
+            "path": reg.artifact_path("bench_gbm", versions["bench_gbm"]),
+            "sha256": hashlib.sha256(b"not the artifact").hexdigest()})
+        mojo_err = {}
+        for name, model, Xm in (("bench_gbm", gbm, Xg),
+                                ("bench_poisson", pois, Xp)):
+            mm = MojoModel(io.BytesIO(reg.fetch(name, versions[name])))
+            want = model.score_numpy(Xm).astype(np.float64)
+            # relative past 1: the poisson means reach ~10, where float32
+            # itself resolves ~1e-6
+            mojo_err[name] = float((np.abs(mm.predict(Xm) - want)
+                                    / np.maximum(1.0, np.abs(want))).max())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        rest.BATCHER.stop(timeout=5.0)
+        shutil.rmtree(reg_root, ignore_errors=True)
+    _log(f"[registry] {n_req}-row requests over REST: predictions bitwise "
+         f"score_numpy {same_g} (binomial) {same_p} (poisson); "
+         f"contributions additivity {add:.3e}, shap_tab launches "
+         f"{reg_launches} per request over {n_groups_g} groups; latency "
+         f"(median of {_REPEATS} single requests) predictions "
+         f"{lat['predictions']:.3f} ms, contributions "
+         f"{lat['contributions']:.3f} ms; tampered digest -> {tamper}; "
+         f"MojoModel vs score_numpy (relative past 1) {mojo_err} "
+         f"[{card}]")
+    if not (same_g and same_p and add <= 1e-4 and tamper == 409
+            and reg_launches == n_groups_g
+            and max(mojo_err.values()) <= 1e-6):
+        raise RuntimeError("the registry loop served wrong results")
+
+    # -- 18. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -1111,8 +1479,8 @@ def main() -> int:
             ("histogram", "gbm d5 level 0", sum(train_launches.values()),
              train_launches,
              "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)",
-             ("gbm depth 5",),
-             lambda k, v: k.startswith(("gbm d5", "auc"))),
+             ("gbm depth 5", "huber depth 5"),
+             lambda k, v: k.startswith(("gbm d5", "huber d5", "auc"))),
             ("histogram_deep", "gbm d10 level 9",
              deep_launches["partitioned"],
              {"partitioned": deep_launches["partitioned"]},
@@ -1154,6 +1522,15 @@ def main() -> int:
     records[1]["warm_train_s"] = train_times
     records[3]["drf_warm_train_s"] = drf_times
     records[3]["multinomial_warm_train_s"] = mn_times
+    # the launches of phases 15-17, each counted from zero around its run
+    records[0]["registry_launches_per_request"] = reg_launches
+    records[0]["registry_latency_ms"] = lat
+    records[1]["distributions"] = dists
+    records[1]["distributions_control_bernoulli_s"] = bern_times
+    records[1]["checkpoint_launches"] = ck_launches
+    records[1]["checkpoint_warm_s"] = ck_times
+    records[3]["drf_checkpoint_launches"] = drf_ck_batched
+    records[3]["drf_checkpoint_s"] = drf_ck_s
     _log(json.dumps({"kernels": records}))
     _log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""Model metrics of the training slices: AUC, logloss, multinomial
-logloss, accuracy, RMSE, MAE, R².
+"""Model metrics: AUC, the binomial threshold table (``binomial_stats``:
+precision-recall AUC, Gini, max F1 and its threshold, mean per-class
+error, the confusion matrix), logloss, multinomial logloss, accuracy,
+RMSE, MAE, R² and the gaussian or poisson mean residual deviance.
 
 Inputs may be numpy arrays or tensors; the metric runs on the device
 of ``score``/``pred`` when that is a tensor (the CPU otherwise) and
@@ -12,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["roc_auc", "logloss", "multinomial_logloss", "accuracy",
-           "rmse", "mae", "r2", "mean_residual_deviance"]
+__all__ = ["roc_auc", "binomial_stats", "binomial_auc_and_stats",
+           "confusion_matrix", "logloss", "multinomial_logloss",
+           "accuracy", "rmse", "mae", "r2", "mean_residual_deviance"]
 
 _AUC_BINS = 4096        # score-histogram bins of the AUC's histogram path
 _AUC_EXACT_MAX = 65536  # above this many rows the histogram path is used
@@ -69,7 +72,8 @@ def _auc_exact(y, s, wt):
 
 
 def _score_hist(y, s, wt):
-    """[NB, 2] (pos, neg) weight per score bin + bad (NaN on a live row).
+    """([NB, 2] (pos, neg) weight per score bin, smin, smax, bad): bad
+    flags a NaN on a live row.
     NaN scores park at 0 with ``bad`` set; ±inf scores pin to the end
     bins and do not set the bin scale."""
     from .ops.histogram import build_histogram
@@ -88,16 +92,115 @@ def _score_hist(y, s, wt):
     rel = torch.where(live, 0, -1).to(torch.int32)
     codes = idx.to(torch.int16)[None, :]                      # [1, rows]
     hist = build_histogram(codes, rel, y, 1.0 - y, wt, 1, _AUC_BINS)[0, 0]
-    return hist[:, :2], bad
+    return hist[:, :2], smin, smax, bad
 
 
 def _auc_hist(y, s, wt):
-    hist, bad = _score_hist(y, s, wt)
+    hist, _, _, bad = _score_hist(y, s, wt)
+    return _auc_of_hist(hist, bad)
+
+
+def _auc_of_hist(hist, bad):
     posb, negb = hist[:, 0], hist[:, 1]
     below = torch.cumsum(negb, dim=0) - negb
     auc = torch.sum(posb * (below + 0.5 * negb)) / \
         (torch.sum(posb) * torch.sum(negb))
     return torch.where(bad, float("nan"), auc)
+
+
+def binomial_stats(y_true, p1, w=None) -> dict:
+    """The binomial threshold table from one 4096-bin score histogram
+    (``_score_hist``: the CUDA kernel's launch on a card), swept on the
+    host over the bin-edge thresholds as the JAX package does: auc,
+    gini, pr_auc, max F1 and its threshold, the best accuracy, the mean
+    per-class error at the F1-optimal threshold and the confusion
+    counts there. Raises ValueError when a class is absent."""
+    return _stats_of_hist(*_score_hist(*_inputs(y_true, p1, w)))
+
+
+def binomial_auc_and_stats(y_true, p1) -> tuple[float, dict | None]:
+    """``roc_auc(y_true, p1)`` and ``binomial_stats(y_true, p1)`` (None
+    when a class is absent), bit for bit, from one score histogram:
+    past 65,536 rows the AUC is read from the histogram the threshold
+    table is swept over, so a card launches the kernel once."""
+    y, s, wt = _inputs(y_true, p1, None)
+    sh = _score_hist(y, s, wt)
+    auc = _auc_exact(y, s, wt) if y.shape[0] <= _AUC_EXACT_MAX \
+        else _auc_of_hist(sh[0], sh[3])
+    try:
+        stats = _stats_of_hist(*sh)
+    except ValueError:                      # one class in the holdout
+        stats = None
+    return float(auc), stats
+
+
+def _stats_of_hist(hist, smin, smax, bad) -> dict:
+    if bool(bad):
+        nan = float("nan")
+        return {k: nan for k in
+                ("auc", "gini", "pr_auc", "f1", "max_f1_threshold",
+                 "accuracy", "mean_per_class_error")} | {
+                "confusion": np.full((2, 2), nan)}
+    hist = hist.cpu().numpy()
+    pos, neg = hist[:, 0].astype(np.float64), hist[:, 1].astype(np.float64)
+    P, N = pos.sum(), neg.sum()
+    if P == 0 or N == 0:
+        raise ValueError("binomial metrics need both classes present")
+    # threshold k: predict positive when the score bin >= k
+    tp = np.cumsum(pos[::-1])[::-1]
+    fp = np.cumsum(neg[::-1])[::-1]
+    fn = P - tp
+    tn = N - fp
+    with np.errstate(divide="ignore", invalid="ignore"):
+        precision = np.where(tp + fp > 0, tp / (tp + fp), 1.0)
+        recall = tp / P
+        f1 = np.where(precision + recall > 0,
+                      2 * precision * recall / (precision + recall), 0.0)
+    acc = (tp + tn) / (P + N)
+    k_f1 = int(np.argmax(f1))
+    span = max(float(smax) - float(smin), 1e-30)
+    thr = float(smin) + k_f1 * span / (_AUC_BINS - 1)
+    # precision-recall AUC: trapezoid over (recall, precision) with the
+    # (0, 1) endpoint of an above-max-score threshold appended
+    r_ext = np.append(recall, 0.0)
+    p_ext = np.append(precision, 1.0)
+    order = np.argsort(r_ext)
+    trap = np.trapezoid if hasattr(np, "trapezoid") else np.trapz
+    pr_auc = float(trap(p_ext[order], r_ext[order]))
+    auc = float(_auc_from_hist(pos, neg))
+    return {
+        "auc": auc,
+        "gini": 2 * auc - 1,
+        "pr_auc": pr_auc,
+        "f1": float(f1[k_f1]),
+        "max_f1_threshold": thr,
+        "accuracy": float(acc.max()),
+        "mean_per_class_error": float(
+            0.5 * (fn[k_f1] / P + fp[k_f1] / N)),
+        "confusion": np.array([[tn[k_f1], fp[k_f1]],
+                               [fn[k_f1], tp[k_f1]]]),
+    }
+
+
+def _auc_from_hist(pos, neg):
+    below = np.cumsum(neg) - neg
+    return (pos * (below + 0.5 * neg)).sum() / (pos.sum() * neg.sum())
+
+
+def confusion_matrix(y_true, p1, threshold: float | None = None,
+                     w=None) -> np.ndarray:
+    """2x2 [[TN, FP], [FN, TP]] (rows actual, columns predicted) at
+    ``threshold``, or at the F1-optimal one when None."""
+    if threshold is None:
+        return binomial_stats(y_true, p1, w=w)["confusion"]
+    y, p, wt = (a.cpu().numpy() for a in _inputs(y_true, p1, w))
+    pred = p >= threshold
+    pos = y > 0
+    tp = float(wt[pred & pos].sum())
+    fp = float(wt[pred & ~pos].sum())
+    fn = float(wt[~pred & pos].sum())
+    tn = float(wt[~pred & ~pos].sum())
+    return np.array([[tn, fp], [fn, tp]])
 
 
 def logloss(y_true, p, eps: float = 1e-7, w=None) -> float:
@@ -165,7 +268,15 @@ def r2(y_true, pred) -> float:
     return float(1.0 - ss_res / ss_tot)
 
 
-def mean_residual_deviance(y_true, pred) -> float:
-    """Gaussian deviance: the mean squared error."""
+def mean_residual_deviance(y_true, pred, distribution: str = "gaussian"
+                           ) -> float:
+    """Mean residual deviance: gaussian, the mean squared error;
+    poisson, 2·mean(y·log(y/p) - (y - p)) with p clamped to 1e-10."""
     y, p, _ = _inputs(y_true, pred, None)
-    return float(torch.mean((y - p) ** 2, dtype=_ACC))
+    if distribution == "gaussian":
+        return float(torch.mean((y - p) ** 2, dtype=_ACC))
+    if distribution == "poisson":
+        p = torch.clamp(p, min=1e-10)
+        yl = torch.where(y > 0, y * torch.log(y / p), 0.0)
+        return float(2.0 * torch.mean(yl - (y - p), dtype=_ACC))
+    raise ValueError(distribution)

@@ -529,11 +529,15 @@ class Model:
 
     def model_performance(self, frame, y: str) -> dict[str, float]:
         """Metrics of this model on ``frame``'s response ``y`` (rows with
-        an NA response dropped): binomial auc/logloss/rmse; multinomial
-        logloss/accuracy/mean_per_class_error and the macro one-vs-rest
-        auc; regression rmse/mae/r2/mean_residual_deviance. Scores,
+        an NA response dropped): binomial auc/logloss/rmse and the
+        threshold table's pr_auc/gini/f1/max_f1_threshold/
+        mean_per_class_error (a single-class holdout keeps the first
+        three); multinomial logloss/accuracy/mean_per_class_error and
+        the macro one-vs-rest auc; regression rmse/mae/r2/
+        mean_residual_deviance (poisson's deviance for poisson). Scores,
         response and metrics stay on the model's device (on a card each
-        AUC's score histogram is the CUDA kernel's)."""
+        score histogram is the CUDA kernel's; a binomial AUC and its
+        threshold table share one)."""
         from .. import metrics as M
 
         out = self._predict_device(frame)
@@ -545,8 +549,14 @@ class Model:
         yt, out = yt[ok], out[ok]
         if self.nclasses == 2:
             p1 = out[:, 1]
-            return {"auc": M.roc_auc(yt, p1), "logloss": M.logloss(yt, p1),
-                    "rmse": M.rmse(yt, p1)}
+            auc, stats = M.binomial_auc_and_stats(yt, p1)
+            res = {"auc": auc, "logloss": M.logloss(yt, p1),
+                   "rmse": M.rmse(yt, p1)}
+            if stats is None:               # one class in the holdout
+                return res
+            return res | {k: stats[k] for k in
+                          ("pr_auc", "gini", "f1", "max_f1_threshold",
+                           "mean_per_class_error")}
         if self.nclasses > 2:
             lab = out.argmax(dim=1)
             yc = yt.long()
@@ -562,6 +572,9 @@ class Model:
                     "accuracy": M.accuracy(yt, lab),
                     "mean_per_class_error": float(np.mean(errs)),
                     "auc": float(np.mean(aucs))}
+        dist = "poisson" if getattr(self, "distribution", None) == \
+            "poisson" else "gaussian"
         return {"rmse": M.rmse(yt, out), "mae": M.mae(yt, out),
                 "r2": M.r2(yt, out),
-                "mean_residual_deviance": M.mean_residual_deviance(yt, out)}
+                "mean_residual_deviance": M.mean_residual_deviance(
+                    yt, out, dist)}

@@ -8,14 +8,18 @@ surface of ``FlatTreeScorer`` (``score_numpy``, ``contrib_numpy``,
 ``warm_up``) over the flattened trees it grew. ``models/drf.py``'s DRF
 trains through the same ``train`` in DRF mode.
 
-Ported: the bernoulli (logit link, g = p - y, h = p(1-p)), gaussian
-(g = f - y, h = 1: two-channel histograms) and multinomial (K class
-trees per round, softmax gradients) distributions, weights, an offset
-column, ``sample_rate``, ``col_sample_rate_per_tree`` and ``mtries``.
+Ported: every distribution of the JAX package — bernoulli (logit link),
+gaussian, poisson, gamma and tweedie (log link), laplace (in
+median/MAD-scaled units, ``margin_scale``), quantile, huber (a per-round
+δ) and multinomial (K class trees per round); weights, an offset
+column, ``sample_rate``, ``col_sample_rate_per_tree``, ``mtries`` and
+checkpoint continuation (``checkpoint=<model>``, ``ntrees`` the total).
 Every random draw is the JAX package's (``runtime/prng.py``), keyed by
 the JAX package's schedule, so a seeded model grows the same trees.
-Everything else raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.
+Models add ``predict_leaf_node_assignment`` and the float64 host
+``predict_contributions`` on a Frame. GOSS, EFB, out-of-core boosting,
+``score_every`` and cross-validation raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -33,14 +37,17 @@ from ..runtime import prng
 from .base import TrainData, resolve_xy
 from .tree.binning import BinSpec, fused_fit_bins
 from .tree.core import (BoostParams, Tree, TreeParams, boost_trees,
-                        boost_trees_drf, boost_trees_multi, draws_random,
-                        drf_group_size, flatten_cover, flatten_trees,
-                        level_hist_bytes)
+                        boost_trees_drf, boost_trees_multi, descend_trees,
+                        draws_random, drf_group_size, flatten_cover,
+                        flatten_trees, level_hist_bytes, stack_predict)
 
 __all__ = ["GBM", "GBMModel", "GBMParams", "gbm_model_from_arrays"]
 
-_DISTRIBUTIONS = ("bernoulli", "gaussian", "multinomial")
-_UNIT_HESS_DISTS = ("gaussian",)
+_DISTRIBUTIONS = ("bernoulli", "gaussian", "multinomial", "poisson",
+                  "gamma", "tweedie", "laplace", "quantile", "huber")
+# h ≡ 1 losses: two-channel histograms
+_UNIT_HESS_DISTS = ("gaussian", "laplace", "quantile", "huber")
+_LOG_LINK_DISTS = ("poisson", "gamma", "tweedie")
 _CV_KEYS = ("nfolds", "fold_assignment", "fold_column",
             "keep_cross_validation_predictions",
             "keep_cross_validation_models")
@@ -93,27 +100,29 @@ def _make_boost_params(p: GBMParams, distribution: str) -> BoostParams:
                        drf_mode=p._drf_mode)
 
 
-def _chunk_sizes(p: GBMParams, rows: int, F: int, K: int) -> list[int]:
+def _chunk_sizes(p: GBMParams, rows: int, F: int, K: int,
+                 start_t: int = 0) -> list[int]:
     """Tree counts of the dispatches the JAX package's in-HBM loop
-    issues for this shape (its ``_chunk_sizes`` on one row shard): each
-    chunk draws its own key, so the port walks the same schedule."""
+    makes for this shape (its ``_chunk_sizes`` on one row shard), from
+    round ``start_t`` (a checkpoint's rounds) to ``ntrees``: each chunk
+    draws its own key, so the port walks the same schedule."""
     per_round = rows * max(F, 1) * p.nbins * (2 ** p.max_depth) * K
     budget_chunk = max(1, int(_DISPATCH_BUDGET // per_round))
-    out, t = [], 0
+    out, t = [], start_t
     while t < p.ntrees:
         out.append(min(budget_chunk, p.ntrees - t))
         t += out[-1]
     return out
 
 
-def _round_keys(p: GBMParams, rows: int, F: int, K: int, device
-                ) -> torch.Tensor:
-    """[ntrees, 2] per-round threefry keys, the JAX package's schedule:
-    ``key = key(seed)``, then per dispatch chunk ``key, kc =
+def _round_keys(p: GBMParams, rows: int, F: int, K: int, device,
+                start_t: int = 0) -> torch.Tensor:
+    """[ntrees - start_t, 2] per-round threefry keys, the JAX package's
+    schedule: ``key = key(seed)``, then per dispatch chunk ``key, kc =
     split(key)`` and the chunk's rounds ``split(kc, n)``."""
     key = prng.key(p.seed, device)
     out = []
-    for n in _chunk_sizes(p, rows, F, K):
+    for n in _chunk_sizes(p, rows, F, K, start_t):
         key, kc = prng.split(key, 2)
         out.append(prng.split(kc, n))
     return torch.cat(out)
@@ -121,8 +130,6 @@ def _round_keys(p: GBMParams, rows: int, F: int, K: int, device
 
 def _unported(p: GBMParams) -> str | None:
     """The first option this port does not train, with its ROADMAP item."""
-    if p.checkpoint is not None:
-        return "checkpoint continuation (ROADMAP Queue 1 item 6b)"
     if p.score_every:
         return "score_every (ROADMAP Queue 1 item 11)"
     for env, what in (("H2O_TPU_GOSS", "GOSS"), ("H2O_TPU_EFB", "EFB"),
@@ -135,8 +142,9 @@ def _unported(p: GBMParams) -> str | None:
 def _init_margin(y, w, off, dist: str, K: int):
     """(init score, starting margin): bernoulli's intercept MLE given
     the offset (3 Newton steps from logit(ȳ)), multinomial's log class
-    priors ([K] init, [rows, K] margin), gaussian's weighted mean of
-    y - offset."""
+    priors ([K] init, [rows, K] margin), the log-link intercept MLEs
+    (poisson/tweedie: e^b = Σwy / Σw·e^off; gamma: e^b = Σw·y·e^-off /
+    Σw), and otherwise the weighted mean of y - offset."""
     w_sum = torch.sum(w)
     if dist == "multinomial":
         cls = torch.where(w > 0, y, K).long()
@@ -153,8 +161,37 @@ def _init_margin(y, w, off, dist: str, K: int):
             den = torch.clamp(torch.sum(w * pr * (1.0 - pr)), min=1e-10)
             init = init + num / den
         return init, init + off
+    if dist in ("poisson", "tweedie"):
+        den = torch.clamp(torch.sum(w * torch.exp(off)), min=1e-10)
+        init = torch.log(torch.clamp(torch.sum(y * w) / den, min=1e-8))
+        return init, init + off
+    if dist == "gamma":
+        init = torch.log(torch.clamp(
+            torch.sum(y * w * torch.exp(-off)) / w_sum, min=1e-8))
+        return init, init + off
     init = torch.sum((y - off) * w) / w_sum
     return init, init + off
+
+
+def _laplace_scale(y, w) -> tuple[float, float]:
+    """(median, scale) of the live responses, on the host as the JAX
+    package computes them: laplace fits in (y - median) / scale units,
+    scale = 1.4826 · MAD, or the standard deviation where the MAD is 0
+    (zero-inflated data)."""
+    yv = y.cpu().numpy()[w.cpu().numpy() > 0]
+    init = float(np.median(yv)) if len(yv) else 0.0
+    mad = float(np.median(np.abs(yv - init))) if len(yv) else 1.0
+    if mad * 1.4826 > 1e-8:
+        return init, mad * 1.4826
+    std = float(np.std(yv)) if len(yv) else 1.0
+    return init, max(std, 1e-8)
+
+
+def _scaled(y, init: float, scale: float):
+    """(y - init) / scale in float32, dividing by a device tensor (a
+    division by a Python scalar may become a multiplication by its
+    reciprocal on the card)."""
+    return (y - init) / torch.tensor(scale, dtype=y.dtype, device=y.device)
 
 
 def _margin_metrics(dist: str, margin, y, w) -> dict:
@@ -168,7 +205,18 @@ def _margin_metrics(dist: str, margin, y, w) -> dict:
     if dist == "multinomial":
         return {"train_logloss": M.multinomial_logloss(
             y, torch.softmax(margin, dim=1), w=w)}
+    if dist in _LOG_LINK_DISTS:
+        return {"train_rmse": M.rmse(y, torch.exp(margin), w=w)}
     return {"train_rmse": M.rmse(y, margin, w=w)}
+
+
+def _heap_path(i: int) -> str:
+    """Dense-heap index -> 'LRL...' root descent (root itself = '')."""
+    bits = []
+    while i > 0:
+        bits.append("L" if i % 2 == 1 else "R")   # odd = left child
+        i = (i - 1) // 2
+    return "".join(reversed(bits))
 
 
 def _gain_by_feat(tree: Tree, F: int) -> np.ndarray:
@@ -194,9 +242,11 @@ class GBMModel(FlatTreeScorer):
 
     def __init__(self, data: TrainData, params: GBMParams,
                  bin_spec: BinSpec, trees: Tree, init_score,
-                 offset_column: str | None = None, device=None):
+                 offset_column: str | None = None, device=None,
+                 margin_scale: float = 1.0):
         """``trees``: stacked [T, N], interleaved class-fastest for K > 2
-        classes; ``init_score``: a float, or the [K] class priors."""
+        classes; ``init_score``: a float, or the [K] class priors;
+        ``margin_scale``: laplace's response scale (1 elsewhere)."""
         flat = flatten_trees(trees, bin_spec.edges_matrix(),
                              np.array(bin_spec.is_enum), params.max_depth)
         arrays = {f"flat_{k}": v for k, v in flat._asdict().items()}
@@ -214,7 +264,10 @@ class GBMModel(FlatTreeScorer):
                 # scorer divides a DRF's leaf sums by (per class: // K)
                 "ntrees": int(trees.value.shape[0]),
                 "max_depth": params.max_depth,
-                "drf_mode": bool(params._drf_mode)}
+                "nbins": params.nbins,
+                "na_bin": bin_spec.na_bin,
+                "drf_mode": bool(params._drf_mode),
+                "margin_scale": float(margin_scale)}
         super().__init__(meta, arrays, device=trees.value.device
                          if device is None else device)
         self.params = params
@@ -230,6 +283,108 @@ class GBMModel(FlatTreeScorer):
         top = max(v.values()) if v else 1.0
         return {k: val / top if top > 0 else 0.0
                 for k, val in sorted(v.items(), key=lambda kv: -kv[1])}
+
+    def _binned_design(self, frame) -> torch.Tensor:
+        """[F, rows] uint8 codes of ``frame`` under this model's bins,
+        on the model's device, from the training-space design matrix
+        (scoring-frame enum codes remapped to the training domain)."""
+        from .tree.binning import apply_bins
+
+        X = self._design_matrix(frame)
+        spec = self.bin_spec
+        edges = spec.edges_matrix().to(X.device)
+        return torch.stack([apply_bins(X[:, j].contiguous(), edges[j],
+                                       spec.is_enum[j], spec.na_bin)
+                            for j in range(X.shape[1])])
+
+    def predict_leaf_node_assignment(self, frame, type: str = "Path"):
+        """Per-row resting leaf of every tree, one column per tree
+        (``T1..``, class-suffixed ``T1.C1..`` for multinomial), as a
+        CPU Frame: ``Path`` (default) the L/R descent string from the
+        root as an enum, ``Node_ID`` the dense-heap index."""
+        from ..frame import Frame
+
+        if type not in ("Node_ID", "Path"):
+            raise ValueError("type must be 'Node_ID' or 'Path'")
+        nodes = descend_trees(self.trees, self._binned_design(frame),
+                              self.params.max_depth,
+                              self.params.nbins).cpu().numpy()
+        K = self.nclasses if self.nclasses > 2 else 1
+        cols, doms = {}, {}
+        for t in range(nodes.shape[0]):
+            name = f"T{t // K + 1}" if K == 1 else \
+                f"T{t // K + 1}.C{t % K + 1}"
+            if type == "Node_ID":
+                cols[name] = nodes[t].astype(np.float32)
+                continue
+            # only the ~2^depth distinct leaves touch Python
+            uniq, inv = np.unique(nodes[t], return_inverse=True)
+            paths = [_heap_path(int(i)) for i in uniq]
+            dom = sorted(set(paths))
+            pos = {p: j for j, p in enumerate(dom)}
+            cols[name] = np.array([pos[p] for p in paths],
+                                  dtype=np.int32)[inv]
+            doms[name] = dom
+        return Frame.from_arrays(cols, domains=doms, device="cpu")
+
+    def predict_contributions(self, frame):
+        """Per-row TreeSHAP contributions on a Frame, one column per
+        feature plus ``BiasTerm``, additive to the raw margin: the
+        float64 host recursion over the heap trees (``tree/shap.
+        ensemble_shap``), the reference the serving kernel is held to.
+        Binomial and regression models without an offset only
+        (``contrib_support``)."""
+        from ..frame import Frame
+        from .tree.shap import ensemble_shap
+
+        reason = self.contrib_support()
+        if reason:
+            raise ValueError(reason)
+        binned = self._binned_design(frame).T.cpu().numpy()
+        trees_np = {f: getattr(self.trees, f).cpu().numpy()
+                    for f in ("split_feat", "split_bin", "na_left",
+                              "is_split", "value", "cover")}
+        scale, init = self._contrib_scale_init()
+        phi = ensemble_shap(trees_np, binned, len(self.feature_names),
+                            self.bin_spec.na_bin, scale=scale)
+        phi[:, -1] += init
+        cols = {name: phi[:, i].astype(np.float32)
+                for i, name in enumerate(self.feature_names)}
+        cols["BiasTerm"] = phi[:, -1].astype(np.float32)
+        return Frame.from_arrays(cols, device="cpu")
+
+
+def _check_checkpoint(ckpt, p: GBMParams, data: TrainData, K: int,
+                      offset_column: str | None) -> int:
+    """The JAX package's checkpoint validation; returns the rounds the
+    checkpoint holds (``start_t``)."""
+    if list(ckpt.feature_names) != list(data.feature_names):
+        raise ValueError(
+            "checkpoint model was trained on different features "
+            f"({ckpt.feature_names} vs {data.feature_names})")
+    if ckpt.distribution != data.distribution:
+        raise ValueError("checkpoint distribution mismatch")
+    if ckpt.nclasses != data.nclasses or \
+            (ckpt.response_domain or []) != (data.response_domain or []):
+        raise ValueError(
+            "checkpoint response mismatch: "
+            f"{ckpt.nclasses} classes {ckpt.response_domain} vs "
+            f"{data.nclasses} classes {data.response_domain}")
+    n_old = int(ckpt.trees.value.shape[0])
+    if p.ntrees * K <= n_old:
+        raise ValueError(f"ntrees={p.ntrees} must exceed the checkpoint's "
+                         f"{n_old // K} trees")
+    if ckpt.params.nbins != p.nbins or \
+            ckpt.params.max_depth != p.max_depth:
+        raise ValueError(
+            "checkpoint nbins/max_depth must match "
+            f"({ckpt.params.nbins}/{ckpt.params.max_depth} vs "
+            f"{p.nbins}/{p.max_depth})")
+    if (ckpt.offset_column or None) != (offset_column or None):
+        raise ValueError(
+            "checkpoint offset_column mismatch: "
+            f"{ckpt.offset_column!r} vs {offset_column!r}")
+    return n_old // K
 
 
 class GBM:
@@ -261,15 +416,30 @@ class GBM:
         why = _unported(p)
         if why:
             raise NotImplementedError(f"{why} is not ported")
+        if offset_column and p._drf_mode:
+            raise ValueError("offset_column is not supported for DRF")
         data = resolve_xy(training_frame, y, x, ignored_columns,
                           weights_column, p.distribution, offset_column)
-        if data.distribution not in _DISTRIBUTIONS:
-            raise NotImplementedError(
-                f"distribution '{data.distribution}' is not ported "
-                "(bernoulli, gaussian and multinomial are; the rest: "
-                "ROADMAP Queue 1 item 6b)")
+        dist = data.distribution
+        if dist not in _DISTRIBUTIONS:
+            raise ValueError(f"unknown distribution '{dist}' (one of "
+                             f"{', '.join(_DISTRIBUTIONS)})")
+        if offset_column and dist in ("multinomial", "laplace"):
+            raise ValueError("offset_column is not supported for "
+                             f"{dist} GBM")
+        if dist in _LOG_LINK_DISTS:
+            ymin = float(torch.where(data.w > 0, data.y, float("inf")).min())
+            if dist == "gamma" and ymin <= 0:
+                raise ValueError("gamma distribution needs a strictly "
+                                 "positive response")
+            if ymin < 0:
+                raise ValueError(f"{dist} distribution needs a "
+                                 "non-negative response")
         K = data.nclasses if data.nclasses > 2 else 1
-        tp = _make_tree_params(p, data.distribution)
+        ckpt = p.checkpoint
+        start_t = 0 if ckpt is None else \
+            _check_checkpoint(ckpt, p, data, K, offset_column)
+        tp = _make_tree_params(p, dist)
         F = len(data.feature_names)
         # the JAX package's validation: K class trees' histograms are
         # live at once while they fit 2^30 bytes (it grows them one by
@@ -284,51 +454,100 @@ class GBM:
                 f"histograms (> budget {budget / 2 ** 20:.0f} MiB). Lower "
                 "max_depth or nbins, drop features, or raise "
                 "H2O_TPU_HIST_BYTES_BUDGET if the device has room.")
-        bin_spec, binned = fused_fit_bins(training_frame, data.feature_names,
-                                          p.nbins)
+        dev = training_frame.device
+        if ckpt is None:
+            bin_spec, binned = fused_fit_bins(training_frame,
+                                              data.feature_names, p.nbins)
+        else:
+            # the checkpoint's bins, applied, so old and new trees compose
+            spec = ckpt.bin_spec
+            bin_spec = BinSpec(list(spec.names), list(spec.is_enum),
+                               spec.n_bins, spec.edges_matrix().to(dev))
+            binned = training_frame.binned(bin_spec)
         rows = data.y.shape[0]
-        bp = _make_boost_params(p, data.distribution)
-        keys = _round_keys(p, rows, F, K, binned.device) \
+        bp = _make_boost_params(p, dist)
+        keys = _round_keys(p, rows, F, K, dev, start_t) \
             if draws_random(tp, bp, F) else None
+        n_new = p.ntrees - start_t
         G = drf_group_size(K, tp, F)[0]
+        off = data.offset if data.offset is not None \
+            else torch.zeros_like(data.y)
+        margin_scale = 1.0
+        old = None if ckpt is None else \
+            Tree(*(a.to(dev) for a in ckpt.trees))
         if p._drf_mode:
             # no boosting: leaves are in-leaf target means, init 0
             init = np.zeros(K, dtype=np.float32) if K > 1 else 0.0
             if K == 1:
-                trees = boost_trees_drf(binned, data.y, data.w, p.ntrees,
-                                        tp, bp, keys)
+                trees = boost_trees_drf(binned, data.y, data.w, n_new, tp,
+                                        bp, keys)
             else:
                 trees = boost_trees_multi(
-                    binned, data.y, data.w, None, p.ntrees, K, tp, bp, G,
+                    binned, data.y, data.w, None, n_new, K, tp, bp, G,
                     keys)[1]
         else:
-            off = data.offset if data.offset is not None \
-                else torch.zeros_like(data.y)
-            init, margin = _init_margin(data.y, data.w, off,
-                                        data.distribution, K)
+            if ckpt is not None:
+                init, margin = self._checkpoint_margin(
+                    ckpt, old, binned, off, K, tp)
+                if dist == "laplace":
+                    # the checkpoint's scaling, so the leaf units compose;
+                    # the working margin is in scaled units (leaves only)
+                    margin_scale = float(ckpt.margin_scale)
+                    data.y = _scaled(data.y, init, margin_scale)
+                    margin = margin - init
+            elif dist == "laplace":
+                init, margin_scale = _laplace_scale(data.y, data.w)
+                data.y = _scaled(data.y, init, margin_scale)
+                margin = torch.zeros_like(data.y)
+            else:
+                init, margin = _init_margin(data.y, data.w, off, dist, K)
             if K == 1:
                 margin, trees = boost_trees(binned, data.y, data.w, margin,
-                                            p.ntrees, tp, bp, keys)
+                                            n_new, tp, bp, keys)
             else:
                 margin, trees = boost_trees_multi(
-                    binned, data.y, data.w, margin, p.ntrees, K, tp, bp, G,
+                    binned, data.y, data.w, margin, n_new, K, tp, bp, G,
                     keys)
-            init = init.cpu().numpy() if K > 1 else float(init)
+            if isinstance(init, torch.Tensor):
+                init = init.cpu().numpy() if K > 1 else float(init)
             if not np.isfinite(init).all():
                 raise ValueError("no rows with positive weight and a non-NA "
                                  "response — cannot fit a prior")
-        model = self.model_cls(data, p, bin_spec, trees, init, offset_column)
+        if old is not None:
+            trees = Tree(*(torch.cat([a, b]) for a, b in zip(old, trees)))
+        model = self.model_cls(data, p, bin_spec, trees, init, offset_column,
+                               margin_scale=margin_scale)
         if p._drf_mode:
             perf = model.model_performance(training_frame, y)
             model.scoring_history = [{"ntrees": p.ntrees, **{
                 f"train_{k}": v for k, v in perf.items()}}]
         else:
-            model.scoring_history = [{"ntrees": p.ntrees, **_margin_metrics(
-                data.distribution, margin, data.y, data.w)}]
+            hist = {"ntrees": p.ntrees, **_margin_metrics(
+                dist, margin, data.y, data.w)}
+            if "train_rmse" in hist:        # in original units
+                hist["train_rmse"] *= margin_scale
+            model.scoring_history = [hist]
         if validation_frame is not None:
             model.validation_metrics = model.model_performance(
                 validation_frame, y)
         return model
+
+    @staticmethod
+    def _checkpoint_margin(ckpt, old: Tree, binned, off, K: int,
+                           tp: TreeParams):
+        """(init, margin) a continuation starts from: the checkpoint's
+        init plus its trees' leaf sums (plus the offset), per class for
+        multinomial (trees interleaved class-fastest)."""
+        init = np.asarray(ckpt.init_score, dtype=np.float32).reshape(-1)
+        d, B = tp.max_depth, tp.n_bins
+        if K == 1:
+            init = float(init[0])
+            return init, init + off + stack_predict(old, binned, d, B)
+        margin = torch.stack([
+            float(init[k]) + stack_predict(Tree(*(a[k::K] for a in old)),
+                                           binned, d, B)
+            for k in range(K)], dim=1)
+        return init, margin
 
 
 def gbm_model_from_arrays(trees: dict, edges, is_enum, init_score,
@@ -336,14 +555,19 @@ def gbm_model_from_arrays(trees: dict, edges, is_enum, init_score,
                           nclasses: int, max_depth: int,
                           response_domain: list[str] | None = None,
                           feature_domains: dict | None = None,
-                          device=None, **params) -> GBMModel:
-    """A port ``GBMModel`` from another package's trained GBM, as numpy:
-    ``trees`` maps each ``Tree`` field to its stacked [T, N] array
-    (interleaved class-fastest for K > 2 classes), ``edges`` is the
-    [F, B-2] bin-edge matrix, ``is_enum`` the per-feature enum flags,
-    ``init_score`` the prior (a float, or the [K] class priors).
-    ``params`` are GBMParams fields (``max_depth`` is required; it sizes
-    the descent)."""
+                          device=None, offset_column: str | None = None,
+                          margin_scale: float = 1.0,
+                          **params) -> GBMModel:
+    """A port ``GBMModel`` (``DRFModel`` with ``_drf_mode=True``) from
+    another package's trained GBM or DRF, as numpy: ``trees`` maps each
+    ``Tree`` field to its stacked [T, N] array (interleaved
+    class-fastest for K > 2 classes), ``edges`` is the [F, B-2]
+    bin-edge matrix, ``is_enum`` the per-feature enum flags,
+    ``init_score`` the prior (a float, or the [K] class priors),
+    ``margin_scale`` laplace's response scale. ``params`` are GBMParams
+    fields (``max_depth`` is required; it sizes the descent). The model
+    scores, explains and seeds a checkpoint continuation as the source
+    model does."""
     from ..runtime.backend import resolve_device
 
     dev = resolve_device(device)
@@ -356,5 +580,10 @@ def gbm_model_from_arrays(trees: dict, edges, is_enum, init_score,
                      nclasses, response_domain, distribution,
                      dict(feature_domains or {}))
     gp = GBMParams(max_depth=max_depth, nbins=spec.n_bins,
-                   ntrees=int(tree.value.shape[0]), **params)
-    return GBMModel(data, gp, spec, tree, init_score, device=dev)
+                   ntrees=int(tree.value.shape[0]) // max(
+                       1, nclasses if nclasses > 2 else 1), **params)
+    cls = GBMModel
+    if gp._drf_mode:
+        from .drf import DRFModel as cls
+    return cls(data, gp, spec, tree, init_score, offset_column,
+               device=dev, margin_scale=margin_scale)

@@ -1,6 +1,7 @@
-"""The tree core: histogram tree growing, the GBM (binomial, gaussian,
-multinomial) and DRF loops, and flattened tree-ensemble scoring on raw
-features.
+"""The tree core: histogram tree growing, the GBM loops (every
+distribution of the JAX package: bernoulli, gaussian, poisson, gamma,
+tweedie, laplace, quantile, huber and multinomial) and the DRF loop,
+leaf assignment, and flattened tree-ensemble scoring on raw features.
 
 Growing (the JAX package's ``_grow_tree_shard``, on one device) grows
 T trees at once against one binned matrix: per level every live row's
@@ -45,6 +46,7 @@ from ...runtime import prng
 __all__ = ["TreeParams", "Tree", "BoostParams", "grow_tree",
            "boost_trees", "boost_trees_multi", "boost_trees_drf",
            "draws_random", "drf_group_size", "level_hist_bytes", "descend_tree",
+           "descend_trees", "stack_predict", "huber_delta",
            "predict_tree", "flatten_trees",
            "flatten_cover", "FlatTrees", "flat_margin"]
 
@@ -281,15 +283,29 @@ def grow_tree(binned, g, h, w, p: TreeParams) -> Tree:
 
 
 def _grad_hess(distribution: str, margin, y):
-    """Gradient/hessian of the boosting loss at the current margin."""
+    """Gradient/hessian of the boosting loss at the current margin (the
+    JAX package's DistributionFamily analogs; tweedie's variance power
+    is fixed at 1.5, H2O's default)."""
     if distribution == "gaussian":
         return margin - y, torch.ones_like(margin)
     if distribution == "bernoulli":
         pr = torch.sigmoid(margin)
         return pr - y, pr * (1.0 - pr)
-    raise NotImplementedError(
-        f"distribution '{distribution}' is not ported (bernoulli, "
-        "gaussian and multinomial are; the rest: ROADMAP Queue 1 item 6b)")
+    if distribution == "poisson":
+        mu = torch.exp(margin)
+        return mu - y, mu
+    if distribution == "gamma":
+        ye = y * torch.exp(-margin)
+        return 1.0 - ye, torch.clamp(ye, min=1e-10)
+    if distribution == "tweedie":
+        pw = 1.5
+        a = y * torch.exp((1.0 - pw) * margin)
+        b = torch.exp((2.0 - pw) * margin)
+        return b - a, torch.clamp((2.0 - pw) * b - (1.0 - pw) * a,
+                                  min=1e-10)
+    if distribution == "laplace":
+        return torch.sign(margin - y), torch.ones_like(margin)
+    raise ValueError(distribution)
 
 
 class BoostParams(NamedTuple):
@@ -300,6 +316,51 @@ class BoostParams(NamedTuple):
     sample_rate: float = 1.0
     col_sample_rate_per_tree: float = 1.0
     drf_mode: bool = False
+    quantile_alpha: float = 0.5     # quantile distribution's τ
+    huber_alpha: float = 0.9        # huber δ = this quantile of |resid|
+
+
+def huber_delta(r, w, alpha: float):
+    """The ``alpha`` quantile of |r| over the rows with w > 0, as the
+    JAX package's ``jnp.nanquantile(|r| NaN where w = 0, alpha)``
+    computes it, step for step, on ``r``'s device with no host sync:
+    one sort of |r| (dead rows NaN, sorted last), the live count in
+    float32, the position ``alpha * (count - 1)``, floor/ceil, weights
+    ``hw = pos - floor`` and ``lw = 1 - hw`` in float32, and XLA's
+    contraction of ``lo * lw + hi * hw`` into ``fma(hi, hw, lo * lw)``
+    — here an exact float64 product and sum rounded to float32 (a
+    double rounding could differ from the FMA once in ~2^29 values).
+    A 0-dim float32 tensor; NaN when no row is live."""
+    absr = torch.where(w > 0, torch.abs(r), float("nan"))
+    s = torch.sort(absr).values
+    counts = torch.sum(~torch.isnan(absr)).to(torch.float32)
+    pos = torch.tensor(np.float32(alpha), device=r.device) * (counts - 1.0)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1.0 - hw
+    last = counts - 1.0
+    low = torch.clamp(torch.minimum(low, last), min=0.0).long()
+    high = torch.clamp(torch.minimum(high, last), min=0.0).long()
+    lo, hi = s[low], s[high]
+    return (hi.double() * hw.double() + (lo * lw).double()).float()
+
+
+def _boost_grad_hess(bp: BoostParams, margin, y, w):
+    """Per-round (g, h), with the distributions whose gradients need
+    BoostParams state: quantile's τ and huber's per-round δ (the
+    ``huber_alpha`` quantile of the current |residuals| over the rows
+    with weight, unsampled — the JAX package's on one row shard).
+    The others delegate to ``_grad_hess``."""
+    if bp.distribution == "quantile":
+        a = bp.quantile_alpha
+        g = torch.where(margin < y, -a, 1.0 - a)
+        return g, torch.ones_like(y)
+    if bp.distribution == "huber":
+        r = y - margin
+        delta = huber_delta(r, w, bp.huber_alpha)
+        g = torch.where(torch.abs(r) <= delta, -r, -delta * torch.sign(r))
+        return g, torch.ones_like(y)
+    return _grad_hess(bp.distribution, margin, y)
 
 
 def draws_random(p: TreeParams, bp: BoostParams, F: int) -> bool:
@@ -345,7 +406,7 @@ def boost_trees(binned, y, w, margin, n_trees: int, p: TreeParams,
     trees = []
     for r in range(n_trees):
         w_t, col_mask = _round_sampling(bp, w, F, k_row[r], k_col[r])
-        g, h = _grad_hess(bp.distribution, margin, y)
+        g, h = _boost_grad_hess(bp, margin, y, w)
         tree, leaf = _grow_trees(binned, g, h, w_t, p, k_tree[r], col_mask)
         tree = tree._replace(value=bp.learn_rate * tree.value)
         margin = margin + tree.value[0][leaf[0]]
@@ -450,6 +511,43 @@ def descend_tree(tree: Tree, binned, max_depth: int, n_bins: int):
 def predict_tree(tree: Tree, binned, max_depth: int, n_bins: int):
     """Per-row leaf value (descend + gather)."""
     return tree.value[descend_tree(tree, binned, max_depth, n_bins)]
+
+
+def descend_trees(trees: Tree, binned, max_depth: int, n_bins: int):
+    """[T, rows] resting heap node of every tree of a stacked [T, N]
+    Tree over [F, rows] codes (the leaf assignment; the JAX package's
+    ``_stack_leaf_nodes``), ``_ROUND_BLOCK`` trees at a time."""
+    T, rows = trees.split_feat.shape[0], binned.shape[1]
+    ar = torch.arange(rows, device=binned.device)
+    out = []
+    for t0 in range(0, T, _ROUND_BLOCK):
+        sl = slice(t0, min(T, t0 + _ROUND_BLOCK))
+        sf, sb = trees.split_feat[sl].long(), trees.split_bin[sl]
+        nl, sp = trees.na_left[sl], trees.is_split[sl]
+        node = torch.zeros((sf.shape[0], rows), dtype=torch.int64,
+                           device=binned.device)
+        for _ in range(max_depth):
+            f = sf.gather(1, node)
+            rowbin = binned[f.clamp(min=0), ar].to(torch.int32)
+            go_right = torch.where(rowbin == n_bins - 1,
+                                   ~nl.gather(1, node),
+                                   rowbin > sb.gather(1, node))
+            node = torch.where(sp.gather(1, node),
+                               2 * node + 1 + go_right.long(), node)
+        out.append(node)
+    return torch.cat(out)
+
+
+def stack_predict(trees: Tree, binned, max_depth: int, n_bins: int):
+    """[rows] sum of leaf values over a stacked [T, N] Tree, added tree
+    by tree into a zeroed float32 accumulator (the JAX package's
+    ``_stack_predict`` scan order)."""
+    nodes = descend_trees(trees, binned, max_depth, n_bins)
+    total = torch.zeros(binned.shape[1], dtype=torch.float32,
+                        device=binned.device)
+    for t in range(nodes.shape[0]):
+        total = total + trees.value[t][nodes[t]]
+    return total
 
 
 class FlatTrees(NamedTuple):

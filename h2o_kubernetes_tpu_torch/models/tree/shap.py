@@ -25,6 +25,11 @@ arrays. Two parts:
    CUDA kernel of ``flat_shap_tab``, which adds the same values in the
    same order.
 
+3. ``ensemble_shap``, the float64 host recursion over the dense heap
+   trees (numpy, vectorized over rows; the JAX package's, line for
+   line): ``GBMModel.predict_contributions`` on a Frame, and the
+   oracle the serving paths are held to.
+
 Additivity invariant: sum_f phi[:, f] + phi[:, bias] equals the raw
 margin of the ensemble (after the caller's scale and init).
 """
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 __all__ = ["ShapTables", "build_shap_table_groups", "flat_shap",
-           "flat_shap_tab", "pattern_table"]
+           "flat_shap_tab", "pattern_table", "ensemble_shap"]
 
 
 class ShapTables(NamedTuple):
@@ -354,3 +359,137 @@ def flat_shap_tab(tables: ShapTables, ctab: torch.Tensor,
         _ordered_add(phi, tgt[t], contrib)
         phi[F].add_(tables.bias[t])
     return phi.T
+
+
+# ---------------------------------------------------------------------------
+# The float64 host recursion (predict_contributions on a Frame)
+# ---------------------------------------------------------------------------
+
+def _tree_shap_one(sf, sb, nl, sp, val, cov, binned, na_bin, phi):
+    """Accumulate one tree's contributions into phi [rows, F+1].
+
+    sf/sb/nl/sp/val/cov: dense-heap arrays [N]; binned: [rows, F] bin
+    codes; the last phi column is the bias term.
+    """
+    rows = binned.shape[0]
+
+    def recurse(j, ds, zs, os_, ws, pz, po, pd):
+        # EXTEND the path with (pd, pz, po)
+        L = len(ds)
+        ds = ds + [pd]
+        zs = zs + [pz]
+        os_ = os_ + [po]
+        ws = [w.copy() for w in ws]
+        ws.append(np.full(rows, 1.0 if L == 0 else 0.0))
+        for i in range(L - 1, -1, -1):
+            ws[i + 1] += os_[L] * ws[i] * ((i + 1) / (L + 1))
+            ws[i] = zs[L] * ws[i] * ((L - i) / (L + 1))
+
+        if not sp[j]:                                   # leaf
+            leaf = float(val[j])
+            l = len(ds) - 1
+            for i in range(1, l + 1):
+                # sum of UNWIND(m, i) weights
+                w_sum = _unwind_sum(zs, os_, ws, i, l)
+                phi[:, ds[i]] += w_sum * (os_[i] - zs[i]) * leaf
+            return
+
+        d = int(sf[j])
+        rowbin = binned[:, d]
+        is_na = rowbin == na_bin
+        go_right = np.where(is_na, ~nl[j], rowbin > sb[j])
+        hot_left = ~go_right                            # [rows] bool
+        lc, rc = 2 * j + 1, 2 * j + 2
+        cj = max(float(cov[j]), 1e-12)
+        iz, io = 1.0, np.ones(rows)
+        # a feature reappearing on the path: undo its previous entry
+        k = next((i for i in range(1, len(ds)) if ds[i] == d), None)
+        if k is not None:
+            iz, io = zs[k], os_[k]
+            ds, zs, os_, ws = _unwind(ds, zs, os_, ws, k)
+        recurse(lc, ds, zs, os_, ws,
+                iz * float(cov[lc]) / cj, io * hot_left, d)
+        recurse(rc, ds, zs, os_, ws,
+                iz * float(cov[rc]) / cj, io * go_right, d)
+
+    recurse(0, [], [], [], [], 1.0, np.ones(rows), -1)
+    # bias: cover-weighted expectation of the tree = recurse with no
+    # conditioning; equals the sum of leaf value · P(leaf), which the
+    # caller accounts for via the ensemble init instead — the path
+    # algorithm already attributes E[f] shifts to features, so the
+    # remaining bias per tree is E[f] itself:
+    phi[:, -1] += _tree_expectation(sp, val, cov, 0)
+
+
+def _tree_expectation(sp, val, cov, j):
+    if not sp[j]:
+        return float(val[j])
+    cj = max(float(cov[j]), 1e-12)
+    return (float(cov[2 * j + 1]) / cj
+            * _tree_expectation(sp, val, cov, 2 * j + 1)
+            + float(cov[2 * j + 2]) / cj
+            * _tree_expectation(sp, val, cov, 2 * j + 2))
+
+
+def _unwind(ds, zs, os_, ws, i):
+    """Remove path entry i (inverse of EXTEND) — the shap reference's
+    unwind_path, with the o==0 / o!=0 branch selected per row.
+
+    Weights are recomputed over the WHOLE path (indices l-1..0); the
+    (d, z, o) triples shift down from i while pweights keep their
+    recomputed positions 0..l-1 — exactly the C implementation's
+    asymmetric shift."""
+    l = len(ds) - 1
+    ws = [w.copy() for w in ws]
+    oi, zi = os_[i], zs[i]
+    nonzero = oi != 0
+    oi_safe = np.where(nonzero, oi, 1.0)
+    zi_safe = zi if zi != 0 else 1e-12
+    n = ws[l].copy()
+    for j in range(l - 1, -1, -1):
+        t = ws[j].copy()
+        w_nz = n * (l + 1) / ((j + 1) * oi_safe)
+        n = t - w_nz * zi * ((l - j) / (l + 1))
+        w_z = t * (l + 1) / (zi_safe * (l - j))
+        ws[j] = np.where(nonzero, w_nz, w_z)
+    return (ds[:i] + ds[i + 1:], zs[:i] + zs[i + 1:],
+            os_[:i] + os_[i + 1:], ws[:l])
+
+
+def _unwind_sum(zs, os_, ws, i, l):
+    """Σ of UNWIND(m, i) pweights without materializing the unwind —
+    the shap reference's unwound_path_sum, per-row [rows]."""
+    oi, zi = os_[i], zs[i]
+    nonzero = oi != 0
+    oi_safe = np.where(nonzero, oi, 1.0)
+    zi_safe = zi if zi != 0 else 1e-12
+    n = ws[l].copy()
+    total = np.zeros_like(n)
+    for j in range(l - 1, -1, -1):
+        tmp = n * (l + 1) / ((j + 1) * oi_safe)
+        n = ws[j] - tmp * zi * ((l - j) / (l + 1))
+        w_z = ws[j] * (l + 1) / (zi_safe * (l - j))
+        total += np.where(nonzero, tmp, w_z)
+    return total
+
+
+def ensemble_shap(trees_np: dict, binned: np.ndarray, n_features: int,
+                  na_bin: int, scale: float = 1.0) -> np.ndarray:
+    """Contributions [rows, F+1] for a stacked ensemble of dense trees.
+
+    trees_np: {"split_feat": [T,N], "split_bin", "na_left", "is_split",
+    "value", "cover"}; the last output column is the per-tree expected
+    value (bias); `scale` multiplies every tree (DRF's 1/T averaging).
+    """
+    T = trees_np["split_feat"].shape[0]
+    rows = binned.shape[0]
+    phi = np.zeros((rows, n_features + 1), dtype=np.float64)
+    for t in range(T):
+        _tree_shap_one(trees_np["split_feat"][t],
+                       trees_np["split_bin"][t],
+                       trees_np["na_left"][t],
+                       trees_np["is_split"][t],
+                       trees_np["value"][t],
+                       trees_np["cover"][t],
+                       binned, na_bin, phi)
+    return phi * scale

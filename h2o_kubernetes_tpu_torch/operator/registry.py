@@ -1,26 +1,39 @@
-"""The scorer replica's model: a MOJO-v2 tree artifact on a device.
+"""Model registry: versioned MOJO-v2 artifacts, and the replica scorer.
 
-A scorer replica never sees the training stack: it gets an artifact
-over ``POST /3/ModelRegistry/load`` and wraps its flat arrays in a
-``FlatTreeScorer`` — a ``Model`` whose ``_score_matrix`` descends
-``flat_margin`` over the artifact's ``flat_*`` arrays, and whose
-contributions come from the TreeSHAP tables built from the same arrays
-plus ``flat_cover``. Format-v1 artifacts (heap trees + bin edges) are
-rejected: they have no serving arrays.
+The training side publishes a trained tree ensemble as a versioned
+MOJO-v2 artifact (``ModelRegistry.publish``) under a ``persist.py`` root
+(a local directory or ``mem://``), and pushes it to scorer replicas
+(``push``: ``POST /3/ModelRegistry/load`` with the artifact's path and
+sha256 for a file root, the bytes inline for ``mem://``).
+
+A scorer replica never sees the training stack: it wraps the artifact's
+flat arrays in a ``FlatTreeScorer`` — a ``Model`` whose
+``_score_matrix`` descends ``flat_margin`` over the artifact's
+``flat_*`` arrays, and whose contributions come from the TreeSHAP
+tables built from the same arrays plus ``flat_cover``. A trained
+``GBMModel`` is a ``FlatTreeScorer`` over the arrays it flattened, so a
+pushed artifact scores as the model did. Format-v1 artifacts (heap
+trees + bin edges) are rejected: they have no serving arrays.
 """
 
 from __future__ import annotations
 
+import base64
+import hashlib
 import io
+import json
+from typing import Sequence
 
 import numpy as np
 import torch
 
+from .. import persist
 from ..models.base import Model
-from ..mojo import MOJO_FORMAT, read_mojo_parts
+from ..mojo import MOJO_FORMAT, read_mojo_parts, write_mojo_parts
 from ..runtime.backend import resolve_device
 
-__all__ = ["FlatTreeScorer", "load_artifact", "SERVABLE_ALGOS"]
+__all__ = ["ModelRegistry", "FlatTreeScorer", "load_artifact",
+           "SERVABLE_ALGOS"]
 
 SERVABLE_ALGOS = ("gbm", "drf", "xgboost")
 
@@ -133,6 +146,15 @@ class FlatTreeScorer(Model):
             scale /= self.ntrees
         return scale, float(np.asarray(self.init_score).ravel()[0])
 
+    def export_artifact(self) -> bytes:
+        """This model as MOJO-v2 artifact bytes: its meta and the arrays
+        it serves from (a loaded scorer's are the artifact's own, so it
+        can be published again; the zip bytes, and so the digest, may
+        differ from the artifact it came from)."""
+        buf = io.BytesIO()
+        write_mojo_parts(self._artifact_meta, self._artifact_arrays, buf)
+        return buf.getvalue()
+
     def _score_matrix(self, X: torch.Tensor, offset=None) -> torch.Tensor:
         from ..models.tree.core import flat_margin
 
@@ -182,3 +204,171 @@ def load_artifact(blob: bytes, device=None) -> FlatTreeScorer:
         raise ValueError("artifact claims MOJO-v2 but lacks the flat_* "
                          "serving arrays — corrupt or tampered")
     return FlatTreeScorer(meta, arrays, device=device)
+
+
+class ModelRegistry:
+    """Versioned artifact store rooted at a ``persist.py`` path: a local
+    directory or a ``mem://`` prefix.
+
+    Layout: ``<root>/index.json`` (name -> {latest, versions}) plus
+    ``<root>/<name>-v<N>.mojo`` blobs. Single writer by design (one
+    operator process owns a registry root); replicas only read."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    # -- index ----------------------------------------------------------------
+
+    def _index_path(self) -> str:
+        return persist.join_path(self.root, "index.json")
+
+    def _load_index(self) -> dict:
+        try:
+            return json.loads(persist.read_bytes(self._index_path()))
+        except FileNotFoundError:
+            return {}       # fresh registry root
+
+    def _save_index(self, idx: dict) -> None:
+        # atomic and read back: a publish that dies mid-write leaves the
+        # previous index, never a torn one
+        persist.write_bytes_atomic(self._index_path(),
+                                   json.dumps(idx, indent=1).encode())
+
+    # -- publish / fetch ------------------------------------------------------
+
+    def artifact_path(self, name: str, version: int) -> str:
+        return persist.join_path(self.root, f"{name}-v{int(version)}.mojo")
+
+    def publish(self, model, name: str) -> int:
+        """Export ``model`` (a port GBM/DRF model or a loaded scorer) as
+        the next version of artifact ``name``; returns the version."""
+        if getattr(model, "algo", None) not in SERVABLE_ALGOS or \
+                not hasattr(model, "export_artifact"):
+            raise ValueError(
+                f"cannot publish algo '{getattr(model, 'algo', '?')}' "
+                f"to a scorer pool (supported: "
+                f"{', '.join(SERVABLE_ALGOS)})")
+        blob = model.export_artifact()
+        idx = self._load_index()
+        ent = idx.setdefault(name, {"latest": 0, "versions": {}})
+        version = int(ent["latest"]) + 1
+        path = self.artifact_path(name, version)
+        # blob first, index second: a crash between the two leaves an
+        # unreferenced blob, never an index entry without bytes
+        persist.write_bytes_atomic(path, blob)
+        ent["versions"][str(version)] = {
+            "path": path,
+            "bytes": len(blob),
+            "sha256": hashlib.sha256(blob).hexdigest(),
+            "algo": model.algo,
+        }
+        ent["latest"] = version
+        self._save_index(idx)
+        return version
+
+    def latest(self, name: str) -> int:
+        ent = self._load_index().get(name)
+        if not ent or not ent["latest"]:
+            raise KeyError(f"no artifact '{name}' in registry "
+                           f"{self.root}")
+        return int(ent["latest"])
+
+    def info(self, name: str, version: int) -> dict:
+        ent = self._load_index().get(name) or {"versions": {}}
+        try:
+            return dict(ent["versions"][str(int(version))])
+        except KeyError:
+            raise KeyError(f"no artifact '{name}' v{version} in "
+                           f"registry {self.root}") from None
+
+    def fetch(self, name: str, version: int) -> bytes:
+        """The artifact's bytes, checked against the indexed sha256."""
+        blob = persist.read_bytes(self.artifact_path(name, version))
+        want = self.info(name, version)["sha256"]
+        got = hashlib.sha256(blob).hexdigest()
+        if got != want:
+            raise IOError(
+                f"artifact '{name}' v{version} digest mismatch "
+                f"({got[:12]} != indexed {want[:12]}) — refusing to "
+                "serve a corrupted model")
+        return blob
+
+    # -- push to a replica ----------------------------------------------------
+
+    def push(self, base_url: str, name: str, version: int,
+             model_key: str, warm_buckets: Sequence[int] | None = None,
+             timeout: float = 300.0) -> dict:
+        """POST the artifact to a replica's ``/3/ModelRegistry/load`` and
+        wait until it has loaded and warmed (the route warms before it
+        answers). ``warm_buckets=None`` lets the replica use its own
+        ``H2O_TPU_POOL_WARM_BUCKETS``. A file root sends the artifact's
+        path and sha256 (the replica reads and checks it); a ``mem://``
+        root, which exists only in this process, sends the bytes."""
+        body = {"model_id": model_key, "name": name,
+                "version": int(version)}
+        if warm_buckets is not None:
+            body["warm_buckets"] = [int(b) for b in warm_buckets]
+        if self.root.startswith("mem://"):
+            body["artifact_b64"] = base64.b64encode(
+                self.fetch(name, version)).decode()
+        else:
+            body["path"] = self.artifact_path(name, version)
+            body["sha256"] = self.info(name, version)["sha256"]
+        return self._post_json(base_url, "/3/ModelRegistry/load",
+                               body, timeout)
+
+    def push_many(self, base_url: str, items: Sequence[Sequence],
+                  warm_buckets: Sequence[int] | None = None,
+                  timeout: float = 300.0) -> list[dict]:
+        """Push a set of artifacts to one replica: ``items`` is a
+        sequence of (artifact, version, model_key) entries; returns the
+        per-artifact load responses. (The JAX package's replica also
+        takes a required-model set first, ``/3/ModelRegistry/require``;
+        the port's replica gains that route with ROADMAP Queue 1 item 9,
+        7b-2.)"""
+        return [self.push(base_url, name, version, key,
+                          warm_buckets=warm_buckets, timeout=timeout)
+                for name, version, key in items]
+
+    @staticmethod
+    def _post_json(base_url: str, path: str, body: dict,
+                   timeout: float) -> dict:
+        """POST with ``runtime/retry.py``'s backoff on transient
+        failures (replica 5xx/429, connection refused or reset, timeout);
+        a 4xx other than 429 (a bad artifact, a digest mismatch) raises
+        on the first attempt. The load route is idempotent, so retrying
+        a push whose answer was lost is safe."""
+        import urllib.error
+        import urllib.request
+
+        from ..runtime import retry as _retry
+
+        data = json.dumps(body).encode()
+
+        def attempt() -> dict:
+            req = urllib.request.Request(
+                base_url.rstrip("/") + path, data=data, method="POST",
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=timeout) as r:
+                    return json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                if e.code == 429 or e.code >= 500:
+                    ra = e.headers.get("Retry-After")
+                    try:
+                        ra = float(ra) if ra is not None else None
+                    except ValueError:
+                        ra = None
+                    detail = e.read()[:200]
+                    raise _retry.TransientError(
+                        f"replica POST {path}: HTTP {e.code} "
+                        f"{detail!r}", retry_after=ra) from None
+                raise                       # 4xx: permanent, no retry
+            except urllib.error.URLError as e:
+                raise _retry.TransientError(
+                    f"replica POST {path}: {e.reason!r}") from None
+            except (TimeoutError, ConnectionError, OSError) as e:
+                raise _retry.TransientError(
+                    f"replica POST {path}: {e!r}") from None
+
+        return _retry.call(attempt, describe=f"registry push {path}")

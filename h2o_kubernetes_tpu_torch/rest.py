@@ -5,8 +5,9 @@ Routes:
 - ``GET /healthz`` — liveness (true through DRAINING);
 - ``GET /readyz`` — readiness (SERVING ∧ breaker not open ∧ healthy);
 - ``POST /3/ModelRegistry/load`` — load a MOJO-v2 tree artifact
-  (``artifact_b64``, optional ``sha256`` and ``warm_buckets``) under
-  ``model_id``, warm it, then publish it;
+  (``artifact_b64``, or a ``path`` read through ``persist.py``; optional
+  ``sha256``, checked with a 409 on a mismatch, and ``warm_buckets``)
+  under ``model_id``, warm it, then publish it;
 - ``POST /3/Predictions/models/{key}`` — JSON rows in, predictions out;
 - ``POST /3/Predictions/models/{key}/contributions`` — JSON rows in,
   per-row TreeSHAP contributions out.
@@ -491,22 +492,35 @@ class _Handler(BaseHTTPRequestHandler):
             return self._error(500, f"{type(e).__name__}: {e}")
 
     def _registry_load(self, params: dict):
-        """POST /3/ModelRegistry/load: decode, verify, load onto the
+        """POST /3/ModelRegistry/load: take the artifact (inline
+        ``artifact_b64``, or a ``path`` read through ``persist``), check
+        its ``sha256`` when given (409 on a mismatch), load it onto the
         server's device, warm every pow2 bucket (contributions too when
         the artifact supports them), and only then publish."""
+        from . import persist
         from .operator.registry import load_artifact
 
         model_id = params.get("model_id")
         if not model_id or not isinstance(model_id, str):
             return self._error(400, "missing 'model_id'")
         b64 = params.get("artifact_b64")
-        if not b64:
-            return self._error(400, "need 'artifact_b64'")
-        try:
-            blob = base64.b64decode(b64, validate=True)
-        except Exception:  # noqa: BLE001 — binascii detail useless
-            return self._error(400, "bad 'artifact_b64' (not valid "
-                               "base64)")
+        path = params.get("path")
+        if b64:
+            try:
+                blob = base64.b64decode(b64, validate=True)
+            except Exception:  # noqa: BLE001 — binascii detail useless
+                return self._error(400, "bad 'artifact_b64' (not valid "
+                                   "base64)")
+        elif path:
+            try:
+                blob = persist.read_bytes(str(path))
+            except FileNotFoundError:
+                return self._error(404, f"artifact not found at {path!r}")
+            except (NotImplementedError, ValueError) as e:
+                return self._error(400, str(e))
+        else:
+            return self._error(400, "need 'path' (persist-readable "
+                               "artifact) or 'artifact_b64'")
         want_sha = params.get("sha256")
         if want_sha:
             got = hashlib.sha256(blob).hexdigest()

@@ -1,0 +1,365 @@
+"""PyTorch port, export and the registry loop, the threshold metrics and
+the Frame prediction paths, on the CPU.
+
+A binomial GBM trained by the JAX package (a one-row-shard mesh) is
+carried across as numpy arrays, so both packages hold the same trees;
+the port also trains its own binomial, poisson (with an offset) and
+laplace models. Held here:
+- an artifact the port exports loads in the JAX package's
+  ``load_artifact`` with bitwise-equal ``flat_margin`` margins and
+  scores in its numpy ``MojoModel`` within 1e-6; a JAX-exported
+  artifact scores in the port's ``MojoModel`` as in the JAX package's
+  (1e-12: both are float64 numpy);
+- ``ModelRegistry`` publish -> fetch (digest-checked) -> push (a file
+  root sends path + sha256, a ``mem://`` root the bytes) to the port's
+  ``start_server(device="cpu")``: predictions over REST bitwise equal to
+  the model's ``score_numpy``, contributions to its ``contrib_numpy``;
+  a tampered sha256 gets 409, a missing path 404; a loaded replica model
+  publishes again; the push retries a 503 and not a 400;
+- ``save_model``/``load_model`` round trips bitwise; a file naming a
+  non-data global is refused; the cloud schemes name their ROADMAP item;
+- ``binomial_stats`` and binomial ``model_performance`` within 1e-6 of
+  the JAX package's; a single-class holdout keeps the basic three; the
+  AUC and the threshold table from one score histogram equal
+  ``roc_auc`` and ``binomial_stats`` bitwise;
+- ``predict_contributions(frame)`` within 1e-6 of the JAX package's and
+  additive to the margin within 1e-5; ``predict_leaf_node_assignment``
+  equal to the JAX package's in ``Path`` and ``Node_ID``.
+"""
+
+import io
+import json
+import pickle
+import urllib.error
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import h2o_kubernetes_tpu as h2o
+from h2o_kubernetes_tpu import metrics as JM
+from h2o_kubernetes_tpu import mojo as jmojo
+from h2o_kubernetes_tpu.models import GBM as JGBM
+from h2o_kubernetes_tpu.models.tree import core as jcore
+from h2o_kubernetes_tpu.operator import registry as jreg
+from h2o_kubernetes_tpu.runtime.mesh import make_mesh, use_mesh
+from h2o_kubernetes_tpu_torch import (MOJO_FORMAT, GBM, Frame,
+                                      ModelRegistry, MojoModel, export_mojo,
+                                      load_artifact, load_model, persist,
+                                      read_mojo_parts, save_model,
+                                      start_server)
+from h2o_kubernetes_tpu_torch import metrics as M
+from h2o_kubernetes_tpu_torch.models.tree import core as tcore
+from test_torch_distributions import carry, dist_cols, train_kw
+from test_torch_gbm import bench_cols
+from test_torch_serving import _dict_rows, _post
+
+_KW = dict(ntrees=3, max_depth=3, learn_rate=0.2, seed=1)
+
+
+@pytest.fixture(scope="module")
+def models():
+    cols = bench_cols(4096)
+    hold = bench_cols(1000, seed=9)
+    with use_mesh(make_mesh(n_rows=1)):
+        jf, jh = h2o.Frame.from_arrays(cols), h2o.Frame.from_arrays(hold)
+        jm = JGBM(**_KW).train(y="y", training_frame=jf)
+        X = np.asarray(jm._design_matrix(jh))[: jh.nrows]
+    th = Frame.from_arrays(hold, device="cpu")
+    tm = GBM(**_KW).train(y="y", training_frame=Frame.from_arrays(
+        cols, device="cpu"))
+    dc = dist_cols(2048)
+    dfr = Frame.from_arrays(dc, device="cpu")
+    y, kw = train_kw("poisson", "weighted")
+    pois = GBM(distribution="poisson", **_KW).train(y=y, training_frame=dfr,
+                                                    **kw)
+    y, kw = train_kw("laplace", "plain")
+    lap = GBM(distribution="laplace", **_KW).train(y=y, training_frame=dfr,
+                                                   **kw)
+    dh = dist_cols(500, seed=7)
+    return dict(jm=jm, pm=carry(jm), tm=tm, X=X, jh=jh, th=th, hold=hold,
+                pois=pois, lap=lap, dh=dh)
+
+
+def _blob(model) -> bytes:
+    buf = io.BytesIO()
+    export_mojo(model, buf)
+    return buf.getvalue()
+
+
+def _dmatrix(model, cols):
+    return model._design_matrix(Frame.from_arrays(cols, device="cpu")
+                                ).numpy()
+
+
+@pytest.mark.parametrize("which", ["tm", "pois", "lap"])
+def test_port_artifact_loads_in_jax(models, which):
+    m = models[which]
+    blob = _blob(m)
+    cols = models["hold"] if which == "tm" else models["dh"]
+    X = _dmatrix(m, cols)
+    off = cols["off"] if m.offset_column else None
+    js = jreg.load_artifact(blob)
+    K = 1
+    ft, em = js._serving_prepare()
+    want = np.asarray(jcore.flat_margin(ft, jnp.asarray(X), em,
+                                        m.params.max_depth, K))
+    got = tcore.flat_margin(m._serving_prepare()[0], torch.as_tensor(X),
+                            m._serving_prepare()[1], m.params.max_depth,
+                            K).numpy()
+    np.testing.assert_array_equal(got, want)
+    jmm = jmojo.MojoModel(io.BytesIO(blob))
+    data = {n: X[:, j] for j, n in enumerate(m.feature_names)}
+    if off is not None:
+        data["off"] = off
+    want_p = jmm.predict(data if off is not None else X)
+    got_p = m.score_numpy(X, offset=off)
+    np.testing.assert_allclose(got_p, want_p, rtol=1e-6, atol=1e-6)
+    port_p = MojoModel(io.BytesIO(blob)).predict(
+        data if off is not None else X)
+    np.testing.assert_allclose(port_p, want_p, rtol=1e-12, atol=0)
+    assert js.margin_scale == m.margin_scale
+
+
+def test_jax_artifact_scores_in_port_mojo(models):
+    buf = io.BytesIO()
+    jmojo.export_mojo(models["jm"], buf)
+    X = models["X"]
+    want = jmojo.MojoModel(io.BytesIO(buf.getvalue())).predict(X)
+    got = MojoModel(io.BytesIO(buf.getvalue())).predict(X)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    got_dict = MojoModel(io.BytesIO(buf.getvalue())).predict(
+        {k: v for k, v in models["hold"].items() if k != "y"})
+    np.testing.assert_allclose(got_dict, want, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(
+        load_artifact(buf.getvalue(), device="cpu").score_numpy(X), want,
+        rtol=0, atol=1e-6)
+
+
+def test_unported_artifact_algos_name_their_item():
+    buf = io.BytesIO()
+    npz = io.BytesIO()
+    np.savez_compressed(npz, beta=np.zeros(3, np.float32))
+    import zipfile
+
+    with zipfile.ZipFile(buf, "w") as z:
+        z.writestr("model.json", json.dumps({
+            "format": "h2o_kubernetes_tpu/mojo/2", "algo": "glm"}))
+        z.writestr("arrays.npz", npz.getvalue())
+    with pytest.raises(NotImplementedError, match="item 4"):
+        MojoModel(io.BytesIO(buf.getvalue()))
+    with pytest.raises(ValueError, match="not ported"):
+        export_mojo(object(), io.BytesIO())
+
+
+@pytest.mark.parametrize("root", ["file", "mem"])
+def test_registry_publish_fetch_push(models, tmp_path, root):
+    tm = models["tm"]
+    reg = ModelRegistry(str(tmp_path / "reg") if root == "file"
+                        else f"mem://reg-{id(tmp_path)}")
+    assert reg.publish(tm, "late") == 1
+    blob = reg.fetch("late", 1)
+    assert reg.latest("late") == 1
+    meta, arrays, _ = read_mojo_parts(io.BytesIO(blob))
+    assert meta == dict(tm._artifact_meta, format=MOJO_FORMAT)
+    assert arrays.keys() == tm._artifact_arrays.keys()
+    for k, a in arrays.items():
+        np.testing.assert_array_equal(a, tm._artifact_arrays[k], err_msg=k)
+    srv = start_server(port=0, device="cpu")
+    port = srv.server_address[1]
+    url = f"http://127.0.0.1:{port}"
+    try:
+        r = reg.push(url, "late", 1, "late1", warm_buckets=[128])
+        assert r["contributions"] is True and r["version"] == 1
+        X = models["X"][:200]
+        rows = _dict_rows(tm, X)
+        code, pr = _post(port, "/3/Predictions/models/late1",
+                         {"rows": rows})
+        assert code == 200, pr
+        np.testing.assert_array_equal(np.asarray(pr["pontime"], np.float32),
+                                      tm.score_numpy(X)[:, 1])
+        code, cr = _post(port, "/3/Predictions/models/late1/contributions",
+                         {"rows": rows})
+        assert code == 200, cr
+        np.testing.assert_array_equal(
+            np.asarray(cr["contributions"], np.float32), tm.contrib_numpy(X))
+        if root == "file":
+            info = reg.info("late", 1)
+            with pytest.raises(urllib.error.HTTPError) as e:
+                reg._post_json(url, "/3/ModelRegistry/load", {
+                    "model_id": "bad", "path": info["path"],
+                    "sha256": "0" * 64}, 30)
+            assert e.value.code == 409
+            code, _ = _post(port, "/3/ModelRegistry/load", {
+                "model_id": "gone", "path": info["path"] + ".missing"})
+            assert code == 404
+            assert _post(port, "/3/Predictions/models/bad",
+                         {"rows": rows})[0] == 404
+        # a replica's model publishes again and scores the same
+        rep = load_artifact(blob, device="cpu")
+        assert reg.publish(rep, "late") == 2
+        out = reg.push_many(url, [("late", 2, "late2")], warm_buckets=[128])
+        assert out[0]["model_id"]["name"] == "late2"
+        code, pr2 = _post(port, "/3/Predictions/models/late2",
+                          {"rows": rows})
+        assert pr2["pontime"] == pr["pontime"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if root == "file":
+        path = reg.artifact_path("late", 1)
+        persist.write_bytes(path, blob[:-1] + bytes([blob[-1] ^ 1]))
+        with pytest.raises(IOError, match="digest mismatch"):
+            reg.fetch("late", 1)
+
+
+@pytest.mark.parametrize("first", [503, 400])
+def test_push_retries_a_transient_failure(first):
+    """A 503 (with Retry-After: 0) is retried and the second answer
+    returned; a 400 raises on the first attempt."""
+    import http.server
+    import threading
+
+    calls = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            self.rfile.read(int(self.headers["Content-Length"]))
+            calls.append(self.path)
+            code = first if len(calls) == 1 else 200
+            body = json.dumps({"n": len(calls)}).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Retry-After", "0")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        if first == 400:
+            with pytest.raises(urllib.error.HTTPError) as e:
+                ModelRegistry._post_json(url, "/3/ModelRegistry/load",
+                                         {}, 30)
+            assert e.value.code == 400 and len(calls) == 1
+        else:
+            r = ModelRegistry._post_json(url, "/3/ModelRegistry/load",
+                                         {}, 30)
+            assert r == {"n": 2} and len(calls) == 2
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+@pytest.mark.parametrize("which", ["tm", "pois", "lap"])
+def test_save_load_round_trip(models, tmp_path, which):
+    m = models[which]
+    path = save_model(m, str(tmp_path / which))
+    back = load_model(path, device="cpu")
+    assert type(back) is type(m) and back.margin_scale == m.margin_scale
+    for a, b in zip(m.trees, back.trees):
+        assert torch.equal(a, b)
+    cols = models["hold"] if which == "tm" else models["dh"]
+    X = _dmatrix(m, cols)
+    off = cols["off"] if m.offset_column else None
+    np.testing.assert_array_equal(back.score_numpy(X, offset=off),
+                                  m.score_numpy(X, offset=off))
+    assert back.scoring_history == m.scoring_history
+    mem = save_model(m, f"mem://models/{which}.model")
+    assert persist.list_names("mem://models") and \
+        load_model(mem, device="cpu").params == m.params
+
+
+def test_model_file_refuses_code(tmp_path):
+    class Evil:
+        def __reduce__(self):
+            return (print, ("pwned",))
+    p = tmp_path / "evil.model"
+    p.write_bytes(b"H2OTPU-TORCH1\n" + pickle.dumps({"x": Evil()}))
+    with pytest.raises(pickle.UnpicklingError, match="not plain data"):
+        load_model(str(p), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        persist.read_bytes("s3://bucket/m.model")
+
+
+def test_binomial_stats_match_reference():
+    rng = np.random.default_rng(4)
+    y = (rng.random(5000) < 0.3).astype(np.float32)
+    p = np.clip(0.3 * y + 0.7 * rng.random(5000), 0, 1).astype(np.float32)
+    want = JM.binomial_stats(y, p)
+    got = M.binomial_stats(torch.as_tensor(y), torch.as_tensor(p))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+    np.testing.assert_array_equal(M.confusion_matrix(y, p, 0.5),
+                                  JM.confusion_matrix(y, p, 0.5))
+    with pytest.raises(ValueError, match="both classes"):
+        M.binomial_stats(np.zeros(10), p[:10])
+
+
+@pytest.mark.parametrize("rows", [5000, 70_000])
+def test_binomial_auc_and_stats_share_one_histogram(rows):
+    """The AUC and the threshold table from one score histogram equal
+    ``roc_auc`` and ``binomial_stats`` bit for bit, on the exact path
+    and the histogram path; a single-class holdout gives no table."""
+    rng = np.random.default_rng(5)
+    y = torch.as_tensor((rng.random(rows) < 0.3).astype(np.float32))
+    p = torch.as_tensor(rng.random(rows).astype(np.float32))
+    auc, stats = M.binomial_auc_and_stats(y, p)
+    assert auc == M.roc_auc(y, p)
+    want = M.binomial_stats(y, p)
+    assert stats.keys() == want.keys()
+    for k, v in want.items():
+        np.testing.assert_array_equal(stats[k], v, err_msg=k)
+    one, stats = M.binomial_auc_and_stats(torch.ones(rows), p)
+    assert stats is None and np.isnan(one) and np.isnan(
+        M.roc_auc(torch.ones(rows), p))
+
+
+def test_model_performance_matches_reference(models):
+    jm, pm = models["jm"], models["pm"]
+    want = jm.model_performance(models["jh"], y="y")
+    got = pm.model_performance(models["th"], y="y")
+    assert set(got) == set(want) and "pr_auc" in got
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-6, (k, got[k], v)
+    one = {k: v[models["hold"]["y"] == "late"] for k, v in
+           models["hold"].items()}
+    one_fr = Frame.from_arrays(one, domains={"y": ["late", "ontime"]},
+                               device="cpu")
+    assert set(pm.model_performance(one_fr, y="y")) == {"auc", "logloss",
+                                                        "rmse"}
+
+
+def test_predict_contributions_frame(models):
+    jm, pm = models["jm"], models["pm"]
+    want = jm.predict_contributions(models["jh"])
+    got = pm.predict_contributions(models["th"])
+    assert got.names == want.names == pm.feature_names + ["BiasTerm"]
+    W = np.stack([np.asarray(want.vec(n).to_numpy()) for n in want.names], 1)
+    G = np.stack([got.vec(n).to_numpy() for n in got.names], 1)
+    np.testing.assert_allclose(G, W, rtol=0, atol=1e-6)
+    p1 = pm.score_numpy(models["X"])[:, 1].astype(np.float64)
+    np.testing.assert_allclose(G.astype(np.float64).sum(axis=1),
+                               np.log(p1 / (1 - p1)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["Path", "Node_ID"])
+def test_leaf_node_assignment(models, kind):
+    jm, pm = models["jm"], models["pm"]
+    want = jm.predict_leaf_node_assignment(models["jh"], type=kind)
+    got = pm.predict_leaf_node_assignment(models["th"], type=kind)
+    assert got.names == want.names == ["T1", "T2", "T3"]
+    for n in got.names:
+        np.testing.assert_array_equal(got.vec(n).to_numpy(),
+                                      np.asarray(want.vec(n).to_numpy()))
+        assert got.vec(n).domain == want.vec(n).domain
+    with pytest.raises(ValueError):
+        pm.predict_leaf_node_assignment(models["th"], type="Leaf")

@@ -207,11 +207,14 @@ def test_carried_across_model_scores_bitwise(trained):
 @pytest.mark.parametrize("kw,item", [
     ({"nfolds": 3}, "item 11"),
     ({"score_every": 2}, "item 11"),
-    ({"checkpoint": object()}, "item 6b"),
-    ({"distribution": "poisson"}, "item 6"),
+    ({"env": "H2O_TPU_GOSS"}, "item 9"),
+    ({"env": "H2O_TPU_OOC"}, "item 9"),
 ])
-def test_unported_options_raise(kw, item):
+def test_unported_options_raise(kw, item, monkeypatch):
     cols = bench_cols(200)
     fr = Frame.from_arrays(cols, device="cpu")
+    env = kw.pop("env", None)
+    if env:
+        monkeypatch.setenv(env, "1")
     with pytest.raises(NotImplementedError, match=item):
         GBM(ntrees=2, **kw).train(y="y", training_frame=fr)

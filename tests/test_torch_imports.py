@@ -42,7 +42,8 @@ def test_imports_without_jax():
     # the training slices' modules are among them
     assert {f"h2o_kubernetes_tpu_torch.{m}" for m in (
         "frame.frame", "models.tree.binning", "ops.histogram", "ops._build",
-        "metrics", "models.gbm", "models.drf", "runtime.prng")} <= names
+        "metrics", "models.gbm", "models.drf", "runtime.prng", "mojo",
+        "persist", "operator.registry", "runtime.retry")} <= names
 
 
 def test_no_source_imports_jax_or_reference():
@@ -105,3 +106,42 @@ def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_load_model_defaults_to_the_card(monkeypatch, tmp_path):
+    """load_model places a saved model on the card unless told the CPU,
+    and raises without one."""
+    cols = {"x": [1.0, 2.0, 3.0, 4.0], "y": ["a", "b", "a", "b"]}
+    fr = port.Frame.from_arrays(cols, device="cpu")
+    model = port.GBM(ntrees=1, max_depth=1, min_rows=1.0).train(
+        y="y", training_frame=fr)
+    path = port.save_model(model, str(tmp_path / "m"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.load_model(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.load_model(path, device="cuda")
+    assert port.load_model(path, device="cpu").device.type == "cpu"
+
+
+def test_mojo_model_is_numpy_only(tmp_path):
+    """mojo.py loads on its own, with torch and jax unimportable, and
+    MojoModel scores an artifact there."""
+    blob = random_tree_artifact(5, n_features=4, ntrees=3, max_depth=3)
+    (tmp_path / "a.mojo").write_bytes(blob)
+    code = (
+        "import sys, importlib.util, numpy as np\n"
+        "sys.modules['torch'] = None\n"
+        "sys.modules['jax'] = None\n"
+        f"spec = importlib.util.spec_from_file_location('mojo', "
+        f"{str(ROOT / 'h2o_kubernetes_tpu_torch' / 'mojo.py')!r})\n"
+        "m = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(m)\n"
+        f"mm = m.MojoModel({str(tmp_path / 'a.mojo')!r})\n"
+        "p = mm.predict(np.zeros((5, 4), np.float32))\n"
+        "assert p.shape == (5, 2) and np.isfinite(p).all()\n"
+        "assert not any(k.startswith(('torch', 'jax')) and v is not None\n"
+        "               for k, v in sys.modules.items())\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

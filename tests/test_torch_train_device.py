@@ -35,8 +35,12 @@ def _host_metrics(model, frame, hold):
     ok = np.array([v is not None for v in hold["y"]])
     p1 = model.predict_raw(frame)[ok, 1]
     y = (hold["y"][ok] == model.response_domain[1]).astype(np.float32)
+    stats = metrics.binomial_stats(y, p1)
     return {"auc": metrics.roc_auc(y, p1), "logloss": metrics.logloss(y, p1),
-            "rmse": metrics.rmse(y, p1)}
+            "rmse": metrics.rmse(y, p1)} | {
+                k: stats[k] for k in ("pr_auc", "gini", "f1",
+                                      "max_f1_threshold",
+                                      "mean_per_class_error")}
 
 
 def test_model_performance_hands_the_metrics_device_tensors(monkeypatch):
@@ -46,7 +50,7 @@ def test_model_performance_hands_the_metrics_device_tensors(monkeypatch):
     frame = Frame.from_arrays(hold, device="cpu")
     want = _host_metrics(model, frame, hold)
     seen = []
-    for name in ("roc_auc", "logloss", "rmse"):
+    for name in ("binomial_auc_and_stats", "logloss", "rmse"):
         def spy(y, s, *a, _fn=getattr(metrics, name), **k):
             seen.append((y, s))
             return _fn(y, s, *a, **k)
@@ -75,7 +79,8 @@ def test_validation_frame_is_scored_like_model_performance():
 def test_model_performance_on_card_launches_the_histogram_kernel():
     """Past 65,536 rows the AUC takes its histogram path: one launch of
     the kernel (1 node x 4096 int16 bins, in the regime its plan picks),
-    no other launch, and the metrics agree with the host recomputation."""
+    which the threshold table shares, no other launch; the metrics agree
+    with the host recomputation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     model = GBM(**_KW).train(y="y", training_frame=Frame.from_arrays(
