@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (h2o_kubernetes_tpu_torch): the
 scorer-replica serving path, binomial GBM training, DRF and multinomial
-GBM training, the other GBM distributions, checkpoint continuation, and
-the train -> export -> registry -> replica loop on one CUDA card.
+GBM training, the other GBM distributions, checkpoint continuation, the
+train -> export -> registry -> replica loop, XGBoost-hist (pointwise and
+LambdaMART ranking) and GLM on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -104,14 +105,46 @@ Phases, in order; any failure exits non-zero:
    logit(p1) within 1e-4, single-request latencies, a tampered digest
    answered 409, and MojoModel on the fetched bytes within 1e-6 of
    score_numpy on 4,096 rows (relative where a prediction passes 1);
-18. report — one JSON line of kernel records (B4 with its variants,
+18. xgboost — xgboost_hist's shape (tools/bench_suite.py:234-241): the
+   HIGGS frame of phase 12, XGBoost ntrees=10 max_depth=6
+   learn_rate=0.2 (reg_lambda 1, min_child_weight 1): a warm-up train
+   then five timed ones as rows·trees/s (median and spread), B1 launches
+   per train (6 levels a tree and the train AUC); card vs CPU at 65,536
+   rows (structure up to float64 near-ties of the regularized gain,
+   train AUC and logloss within 1e-4); multi:softprob on phase 13's
+   frame (B3, 25 batched launches a train); the model published to a
+   ModelRegistry and pushed to start_server: REST predictions bitwise
+   score_numpy, contributions one shap_tab launch per depth group,
+   MojoModel within 1e-6; then shap_tab held bitwise to its plain
+   version at the model's depth groups (as in phase 11) and B1 at the
+   six levels and the AUC of the warm-up train (as in phase 9);
+19. lambdarank — xgboost_lambdarank's shape (tools/bench_suite.py:
+   267-279): tools/datasets.mslr_arrays(200,000, seed=4,
+   n_features=20), XGBoost rank:ndcg ntrees=10 max_depth=6: warm
+   rows·trees/s and ndcg@10; one round at the trained margins with its
+   lambda gradients, its tree and the whole round each timed on its
+   own, and the setup and host ndcg@10 outside the rounds; B1 at the
+   six levels of one train held as in
+   phase 9 (Σ|v| limit, dyadic bitwise, bf16 control), and one
+   rank:pairwise train;
+20. glm — glm_binomial_irlsm's shape (tools/bench_suite.py:206-222): the
+   HIGGS frame, GLM binomial IRLSM λ=0, 50 iterations (epsilons 0):
+   warm iterations/s, model_performance's AUC (one B1 launch of 4096
+   bins); L_BFGS, COORDINATE_DESCENT, an elastic-net λ (ADMM) and the
+   multinomial family (phase 13's frame) once each; card vs CPU
+   coefficients at 65,536 rows within 1e-4 of the largest; the exported
+   artifact in MojoModel within 1e-6 of score_numpy;
+21. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
-   row partition; the launches of phases 15-17 beside each), the card
-   line, and as the last line {"ok": true, "device": {...}}.
+   row partition; the launches of phases 15-20 beside each, B1's levels
+   including the xgboost_hist and lambdarank trains', B4's models the
+   XGBoost one), the card line, and as the last
+   line {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
-contrib_numpy, GBM train, DRF train and multinomial train call, and of
-one train of each family in phase 15 (and of its bernoulli control).
+contrib_numpy, GBM train, DRF train and multinomial train call, of one
+train of each family in phase 15 (and of its bernoulli control), and of
+one XGBoost, lambdarank (and its lambda gradients) and GLM train.
 """
 
 from __future__ import annotations
@@ -155,6 +188,13 @@ _DRF_DEPTH = 8
 _MN_ROWS = 500_000
 _MN_TREES = 5
 _WARM_TRAINS = 5                # timed warm trains; the median is reported
+# xgboost_hist (tools/bench_suite.py:234-241): 10 trees of depth 6 on the
+# HIGGS frame; xgboost_lambdarank (:267-279): mslr_arrays(200,000,
+# seed=4, n_features=20) with the same trees; requests of this many rows
+_XGB_TREES = 10
+_XGB_DEPTH = 6
+_RANK_ROWS = 200_000
+_REQ_ROWS = 4096
 # huber's delta is held to jnp.nanquantile's arithmetic at this many
 # values, past where torch.nanquantile refuses its input
 _HUBER_ROWS = 20_000_000
@@ -366,16 +406,18 @@ class _LaunchesByC:
         self.op._launch = self.launch
 
 
-def _near_ties(tm, other, frame, y, kw, n_old=0):
+def _near_ties(tm, other, frame, y, kw, n_old=0, lam=0.0):
     """Walk ``tm``'s trees against ``other``'s (tools/torch_tree_parity:
-    a differing decision must be a float64 near-tie, or this raises);
-    returns (nodes compared, ties, the largest gap of a compared leaf
-    relative to its tree's largest |leaf|)."""
+    a differing decision must be a float64 near-tie, or this raises;
+    ``lam`` the gain's reg_lambda); returns (nodes compared, ties, the
+    largest gap of a compared leaf relative to its tree's largest
+    |leaf|)."""
     from tools.torch_tree_parity import round_stats, walk
 
     stats, binned = round_stats(tm, frame, y, kw, n_old=n_old)
     try:
-        compared, ties, gaps = walk(tm, other, stats, binned, n_old=n_old)
+        compared, ties, gaps = walk(tm, other, stats, binned, n_old=n_old,
+                                    lam=lam)
     except AssertionError as e:
         raise RuntimeError(f"a split differs beyond a near-tie: {e}")
     return compared, ties, float(gaps.max()) if gaps.size else 0.0
@@ -584,6 +626,43 @@ def _log_sums(sums: dict, names, card: str) -> None:
              f"{ms - bound:.4f} ms) [{card}]")
 
 
+class _LevelBook:
+    """Every level of a train that the histogram kernel was held and
+    timed at (``levels``: name -> ``_hist_compare``'s result with its
+    ``calls_per_train``), and per train its launches and their summed
+    kernel and bound times (``sums``: train -> [launches, ms, bound
+    ms])."""
+
+    def __init__(self, torch, hist_op, card: str, repeats: int):
+        self.torch, self.hist_op, self.card = torch, hist_op, card
+        self.repeats = repeats
+        self.levels, self.sums = {}, {}
+
+    def compare(self, train_name, rec, K, B, C, dtype, label, extra=()):
+        """Every level of one kind ``rec`` saw, plus ``extra`` (name,
+        inputs, n_bins, calls) cases, each held and timed; the train's
+        calls x times are summed into ``sums``."""
+        cases = [(f"{label} level {d}", inp, B, calls)
+                 for d, inp, calls in rec.levels(K, B, C, dtype)]
+        tot = self.sums.setdefault(train_name, [0, 0.0, 0.0])
+        for name, (b, r, v, n), nb, calls in cases + list(extra):
+            res = _hist_compare(self.torch, self.hist_op, b, r, v, n, nb,
+                                self.repeats)
+            res["calls_per_train"] = calls
+            self.levels[name] = res
+            _log_hist(name, res, self.card)
+            tot[0] += calls
+            tot[1] += calls * res["ms"]
+            tot[2] += calls * res["bound_ms"]
+
+
+def _auc_case(rec, label: str, dtype) -> tuple:
+    """The score histogram's launches (4096 bins, ``dtype`` codes) as
+    one ``_LevelBook.compare`` extra case, held at the first."""
+    lv = rec.levels(1, 4096, 3, dtype)
+    return (f"auc ({label})", lv[0][1], 4096, sum(c for _, _, c in lv))
+
+
 def _xla_nanquantile(x: np.ndarray, q: float) -> np.float32:
     """``jnp.nanquantile(x, q)`` of float32 ``x`` as XLA computes it,
     transcribed in numpy with no JAX: the live count in float32, the
@@ -692,6 +771,393 @@ def _warm_trains(fit, n: int) -> tuple[list[float], object]:
         model = fit()
         times.append(time.perf_counter() - t0)
     return times, model
+
+
+def _sync_s(torch, fn, repeats: int) -> float:
+    """Median wall seconds of fn() up to the end of its device work
+    (a synchronize after each call), after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _hold_levels(c, train: str, rec, label: str, extra=()) -> dict:
+    """B1 at the _XGB_DEPTH levels (256 bins, C=3, uint8 codes) one
+    train of phases 18-19 handed it, plus ``extra`` cases, held and
+    timed in ``c.book`` as phase 9 holds its own; returns the largest
+    error and bf16 control over those levels."""
+    book = c.book
+    book.compare(train, rec, 1, 256, 3, c.torch.uint8, label, extra)
+    held = [k for k in book.levels if k.startswith(f"{label} level")]
+    if len(held) != _XGB_DEPTH:
+        raise RuntimeError(f"{train}: B1 held at {held}, not its "
+                           f"{_XGB_DEPTH} levels")
+    _log_sums(book.sums, (train,), c.card)
+    err = max(book.levels[k]["max_rel_err"] for k in held)
+    ctl = max(book.levels[k]["control_rel_err"] for k in held)
+    _log(f"[{train}] B1 at the train's levels: kernel at most {err:.3e} "
+         f"of Σ|v| (limit {_HIST_REL_LIMIT:.0e}), bf16 control at most "
+         f"{ctl:.3e}")
+    return {"levels_max_rel_err": err, "levels_control_max": ctl}
+
+
+def _phase_xgboost(c) -> dict:
+    """18. xgboost: xgboost_hist's train at its shape (B1 at every level
+    and the train AUC), card vs CPU at 65,536 rows, multi:softprob on
+    gbm_multinomial's frame (B3), the model through the registry to a
+    replica (REST bitwise to score_numpy, contributions through B4), then
+    B4 held at the model's depth groups and B1 at the train's six levels
+    and its AUC, as phases 9 and 11 hold them.
+    ``c`` holds main's frames and modules; returns the phase's numbers
+    (launches each counted from zero around its own run)."""
+    import os
+    import shutil
+
+    from h2o_kubernetes_tpu_torch import (Frame, ModelRegistry, MojoModel,
+                                          XGBoost)
+
+    torch, hist_op, card = c.torch, c.hist_op, c.card
+    hk, bk = hist_op.LAUNCHES, hist_op.BATCHED_LAUNCHES
+    kern = c.shap_kernel.flat_shap_tab_kernel
+    rows = c.hframe.nrows
+
+    def fit(fr):
+        return XGBoost(ntrees=_XGB_TREES, max_depth=_XGB_DEPTH,
+                       learn_rate=0.2, seed=1).train(y="y",
+                                                     training_frame=fr)
+
+    with _HistRecorder(hist_op) as rec:
+        t0 = time.perf_counter()
+        fit(c.hframe)                      # warm-up: the frame's bins,
+        first_s = time.perf_counter() - t0  # its levels kept
+    hist_op.reset_launches()
+    times, xgb = _warm_trains(lambda: fit(c.hframe), _WARM_TRAINS)
+    launches = dict(hk)
+    med = statistics.median(times)
+    hist = xgb.scoring_history[-1]
+    per_train = _XGB_DEPTH * _XGB_TREES + 1        # levels + the train AUC
+    _log(f"[xgboost] XGBoost ntrees={_XGB_TREES} max_depth={_XGB_DEPTH} "
+         f"learn_rate=0.2 (reg_lambda 1, min_child_weight 1) on {rows} "
+         f"HIGGS rows: first train {first_s:.3f}s; {_WARM_TRAINS} warm "
+         f"trains {[round(t, 4) for t in times]} s, median {med:.4f}s (min "
+         f"{min(times):.4f}, max {max(times):.4f}) = rows·trees/s "
+         f"{rows * _XGB_TREES / med:.0f} at the median; train_auc "
+         f"{hist['train_auc']:.6f} train_logloss "
+         f"{hist['train_logloss']:.6f}; histogram launches {launches} over "
+         f"{_WARM_TRAINS} trains [{card}]")
+    if not (0.5 < hist["train_auc"] <= 1
+            and sum(launches.values()) == per_train * _WARM_TRAINS):
+        raise RuntimeError(f"xgboost: bad metrics {hist} or histogram "
+                           f"launches {launches} (want {per_train} a train)")
+    if c.profile:
+        _profile(torch, "xgboost train", lambda: fit(c.hframe), top=12)
+    small = {k: v[:_PARITY_ROWS] for k, v in c.hcols.items()}
+    s_card = Frame.from_arrays(small, domains=c.hdom)
+    m_card = fit(s_card)
+    m_cpu = fit(Frame.from_arrays(small, domains=c.hdom, device="cpu"))
+    compared, ties, leaf_gap = _near_ties(m_card, m_cpu, s_card, "y", {},
+                                          lam=1.0)
+    gaps = {k: abs(m_card.scoring_history[-1][k]
+                   - m_cpu.scoring_history[-1][k])
+            for k in ("train_auc", "train_logloss")}
+    _log(f"[xgboost] card vs CPU at {_PARITY_ROWS} rows: {compared} nodes "
+         f"equal, {len(ties)} near-ties {ties}, compared leaves within "
+         f"{leaf_gap:.3e} of the tree's largest |leaf|, metric gaps {gaps}")
+    if max(gaps.values()) > 1e-4:
+        raise RuntimeError("xgboost: card and CPU training disagree")
+
+    def fit_mn(fr):
+        return XGBoost(objective="multi:softprob", ntrees=_MN_TREES,
+                       max_depth=5, learn_rate=0.2, seed=1).train(
+            y="y", training_frame=fr)
+
+    fit_mn(c.mframe)                       # warm-up
+    hist_op.reset_launches()
+    mn_times, mnx = _warm_trains(lambda: fit_mn(c.mframe), _WARM_TRAINS)
+    mn_launches, mn_batched = dict(hk), dict(bk)
+    mn_ll = mnx.scoring_history[-1]["train_logloss"]
+    K = mnx.nclasses
+    _log(f"[xgboost] multi:softprob ntrees={_MN_TREES} max_depth=5 K={K} "
+         f"on {c.mframe.nrows} rows: {_WARM_TRAINS} warm trains "
+         f"{[round(t, 4) for t in mn_times]} s, median "
+         f"{statistics.median(mn_times):.4f}s = rows·classtrees/s "
+         f"{c.mframe.nrows * _MN_TREES * K / statistics.median(mn_times):.0f}"
+         f"; train_logloss {mn_ll:.6f}; batched histogram launches "
+         f"{mn_batched} over {_WARM_TRAINS} trains [{card}]")
+    if not (0 < mn_ll < np.log(K)
+            and sum(mn_batched.values()) == 5 * _MN_TREES * _WARM_TRAINS
+            and mn_launches == mn_batched):
+        raise RuntimeError(f"multi:softprob: bad logloss {mn_ll} or "
+                           f"launches {mn_launches} / {mn_batched}")
+
+    reg_root = os.path.join("build", "registry", f"smoke-xgb-{os.getpid()}")
+    reg = ModelRegistry(reg_root)
+    Xq = xgb._design_matrix(c.hframe)[:_REQ_ROWS].cpu().numpy()
+    body = {"rows": _json_rows(Xq), "columns": list(xgb.feature_names)}
+    pos = xgb.response_domain[1]
+    n_groups = len(xgb._contrib_prepare()[0])
+    c.rest.BATCHER.reset()
+    srv = c.start_server(port=0)
+    port = srv.server_address[1]
+    try:
+        v = reg.publish(xgb, "higgs_xgb")
+        pushed = reg.push(f"http://127.0.0.1:{port}", "higgs_xgb", v,
+                          "higgs_xgb", warm_buckets=[128, _REQ_ROWS])
+        code, pr = _post(port, "/3/Predictions/models/higgs_xgb", body)
+        c.shap_kernel.reset_launches()
+        code2, cr = _post(port,
+                          "/3/Predictions/models/higgs_xgb/contributions",
+                          body)
+        reg_launches = kern.launches
+        if code != 200 or code2 != 200:
+            raise RuntimeError(f"xgboost REST: {code} {pr} / {code2} {cr}")
+        same = np.array_equal(np.asarray(pr[f"p{pos}"], np.float32),
+                              xgb.score_numpy(Xq)[:, 1])
+        phi = np.asarray(cr["contributions"], np.float64)
+        p1 = np.asarray(pr[f"p{pos}"], np.float64)
+        add = float(np.abs(phi.sum(axis=1) - np.log(p1 / (1 - p1))).max())
+        mm = MojoModel(io.BytesIO(reg.fetch("higgs_xgb", v)))
+        mojo_err = float(np.abs(mm.predict(Xq)
+                                - xgb.score_numpy(Xq).astype(np.float64)
+                                ).max())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        c.rest.BATCHER.stop(timeout=5.0)
+        shutil.rmtree(reg_root, ignore_errors=True)
+    _log(f"[xgboost] registry: published v{v}, pushed {pushed}; "
+         f"{_REQ_ROWS}-row REST predictions bitwise score_numpy {same}; "
+         f"contributions additivity {add:.3e}, shap_tab launches "
+         f"{reg_launches} for the request over {n_groups} groups; "
+         f"MojoModel vs score_numpy {mojo_err:.3e} [{card}]")
+    if not (same and add <= 1e-4 and reg_launches == n_groups
+            and mojo_err <= 1e-6):
+        raise RuntimeError("the pushed XGBoost model served wrong results")
+    # B4 at the model's depth groups, B1 at the train's six levels and
+    # its AUC
+    shap_res = _shap_compare(torch, c.shap_kernel, xgb, Xq, "xgboost", card)
+    held = _hold_levels(c, "xgboost_hist", rec, "xgb d6",
+                        [_auc_case(rec, "xgb", torch.int16)])
+    return {"train_s": times, "median_s": med, "first_s": first_s,
+            "rows_trees_per_s": rows * _XGB_TREES / med,
+            "launches_per_train": {k: v // _WARM_TRAINS
+                                   for k, v in launches.items() if v},
+            "train_auc": hist["train_auc"], "parity_nodes": compared,
+            "parity_ties": len(ties), "parity_leaf_gap": leaf_gap,
+            "parity_metric_gaps": gaps, "softprob_train_s": mn_times,
+            "softprob_batched_launches_per_train": {
+                k: v // _WARM_TRAINS for k, v in mn_batched.items() if v},
+            "registry_shap_launches_per_request": reg_launches,
+            "shap": shap_res, **held}
+
+
+def _phase_lambdarank(c) -> dict:
+    """19. lambdarank: xgboost_lambdarank's shape (mslr_arrays(200,000,
+    seed=4, n_features=20), rank:ndcg, 10 trees of depth 6): warm
+    rows·trees/s, ndcg@10, one round's lambda gradients, tree and whole
+    round each timed on its own, the setup and host NDCG outside the
+    rounds, one train's B1 levels held as phase 9 holds its own, and one
+    rank:pairwise train."""
+    from h2o_kubernetes_tpu_torch import Frame, XGBoost
+    from h2o_kubernetes_tpu_torch import metrics as M
+    from h2o_kubernetes_tpu_torch.models import xgboost as xgb_mod
+    from h2o_kubernetes_tpu_torch.models.tree.binning import fused_fit_bins
+    from h2o_kubernetes_tpu_torch.models.tree.core import _grow_trees
+    from tools.datasets import mslr_arrays
+
+    torch, hist_op, card = c.torch, c.hist_op, c.card
+    hk = hist_op.LAUNCHES
+    rcols = mslr_arrays(_RANK_ROWS, seed=4, n_features=20)
+    rframe = Frame.from_arrays(rcols)
+    rows = rframe.nrows
+
+    def fit(objective="rank:ndcg"):
+        return XGBoost(ntrees=_XGB_TREES, max_depth=_XGB_DEPTH,
+                       objective=objective, seed=1).train(
+            y="rel", training_frame=rframe, group_column="qid")
+
+    with _HistRecorder(hist_op) as rec:
+        t0 = time.perf_counter()
+        fit()                              # warm-up, its levels kept
+        first_s = time.perf_counter() - t0
+    hist_op.reset_launches()
+    times, rk = _warm_trains(fit, _WARM_TRAINS)
+    launches = dict(hk)
+    med = statistics.median(times)
+    ndcg = rk.model_performance(rframe, "rel")["ndcg@10"]
+    # one round timed on its own at the trained model's margins, and
+    # the train's work outside its rounds: the setup (group layout,
+    # bins from the frame's cache, lambda batches) and the host NDCG of
+    # its scoring history
+    p = rk.params
+    qid = rcols["qid"].astype(np.int64)
+    yv = rframe.vec("rel").as_float()
+
+    def setup():
+        layout = xgb_mod._GroupLayout(qid, rows)
+        binned = fused_fit_bins(rframe, rk.feature_names, p.nbins)[1]
+        return layout, binned, xgb_mod._RankBatches(layout, yv, min(
+            16, layout.n_groups))         # the default ndcg_group_batch
+
+    setup_s = _sync_s(torch, setup, _REPEATS)
+    layout, binned, rb = setup()
+    tp = xgb_mod._rank_tree_params(p)
+    w = torch.ones(rows, device=rframe.device)
+    margin = rk._predict_device(rframe).float()
+    grad_s = _sync_s(torch, lambda: rb.grads(margin, True), _REPEATS)
+    g, h = rb.grads(margin, True)
+    tree_s = _sync_s(torch, lambda: _grow_trees(binned, g, h, w, tp),
+                     _REPEATS)
+    round_s = _sync_s(torch, lambda: xgb_mod._rank_round(
+        binned, margin, rb, w, None, tp, True, p.learn_rate, 1.0, 1.0),
+        _REPEATS)
+    yt = yv.cpu().numpy()
+    ndcg_s = _host_s(lambda: M.ndcg(yt, margin.cpu().numpy(), qid, k=10),
+                     _REPEATS)
+    outside_s = med - _XGB_TREES * round_s
+    widths = [bw for _, _, bw in rb.batches]
+    _log(f"[lambdarank] rank:ndcg ntrees={_XGB_TREES} max_depth="
+         f"{_XGB_DEPTH} on {rows} rows, {layout.n_groups} query groups "
+         f"(up to {layout.max_docs} documents), 20 features: first train "
+         f"{first_s:.3f}s; {_WARM_TRAINS} warm trains "
+         f"{[round(t, 4) for t in times]} s, median {med:.4f}s (min "
+         f"{min(times):.4f}, max {max(times):.4f}) = rows·trees/s "
+         f"{rows * _XGB_TREES / med:.0f} at the median; ndcg@10 "
+         f"{ndcg:.6f} (train history "
+         f"{rk.scoring_history[-1]['train_ndcg@10']:.6f}); histogram "
+         f"launches {launches} over {_WARM_TRAINS} trains [{card}]")
+    _log(f"[lambdarank] one round at the trained margins, each timed on "
+         f"its own (median of {_REPEATS}): lambda gradients "
+         f"{grad_s * 1e3:.3f} ms ({len(widths)} batches, widths "
+         f"{widths[0]}..{widths[-1]}), the tree {tree_s * 1e3:.3f} ms, "
+         f"the round {round_s * 1e3:.3f} ms (gradients "
+         f"{grad_s / round_s:.1%} of it); outside the rounds: setup "
+         f"{setup_s * 1e3:.3f} ms, one host ndcg@10 {ndcg_s * 1e3:.3f} ms; "
+         f"train median - {_XGB_TREES} rounds = {outside_s * 1e3:.3f} ms "
+         f"[{card}]")
+    if not (0 < ndcg <= 1 and sum(launches.values())
+            == _XGB_DEPTH * _XGB_TREES * _WARM_TRAINS):
+        raise RuntimeError(f"lambdarank: bad ndcg {ndcg} or histogram "
+                           f"launches {launches}")
+    if c.profile:
+        _profile(torch, "lambdarank train", fit, top=12)
+        _profile(torch, "lambda gradients", lambda: rb.grads(margin, True))
+    t0 = time.perf_counter()
+    pw = fit("rank:pairwise")
+    pw_s = time.perf_counter() - t0
+    pw_ndcg = pw.scoring_history[-1]["train_ndcg@10"]
+    _log(f"[lambdarank] rank:pairwise: {pw_s:.3f}s, train ndcg@10 "
+         f"{pw_ndcg:.6f} [{card}]")
+    if not 0 < pw_ndcg <= 1:
+        raise RuntimeError(f"rank:pairwise: bad ndcg {pw_ndcg}")
+    # B1 at the six levels of the lambda gradients' train
+    held = _hold_levels(c, "lambdarank", rec, "rank d6")
+    return {"train_s": times, "median_s": med, "first_s": first_s,
+            "rows_trees_per_s": rows * _XGB_TREES / med, "ndcg@10": ndcg,
+            "groups": layout.n_groups, "max_docs": layout.max_docs,
+            "grad_ms_per_round": grad_s * 1e3,
+            "tree_ms_per_round": tree_s * 1e3, "round_ms": round_s * 1e3,
+            "grad_share": grad_s / round_s, "setup_ms": setup_s * 1e3,
+            "ndcg_host_ms": ndcg_s * 1e3, "outside_rounds_ms": outside_s * 1e3,
+            "lambda_batches": len(widths),
+            "launches_per_train": {k: v // _WARM_TRAINS
+                                   for k, v in launches.items() if v},
+            "pairwise_s": pw_s, "pairwise_ndcg@10": pw_ndcg, **held}
+
+
+def _phase_glm(c) -> dict:
+    """20. glm: glm_binomial_irlsm's shape (HIGGS, 1,000,000 rows, IRLSM
+    λ = 0, 50 iterations with the epsilons at 0): warm iterations/s and
+    the AUC (B1's 4096-bin histogram); L_BFGS, COORDINATE_DESCENT, an
+    elastic-net λ (ADMM) and the multinomial family once each; card vs
+    CPU coefficients at 65,536 rows; the artifact in MojoModel."""
+    from h2o_kubernetes_tpu_torch import GLM, Frame, MojoModel, export_mojo
+
+    torch, hist_op, card = c.torch, c.hist_op, c.card
+    hk = hist_op.LAUNCHES
+    bench = dict(family="binomial", solver="IRLSM", lambda_=0.0,
+                 max_iterations=50, objective_epsilon=0.0, beta_epsilon=0.0,
+                 seed=1)
+    rows = c.hframe.nrows
+
+    def fit(fr, **kw):
+        return GLM(**(kw or bench)).train(y="y", training_frame=fr)
+
+    t0 = time.perf_counter()
+    fit(c.hframe)
+    first_s = time.perf_counter() - t0
+    times, glm = _warm_trains(lambda: fit(c.hframe), _WARM_TRAINS)
+    med = statistics.median(times)
+    its = glm.n_iterations
+    hist_op.reset_launches()
+    perf = glm.model_performance(c.hframe, "y")
+    perf_launches = dict(hk)
+    _log(f"[glm] binomial IRLSM λ=0 on {rows} HIGGS rows, P="
+         f"{glm.dinfo.n_expanded}: first train {first_s:.3f}s; "
+         f"{_WARM_TRAINS} warm trains {[round(t, 4) for t in times]} s of "
+         f"{its} iterations, median {med:.4f}s (min {min(times):.4f}, max "
+         f"{max(times):.4f}) = {its / med:.1f} iterations/s at the median; "
+         f"residual deviance {glm.residual_deviance:.3f} (null "
+         f"{glm.null_deviance:.3f}); model_performance auc "
+         f"{perf['auc']:.6f} logloss {perf['logloss']:.6f}, histogram "
+         f"launches {perf_launches} [{card}]")
+    if not (its == 50 and 0.5 < perf["auc"] <= 1
+            and glm.residual_deviance < glm.null_deviance
+            and sum(perf_launches.values()) == 1):
+        raise RuntimeError("glm: bad iterations, AUC, deviance or AUC "
+                           "launches")
+    if c.profile:
+        _profile(torch, "glm train", lambda: fit(c.hframe), top=12)
+    others = {}
+    for name, fr, kw in (
+            ("L_BFGS", c.hframe, dict(family="binomial", solver="L_BFGS")),
+            ("COORDINATE_DESCENT", c.hframe,
+             dict(family="binomial", solver="COORDINATE_DESCENT")),
+            ("elastic net (ADMM)", c.hframe,
+             dict(family="binomial", lambda_=1e-3, alpha=0.5)),
+            ("multinomial", c.mframe, dict(family="multinomial"))):
+        t0 = time.perf_counter()
+        m = fit(fr, **kw)
+        secs = time.perf_counter() - t0
+        others[name] = {"s": secs, "iterations": m.n_iterations,
+                        "residual_deviance": m.residual_deviance,
+                        "null_deviance": m.null_deviance}
+        _log(f"[glm] {name} on {fr.nrows} rows: {secs:.3f}s, "
+             f"{m.n_iterations} iterations, residual deviance "
+             f"{m.residual_deviance:.3f} (null {m.null_deviance:.3f}) "
+             f"[{card}]")
+        if not (np.isfinite(m.residual_deviance)
+                and m.residual_deviance < m.null_deviance):
+            raise RuntimeError(f"glm {name}: the fit did not improve on "
+                               "the null model")
+    small = {k: v[:_PARITY_ROWS] for k, v in c.hcols.items()}
+    g_card = fit(Frame.from_arrays(small, domains=c.hdom))
+    g_cpu = fit(Frame.from_arrays(small, domains=c.hdom, device="cpu"))
+    b_cpu = g_cpu.beta.double().numpy()
+    coef_rel = float(np.abs(g_card.beta.cpu().double().numpy() - b_cpu
+                            ).max() / np.abs(b_cpu).max())
+    Xq = glm._design_matrix(c.hframe)[:_REQ_ROWS].cpu().numpy()
+    buf = io.BytesIO()
+    export_mojo(glm, buf)
+    mojo_err = float(np.abs(MojoModel(io.BytesIO(buf.getvalue())).predict(
+        Xq) - glm.score_numpy(Xq).astype(np.float64)).max())
+    _log(f"[glm] card vs CPU at {_PARITY_ROWS} rows: coefficients within "
+         f"{coef_rel:.3e} of the largest; the artifact ({len(buf.getvalue())}"
+         f" bytes) in MojoModel within {mojo_err:.3e} of score_numpy on "
+         f"{_REQ_ROWS} rows")
+    if coef_rel > 1e-4 or mojo_err > 1e-6:
+        raise RuntimeError("glm: card vs CPU or the artifact disagrees")
+    return {"train_s": times, "median_s": med, "first_s": first_s,
+            "iterations": its, "iterations_per_s": its / med,
+            "auc": perf["auc"], "auc_launches": perf_launches,
+            "others": others, "parity_coef_rel": coef_rel,
+            "mojo_err": mojo_err}
 
 
 def main() -> int:
@@ -915,29 +1381,11 @@ def main() -> int:
 
     # -- 9. hist: kernel vs plain vs index_add_ at the path's inputs ---------
     u8, i16 = torch.uint8, torch.int16
-    levels, sums = {}, {}
-
-    def compare(train_name, rec, K, B, C, dtype, label, extra=()):
-        """Every level of one kind the train handed the kernel, plus
-        ``extra`` (name, inputs, n_bins, calls) cases, each held and
-        timed; the train's calls x times are summed into ``sums``."""
-        cases = [(f"{label} level {d}", inp, B, calls)
-                 for d, inp, calls in rec.levels(K, B, C, dtype)]
-        tot = sums.setdefault(train_name, [0, 0.0, 0.0])
-        for name, (b, r, v, n), nb, calls in cases + list(extra):
-            res = _hist_compare(torch, hist_op, b, r, v, n, nb,
-                                _REPEATS * 2)
-            res["calls_per_train"] = calls
-            levels[name] = res
-            _log_hist(name, res, card)
-            tot[0] += calls
-            tot[1] += calls * res["ms"]
-            tot[2] += calls * res["bound_ms"]
+    book = _LevelBook(torch, hist_op, card, _REPEATS * 2)
+    levels, sums, compare = book.levels, book.sums, book.compare
 
     def auc(rec, label):
-        """The score histogram's launches, held at the first."""
-        lv = rec.levels(1, 4096, 3, i16)
-        return (f"auc ({label})", lv[0][1], 4096, sum(c for _, _, c in lv))
+        return _auc_case(rec, label, i16)
 
     b, r, v, n = rec5.levels(1, 256, 3, u8)[0][1]
     compare("gbm depth 5", rec5, 1, 256, 3, u8, "gbm d5", [
@@ -1436,7 +1884,19 @@ def main() -> int:
             and max(mojo_err.values()) <= 1e-6):
         raise RuntimeError("the registry loop served wrong results")
 
-    # -- 18. report ----------------------------------------------------------
+    # -- 18-20. xgboost, lambdarank, glm -------------------------------------
+    from types import SimpleNamespace
+
+    ctx = SimpleNamespace(
+        torch=torch, hist_op=hist_op, shap_kernel=shap_kernel, rest=rest,
+        start_server=start_server, card=card, profile=args.profile,
+        hframe=hframe, hcols=hcols, hdom=hdom, mframe=mframe, book=book)
+    xgb_res = _phase_xgboost(ctx)
+    rank_res = _phase_lambdarank(ctx)
+    glm_res = _phase_glm(ctx)
+    shap["xgboost"] = xgb_res.pop("shap")
+
+    # -- 21. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -1479,8 +1939,10 @@ def main() -> int:
             ("histogram", "gbm d5 level 0", sum(train_launches.values()),
              train_launches,
              "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)",
-             ("gbm depth 5", "huber depth 5"),
-             lambda k, v: k.startswith(("gbm d5", "huber d5", "auc"))),
+             ("gbm depth 5", "huber depth 5", "xgboost_hist",
+              "lambdarank"),
+             lambda k, v: k.startswith(("gbm d5", "huber d5", "auc",
+                                        "xgb d6", "rank d6"))),
             ("histogram_deep", "gbm d10 level 9",
              deep_launches["partitioned"],
              {"partitioned": deep_launches["partitioned"]},
@@ -1531,6 +1993,17 @@ def main() -> int:
     records[1]["checkpoint_warm_s"] = ck_times
     records[3]["drf_checkpoint_launches"] = drf_ck_batched
     records[3]["drf_checkpoint_s"] = drf_ck_s
+    # phases 18-20, each path's launches counted from zero around its run
+    records[0]["xgboost_registry_launches_per_request"] = \
+        xgb_res["registry_shap_launches_per_request"]
+    records[1]["xgboost"] = {k: v for k, v in xgb_res.items()
+                             if not k.startswith(("softprob", "registry"))}
+    records[1]["lambdarank"] = rank_res
+    records[1]["glm"] = glm_res
+    records[3]["xgboost_softprob"] = {
+        "train_s": xgb_res["softprob_train_s"],
+        "batched_launches_per_train":
+            xgb_res["softprob_batched_launches_per_train"]}
     _log(json.dumps({"kernels": records}))
     _log(card)
     print(json.dumps({"ok": True, "device": {

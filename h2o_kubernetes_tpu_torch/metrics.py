@@ -1,7 +1,8 @@
 """Model metrics: AUC, the binomial threshold table (``binomial_stats``:
 precision-recall AUC, Gini, max F1 and its threshold, mean per-class
 error, the confusion matrix), logloss, multinomial logloss, accuracy,
-RMSE, MAE, R² and the gaussian or poisson mean residual deviance.
+RMSE, MAE, R², the gaussian or poisson mean residual deviance, and the
+ranking metric NDCG@k (``ndcg``, numpy on the host).
 
 Inputs may be numpy arrays or tensors; the metric runs on the device
 of ``score``/``pred`` when that is a tensor (the CPU otherwise) and
@@ -16,7 +17,8 @@ import torch
 
 __all__ = ["roc_auc", "binomial_stats", "binomial_auc_and_stats",
            "confusion_matrix", "logloss", "multinomial_logloss",
-           "accuracy", "rmse", "mae", "r2", "mean_residual_deviance"]
+           "accuracy", "rmse", "mae", "r2", "mean_residual_deviance",
+           "ndcg"]
 
 _AUC_BINS = 4096        # score-histogram bins of the AUC's histogram path
 _AUC_EXACT_MAX = 65536  # above this many rows the histogram path is used
@@ -280,3 +282,33 @@ def mean_residual_deviance(y_true, pred, distribution: str = "gaussian"
         yl = torch.where(y > 0, y * torch.log(y / p), 0.0)
         return float(2.0 * torch.mean(yl - (y - p), dtype=_ACC))
     raise ValueError(distribution)
+
+
+def ndcg(y_true, score, group, k: int = 10) -> float:
+    """Mean NDCG@k over query groups, in float64 numpy on the host (the
+    JAX package's ``metrics.ndcg``, step for step). ``y_true``: graded
+    relevance per row; ``group``: query id per row. Within a group the
+    top k rows by score (ties in row order) give the DCG, with gain
+    2^rel - 1 and discount 1/log2(rank + 1); groups with no relevant row
+    (ideal DCG 0) are left out of the mean."""
+    y = np.asarray(y_true).ravel().astype(np.float64)
+    s = np.asarray(score).ravel().astype(np.float64)
+    g = np.asarray(group).ravel()
+    # one argsort by group, then contiguous slices
+    order = np.argsort(g, kind="stable")
+    y, s, g = y[order], s[order], g[order]
+    _, starts = np.unique(g, return_index=True)
+    bounds = np.append(starts, len(g))
+    total, n = 0.0, 0
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        yy, ss = y[a:b], s[a:b]
+        kk = min(k, b - a)
+        disc = 1.0 / np.log2(np.arange(2, kk + 2))
+        top = np.argsort(-ss, kind="stable")[:kk]
+        dcg = ((2.0 ** yy[top] - 1.0) * disc).sum()
+        ideal = np.sort(2.0 ** yy - 1.0)[::-1]
+        idcg = (ideal[:kk] * disc).sum()
+        if idcg > 0:
+            total += dcg / idcg
+            n += 1
+    return total / max(n, 1)

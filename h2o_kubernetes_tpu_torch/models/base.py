@@ -188,6 +188,8 @@ class Model:
     hooks)."""
 
     algo = "base"
+    # the attribute whose presence marks the scoring device state built
+    _score_state = "_flat_trees"
 
     # -- device-state cache -------------------------------------------------
 
@@ -204,7 +206,8 @@ class Model:
         with _SCORER_LOCK:
             ctr = self.__dict__.setdefault("_scorer_counters",
                                            {"hits": 0, "misses": 0})
-            key = "_shap_tables" if kind == "contrib" else "_flat_trees"
+            key = "_shap_tables" if kind == "contrib" else \
+                self._score_state
             if self.__dict__.get(key) is not None:
                 ctr["hits"] += 1
                 _SCORER_STATS["hits"] += 1

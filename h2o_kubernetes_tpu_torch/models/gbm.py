@@ -556,7 +556,7 @@ def gbm_model_from_arrays(trees: dict, edges, is_enum, init_score,
                           response_domain: list[str] | None = None,
                           feature_domains: dict | None = None,
                           device=None, offset_column: str | None = None,
-                          margin_scale: float = 1.0,
+                          margin_scale: float = 1.0, model_cls=None,
                           **params) -> GBMModel:
     """A port ``GBMModel`` (``DRFModel`` with ``_drf_mode=True``) from
     another package's trained GBM or DRF, as numpy: ``trees`` maps each
@@ -564,8 +564,10 @@ def gbm_model_from_arrays(trees: dict, edges, is_enum, init_score,
     class-fastest for K > 2 classes), ``edges`` is the [F, B-2]
     bin-edge matrix, ``is_enum`` the per-feature enum flags,
     ``init_score`` the prior (a float, or the [K] class priors),
-    ``margin_scale`` laplace's response scale. ``params`` are GBMParams
-    fields (``max_depth`` is required; it sizes the descent). The model
+    ``margin_scale`` laplace's response scale, ``model_cls`` the model
+    class (default ``GBMModel``, ``DRFModel`` under ``_drf_mode``).
+    ``params`` are GBMParams fields (``max_depth`` is required; it
+    sizes the descent). The model
     scores, explains and seeds a checkpoint continuation as the source
     model does."""
     from ..runtime.backend import resolve_device
@@ -582,7 +584,7 @@ def gbm_model_from_arrays(trees: dict, edges, is_enum, init_score,
     gp = GBMParams(max_depth=max_depth, nbins=spec.n_bins,
                    ntrees=int(tree.value.shape[0]) // max(
                        1, nclasses if nclasses > 2 else 1), **params)
-    cls = GBMModel
+    cls = model_cls or GBMModel
     if gp._drf_mode:
         from .drf import DRFModel as cls
     return cls(data, gp, spec, tree, init_score, offset_column,

@@ -5,11 +5,14 @@ A tree ensemble carries the flattened serving arrays (``flat_*``), the
 per-node ``flat_cover`` that TreeSHAP needs, ``init_score`` and
 ``enum_mask``; its meta names the algo, features and their domains,
 classes, distribution, offset column, depth, bins, ``drf_mode``, tree
-count, NA bin and laplace's ``margin_scale``. ``export_mojo`` writes a
-port GBM/DRF model (or a loaded scorer) as one; ``read_mojo_parts``
-reads any; ``import_mojo``/``MojoModel`` score a tree artifact with
-numpy only, on any host. The JAX package's other algos raise, naming
-the ROADMAP item that ports them.
+count, NA bin and laplace's ``margin_scale``. A GLM carries its
+coefficients ``beta`` and its design layout (``means``, ``stds``; the
+meta's ``numeric_idx``, ``enum_specs`` and ``drop_first``), family and
+link. ``export_mojo`` writes a port GBM/DRF/XGBoost/GLM model (or a
+loaded tree scorer) as one; ``read_mojo_parts`` reads any;
+``import_mojo``/``MojoModel`` score a tree or GLM artifact with numpy
+only, on any host. The JAX package's other algos raise, naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import zipfile
 import numpy as np
 
 __all__ = ["MOJO_FORMAT", "read_mojo_parts", "write_mojo_parts",
-           "export_mojo", "import_mojo", "MojoModel", "TREE_ALGOS"]
+           "export_mojo", "import_mojo", "MojoModel", "TREE_ALGOS",
+           "SCORED_ALGOS"]
 
 # format 2: tree ensembles carry the flattened serving arrays (flat_*)
 _FORMAT = "h2o_kubernetes_tpu/mojo/2"
@@ -31,10 +35,12 @@ _READABLE_FORMATS = ("h2o_kubernetes_tpu/mojo/1", _FORMAT)
 MOJO_FORMAT = _FORMAT
 
 TREE_ALGOS = ("gbm", "drf", "xgboost")
+# the algos whose artifacts this module writes and scores
+SCORED_ALGOS = TREE_ALGOS + ("glm",)
 # the JAX package's other artifact algos, by the ROADMAP item (Queue 1)
 # that ports them
 _UNPORTED_ALGOS = {
-    "glm": "item 4", "deeplearning": "item 7", "word2vec": "item 7",
+    "deeplearning": "item 7", "word2vec": "item 7",
     "kmeans": "item 7", "pca": "item 7", "glrm": "item 7",
     "naivebayes": "item 7", "isolationforest": "item 7",
     "coxph": "item 7", "targetencoder": "item 7",
@@ -78,13 +84,14 @@ def write_mojo_parts(meta: dict, arrays: dict, path) -> None:
 
 
 def export_mojo(model, path):
-    """Write ``model`` (a port GBM/DRF model, or a scorer loaded from an
-    artifact) as a MOJO-v2 artifact at ``path`` (a filesystem path or a
-    binary file-like object); returns ``path``. The arrays are the ones
-    the model serves from: the same flattening, so an artifact scores
-    as the model does."""
+    """Write ``model`` (a port GBM/DRF/XGBoost/GLM model, or a scorer
+    loaded from an artifact) as a MOJO-v2 artifact at ``path`` (a
+    filesystem path or a binary file-like object); returns ``path``. The
+    arrays are the ones the model serves from (a tree model's
+    flattening, a GLM's coefficients and design layout), so an artifact
+    scores as the model does."""
     algo = getattr(model, "algo", None)
-    if algo not in TREE_ALGOS or not hasattr(model, "_artifact_arrays"):
+    if algo not in SCORED_ALGOS or not hasattr(model, "_artifact_arrays"):
         raise ValueError(f"mojo export: {_unported(algo)}")
     write_mojo_parts(model._artifact_meta, model._artifact_arrays, path)
     return path
@@ -95,14 +102,15 @@ def import_mojo(path) -> "MojoModel":
 
 
 class MojoModel:
-    """A tree artifact scored with numpy only (no torch, no device)."""
+    """A tree or GLM artifact scored with numpy only (no torch, no
+    device)."""
 
     def __init__(self, path):
         self.meta, self.arrays, _ = read_mojo_parts(path)
         self.algo = self.meta["algo"]
-        if self.algo not in TREE_ALGOS:
+        if self.algo not in SCORED_ALGOS:
             raise NotImplementedError(_unported(self.algo))
-        if "flat_split_feat" not in self.arrays:
+        if self.algo in TREE_ALGOS and "flat_split_feat" not in self.arrays:
             raise ValueError("format-v1 tree artifacts (heap trees + bin "
                              "edges) are not read by the port — re-export "
                              "the model")
@@ -175,7 +183,58 @@ class MojoModel:
         off = self._offset(data)
         X = data.astype(np.float32) if isinstance(data, np.ndarray) \
             else self._matrix(data)
+        if self.algo == "glm":
+            return self._predict_glm(X, off)
         return self._combine(self._totals(X), off)
+
+    def _expand(self, X) -> np.ndarray:
+        """The GLM design expansion (``models/datainfo.expand``) in
+        numpy float32: mean-imputed standardized numerics, one-hot enums,
+        the intercept last."""
+        m = self.meta
+        means, stds = self.arrays["means"], self.arrays["stds"]
+        out = []
+        for j, i in enumerate(m["numeric_idx"]):
+            c = X[:, i].copy()
+            c[np.isnan(c)] = means[j]
+            out.append((c - means[j]) / stds[j])
+        mats = [np.stack(out, axis=1)] if out else []
+        for (i, L, has_na, mode) in m["enum_specs"]:
+            c = X[:, i]
+            code = np.where(np.isnan(c), L, c).astype(np.int32)
+            if not has_na:
+                code = np.where(code >= L, mode, code)
+            lo = 1 if m["drop_first"] else 0
+            width = L - lo + (1 if has_na else 0)
+            levels = np.arange(lo, lo + width)
+            mats.append((code[:, None] == levels[None, :])
+                        .astype(np.float32))
+        mats.append(np.ones((X.shape[0], 1), dtype=np.float32))
+        return np.concatenate(mats, axis=1)
+
+    def _predict_glm(self, X, off=None) -> np.ndarray:
+        """[n, K] probabilities (binomial, multinomial) or [n] means."""
+        eta = self._expand(X) @ self.arrays["beta"]
+        if off is not None:
+            eta = eta + off
+        fam = self.meta["family"]
+        if fam == "multinomial":
+            z = np.exp(eta - eta.max(axis=1, keepdims=True))
+            return z / z.sum(axis=1, keepdims=True)
+        link = self.meta.get("link", "identity")
+        if link == "logit":
+            mu = 1.0 / (1.0 + np.exp(-eta))
+        elif link == "log":
+            mu = np.exp(np.clip(eta, -30, 30))
+        elif link == "inverse":
+            e = np.where(np.abs(eta) < 1e-6,
+                         np.where(eta < 0, -1e-6, 1e-6), eta)
+            mu = 1.0 / e
+        else:
+            mu = eta
+        if fam == "binomial":
+            return np.stack([1 - mu, mu], axis=1)
+        return mu
 
     def _totals(self, X):
         """[n, K] per-class float64 leaf-value sums over the flattened

@@ -178,14 +178,15 @@ def _np(a) -> np.ndarray:
 
 
 def save_model(model, path: str, force: bool = True) -> str:
-    """Save a port GBM/DRF model at ``path`` (a path without an
+    """Save a port GBM/DRF/XGBoost model at ``path`` (a path without an
     extension is a directory: the file is ``<algo>.model`` in it);
     returns the file's path."""
     from .models.gbm import GBMModel
 
     if not isinstance(model, GBMModel):
         raise ValueError(f"save_model: algo '{getattr(model, 'algo', '?')}'"
-                         " is not ported (GBM and DRF models are)")
+                         " is not ported (GBM, DRF and XGBoost models "
+                         "are)")
     if not force and not is_remote(path) and os.path.exists(path):
         raise FileExistsError(path)
     if not is_remote(path) and not os.path.splitext(path)[1]:
@@ -209,6 +210,7 @@ def save_model(model, path: str, force: bool = True) -> str:
         "init_score": np.asarray(model.init_score, dtype=np.float32),
         "scoring_history": [dict(h) for h in model.scoring_history],
         "validation_metrics": model.validation_metrics,
+        "group_column": getattr(model, "_group_column", None),
     }
     buf = io.BytesIO()
     buf.write(_MAGIC)
@@ -225,6 +227,7 @@ def load_model(path: str, device=None):
     from .models.base import TrainData
     from .models.drf import DRFModel
     from .models.gbm import GBMModel, GBMParams
+    from .models.xgboost import XGBoostModel
     from .models.tree.binning import BinSpec
     from .models.tree.core import Tree
     from .runtime.backend import resolve_device
@@ -245,11 +248,14 @@ def load_model(path: str, device=None):
                    for f in Tree._fields))
     init = st["init_score"]
     K = td.nclasses if td.nclasses > 2 else 1
-    cls = DRFModel if st["algo"] == "drf" else GBMModel
+    cls = {"drf": DRFModel, "xgboost": XGBoostModel}.get(st["algo"],
+                                                        GBMModel)
     model = cls(td, GBMParams(**st["params"]), spec, trees,
                 init if K > 1 else float(init.reshape(-1)[0]),
                 m["offset_column"], device=dev,
                 margin_scale=float(m["margin_scale"]))
     model.scoring_history = st["scoring_history"]
     model.validation_metrics = st["validation_metrics"]
+    if st.get("group_column"):
+        model._group_column = st["group_column"]
     return model

@@ -145,9 +145,12 @@ def test_unported_artifact_algos_name_their_item():
 
     with zipfile.ZipFile(buf, "w") as z:
         z.writestr("model.json", json.dumps({
-            "format": "h2o_kubernetes_tpu/mojo/2", "algo": "glm"}))
+            "format": "h2o_kubernetes_tpu/mojo/2",
+            "algo": "deeplearning"}))
         z.writestr("arrays.npz", npz.getvalue())
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError,
+                       match="'deeplearning' artifacts are not ported "
+                             r"\(ROADMAP Queue 1 item 7\)"):
         MojoModel(io.BytesIO(buf.getvalue()))
     with pytest.raises(ValueError, match="not ported"):
         export_mojo(object(), io.BytesIO())

@@ -43,7 +43,8 @@ def test_imports_without_jax():
     assert {f"h2o_kubernetes_tpu_torch.{m}" for m in (
         "frame.frame", "models.tree.binning", "ops.histogram", "ops._build",
         "metrics", "models.gbm", "models.drf", "runtime.prng", "mojo",
-        "persist", "operator.registry", "runtime.retry")} <= names
+        "persist", "operator.registry", "runtime.retry", "models.xgboost",
+        "models.glm", "models.datainfo")} <= names
 
 
 def test_no_source_imports_jax_or_reference():
@@ -71,10 +72,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
-    """Frame.from_arrays (and so GBM.train and DRF.train, which train
-    where the frame lives) and the carried-across model default to the
-    card."""
+    """Frame.from_arrays (and so GBM.train, DRF.train, XGBoost.train
+    and GLM.train, which train where the frame lives) and the
+    carried-across models default to the card."""
     from h2o_kubernetes_tpu_torch.models.gbm import gbm_model_from_arrays
+    from h2o_kubernetes_tpu_torch.models.glm import glm_model_from_arrays
+    from h2o_kubernetes_tpu_torch.models.xgboost import \
+        xgboost_model_from_arrays
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cols = {"x": [1.0, 2.0, 3.0], "y": ["a", "b", "a"]}
@@ -83,11 +87,22 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gbm_model_from_arrays({}, [[0.0, 1.0]], [False], 0.0, ["x"],
                               "bernoulli", 2, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        xgboost_model_from_arrays({}, [[0.0, 1.0]], [False], 0.0, ["x"],
+                                  "bernoulli", 2, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        glm_model_from_arrays([0.5, 0.0], ["x", "Intercept"], [0], [],
+                              [0.0], [1.0], True, ["x"], "binomial")
     fr = port.Frame.from_arrays(cols, device="cpu")
     assert fr.device.type == "cpu" and fr["y"].is_enum()
     model = port.DRF(ntrees=1, max_depth=1, min_rows=1.0).train(
         y="y", training_frame=fr)
     assert model.device.type == "cpu" and model.algo == "drf"
+    model = port.XGBoost(ntrees=1, max_depth=1).train(y="y",
+                                                      training_frame=fr)
+    assert model.device.type == "cpu" and model.algo == "xgboost"
+    model = port.GLM(family="binomial").train(y="y", training_frame=fr)
+    assert model.device.type == "cpu" and model.algo == "glm"
 
 
 @pytest.mark.parametrize("alone", [False, True],

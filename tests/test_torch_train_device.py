@@ -101,3 +101,50 @@ def test_model_performance_on_card_launches_the_histogram_kernel():
     # 3 trees x 3 levels, the train AUC's exact path (5,000 rows), and
     # the validation AUC's histogram
     assert sum(H.LAUNCHES.values()) == sum(before.values()) + 3 * 3 + 1
+
+
+@pytest.mark.cuda
+def test_xgboost_and_glm_train_on_the_card_by_default():
+    """XGBoost (pointwise and rank:ndcg) and GLM train where the frame
+    lives, the card by default: the trees' levels launch the histogram
+    kernel (3 per depth-3 tree, no AUC launch at 5,000 rows), and the
+    results agree with the CPU's (train metrics within 1e-4, GLM
+    coefficients within 1e-4 of the largest)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from h2o_kubernetes_tpu_torch import GLM, XGBoost
+
+    cols = _cols(5000)
+    cols["q"] = np.repeat(np.arange(100), 50).astype(np.float32)
+    cols["rel"] = np.clip(np.round(cols["x0"] + 1.5), 0, 4
+                          ).astype(np.float32)
+    card, cpu = Frame.from_arrays(cols), Frame.from_arrays(cols, device="cpu")
+    assert card.device.type == "cuda"
+    kw = dict(ntrees=3, max_depth=3, seed=1)
+    for obj, y, extra in (("binary:logistic", "y", {}),
+                          ("rank:ndcg", "rel", {"group_column": "q"})):
+        ign = [c for c in ("y", "rel", "q") if c != y and c not in
+               extra.values()]
+        before = sum(H.LAUNCHES.values())
+        m = XGBoost(objective=obj, **kw).train(
+            y=y, training_frame=card, ignored_columns=ign, **extra)
+        assert m.device.type == "cuda"
+        assert sum(H.LAUNCHES.values()) - before == 3 * 3
+        c = XGBoost(objective=obj, **kw).train(
+            y=y, training_frame=cpu, ignored_columns=ign, **extra)
+        for k, v in c.scoring_history[-1].items():
+            assert abs(m.scoring_history[-1][k] - v) <= 1e-4, (obj, k)
+    ign = ["rel", "q"]
+    g_card = GLM(family="binomial").train(y="y", training_frame=card,
+                                          ignored_columns=ign)
+    g_cpu = GLM(family="binomial").train(y="y", training_frame=cpu,
+                                         ignored_columns=ign)
+    assert g_card.device.type == "cuda"
+    b, want = g_card.beta.cpu().numpy(), g_cpu.beta.numpy()
+    np.testing.assert_allclose(b, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    hold = Frame.from_arrays(_cols(70_000, seed=7), device="cuda")
+    before = dict(H.LAUNCHES)
+    perf = g_card.model_performance(hold, y="y")
+    assert sum(H.LAUNCHES.values()) == sum(before.values()) + 1
+    assert 0.5 < perf["auc"] <= 1.0

@@ -1,0 +1,118 @@
+"""Rehearse chip_smoke.py's phases 18-20 (xgboost, lambdarank, glm) on
+the CPU, without a card: the entry points' default device resolves to
+the CPU, the histogram and TreeSHAP kernels are replaced by counting
+fakes over their plain versions (the histogram fake sums in float64 and
+counts ``LAUNCHES``/``BATCHED_LAUNCHES`` under the regime ``hist_plan``
+picks), and CUDA events, ``synchronize`` and ``_sleep`` are host
+stand-ins. It finds wrong paths, shapes and launch counts; its times
+are the CPU's and say nothing of the card.
+
+    PYTHONPATH=. python3 tools/torch_rehearse_phases.py \
+        [--rows 70000] [--rank-rows 20000] [--phases xgboost,lambdarank,glm]
+
+``--rows`` must exceed 65,536 (phase 18 and 20 compare card and CPU on
+that many rows; the AUC takes its histogram path past it). The
+xgboost phase takes ~1 min at the defaults on one CPU, lambdarank ~30 s,
+glm ~10 s.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import types
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+class _HostEvent:
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def _install_fakes():
+    """CPU stand-ins for the card: device resolution, CUDA timing, and
+    counting fakes of the two kernels."""
+    torch.cuda.Event = _HostEvent
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda._sleep = lambda *a: None
+    import h2o_kubernetes_tpu_torch as port
+    from h2o_kubernetes_tpu_torch import rest
+    from h2o_kubernetes_tpu_torch.frame import frame
+    from h2o_kubernetes_tpu_torch.operator import registry
+    from h2o_kubernetes_tpu_torch.ops import histogram as H
+    from h2o_kubernetes_tpu_torch.ops import shap_kernel as S
+    from h2o_kubernetes_tpu_torch.runtime import backend
+
+    for mod in (frame, registry, rest, backend, port):
+        mod.resolve_device = lambda device=None: torch.device("cpu")
+
+    def hist(binned, rel, vals, n_nodes, n_bins):
+        out = H.histogram_batched_plain(binned, rel, vals.double(),
+                                        n_nodes, n_bins).float()
+        regime = H.hist_mode(rel.shape[0], n_nodes, binned.shape[0], n_bins,
+                             vals.shape[2], binned.element_size(),
+                             binned.shape[1])
+        H.LAUNCHES[regime] += 1
+        if rel.shape[0] > 1:
+            H.BATCHED_LAUNCHES[regime] += 1
+        return out
+
+    H.build_histogram_batched = hist
+    H.build_histogram_kernel = lambda b, r, v, n, B: \
+        H.build_histogram_batched(b, r[None], v[None], n, B)[0]
+
+    def shap(tables, ctab, X, em, slots=None):
+        shap.launches += 1
+        return S.flat_shap_tab_plain(tables, ctab, X, em)
+
+    shap.launches = 0
+    S.flat_shap_tab_kernel = shap
+    return H, S, rest
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, default=70_000)
+    ap.add_argument("--rank-rows", type=int, default=20_000)
+    ap.add_argument("--phases", default="xgboost,lambdarank,glm")
+    args = ap.parse_args()
+    H, S, rest = _install_fakes()
+    import chip_smoke as cs
+    from h2o_kubernetes_tpu_torch import Frame, start_server
+
+    cs._WARM_TRAINS, cs._REPEATS = 2, 2
+    cs._RANK_ROWS = args.rank_rows
+    hcols, hdom = cs._higgs_cols(args.rows, 0)
+    ctx = types.SimpleNamespace(
+        torch=torch, hist_op=H, shap_kernel=S, rest=rest,
+        start_server=start_server, card="CPU rehearsal", profile=False,
+        hframe=Frame.from_arrays(hcols, domains=hdom), hcols=hcols,
+        hdom=hdom, mframe=Frame.from_arrays(cs._multinomial_cols(
+            args.rows // 2, 0)),
+        book=cs._LevelBook(torch, H, "CPU rehearsal", 2))
+    for phase in args.phases.split(","):
+        t0 = time.perf_counter()
+        res = getattr(cs, f"_phase_{phase}")(ctx)
+        print(f"[rehearsal] {phase} passed in "
+              f"{time.perf_counter() - t0:.1f}s: {json.dumps(res)[:400]}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
