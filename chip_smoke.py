@@ -3,7 +3,8 @@
 scorer-replica serving path, binomial GBM training, DRF and multinomial
 GBM training, the other GBM distributions, checkpoint continuation, the
 train -> export -> registry -> replica loop, XGBoost-hist (pointwise and
-LambdaMART ranking) and GLM on one CUDA card.
+LambdaMART ranking), GLM, Exclusive Feature Bundling, GOSS and
+out-of-core boosting on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -134,12 +135,41 @@ Phases, in order; any failure exits non-zero:
    multinomial family (phase 13's frame) once each; card vs CPU
    coefficients at 65,536 rows within 1e-4 of the largest; the exported
    artifact in MojoModel within 1e-6 of score_numpy;
-21. report — one JSON line of kernel records (B4 with its variants,
+21. efb — gbm_wide_sparse (tools/bench_suite.py:612-687) at 1,000,000
+   rows: tools/datasets.wide_sparse_arrays(n_groups=40, group_card=25,
+   seed=9), F = 1,005; GBM ntrees=5 max_depth=5 learn_rate=0.2 seed=1
+   unbundled (H2O_TPU_EFB=0) then bundled (=1) on the same frame: warm
+   train seconds both ways, planning seconds, F -> Fb, binned MB both
+   ways, varimp top-3; bundled card vs CPU at 65,536 rows through the
+   near-tie walker; DRF ntrees=5 max_depth=8 bundled against unbundled,
+   bitwise (its sums are counts); B1 held at the bundled train's levels
+   and the unbundled root, B3 at the bundled forest's, B4 at the bundled
+   model's depth groups and one contributions call additive to 1e-4;
+22. goss — gbm_goss_10m (:689-765): airlines_arrays at 10,000,000 rows,
+   GBM ntrees=10 max_depth=5 learn_rate=0.2 unsampled then with
+   H2O_TPU_GOSS=1, a = b = 0.1: warm per-tree seconds, histogram rows
+   per level (10,000,000 against the 2,500,064 cap), rows dropped (0),
+   the train AUC delta (recorded against the suite's 0.002, not gated);
+   B1 held at the compacted levels; multi:softprob with GOSS on phase
+   13's frame, B3 held at its levels;
+23. ooc — gbm_higgs_10m (:790-815): higgs_arrays at 10,000,000 rows,
+   GBM ntrees=5 max_depth=6 out of core at the reference's chunk rule
+   (9,464,100 rows, 2 chunks) and at 1,048,576 rows (10 chunks), and in
+   device memory: warm seconds and rows·trees/s, the upload rate from
+   pinned memory against a pageable control, the overlap ratio; a
+   gaussian round on an exactly-half response streamed = resident = in
+   memory, bitwise; the bernoulli models against in memory through the
+   near-tie walker (train AUC within 1e-4); EFB + out-of-core on phase
+   21's frame bitwise to bundled in memory; GOSS + out-of-core
+   compacting the in-memory GOSS weights bitwise; one chunked depth-10
+   tree (B2's partitioned regime on chunk rows, held at level 9); B1
+   held at both chunk grids' levels;
+24. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
-   row partition; the launches of phases 15-20 beside each, B1's levels
-   including the xgboost_hist and lambdarank trains', B4's models the
-   XGBoost one), the card line, and as the last
-   line {"ok": true, "device": {...}}.
+   row partition; the launches of phases 15-23 beside each, B1's levels
+   including the xgboost_hist, lambdarank, bundled, compacted and chunk
+   trains', B4's models the XGBoost and the bundled one), the card
+   line, and as the last line {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
 contrib_numpy, GBM train, DRF train and multinomial train call, of one
@@ -198,6 +228,26 @@ _REQ_ROWS = 4096
 # huber's delta is held to jnp.nanquantile's arithmetic at this many
 # values, past where torch.nanquantile refuses its input
 _HUBER_ROWS = 20_000_000
+# gbm_wide_sparse (tools/bench_suite.py:612-687) at the card's rows:
+# 1,000,000 x (40 one-hot groups of 25 + 5 dense), 5 trees of depth 5,
+# and the forest check's depth; gbm_goss_10m (:689-765): 10,000,000
+# airlines rows, 10 trees; gbm_higgs_10m (:790-815): 10,000,000 HIGGS
+# rows, 5 trees of depth 6, the small chunk grid and the deep tree; warm
+# trains per leg in phases 21-23
+_WS_ROWS = 1_000_000
+_WS_GROUPS = 40
+_WS_CARD = 25
+_WS_TREES = 5
+_WS_DEPTH = 5
+_WS_DRF_DEPTH = 8
+_WS_WARM = 2
+_GOSS_ROWS = 10_000_000
+_GOSS_TREES = 10
+_OOC_ROWS = 10_000_000
+_OOC_TREES = 5
+_OOC_DEPTH = 6
+_OOC_SMALL_CHUNK = 1_048_576
+_OOC_DEEP = 10
 # a histogram cell may be this far from the float64 sum, relative to
 # its Σ|v|: above the kernel's float32 rounding at 1,000,000 rows, below
 # what bf16-rounded values give
@@ -406,18 +456,18 @@ class _LaunchesByC:
         self.op._launch = self.launch
 
 
-def _near_ties(tm, other, frame, y, kw, n_old=0, lam=0.0):
+def _near_ties(tm, other, frame, y, kw, n_old=0, lam=0.0, rel=1e-6):
     """Walk ``tm``'s trees against ``other``'s (tools/torch_tree_parity:
-    a differing decision must be a float64 near-tie, or this raises;
-    ``lam`` the gain's reg_lambda); returns (nodes compared, ties, the
-    largest gap of a compared leaf relative to its tree's largest
-    |leaf|)."""
+    a differing decision must be a float64 near-tie within ``rel`` of
+    the node's G²/H, or this raises; ``lam`` the gain's reg_lambda);
+    returns (nodes compared, ties, the largest gap of a compared leaf
+    relative to its tree's largest |leaf|)."""
     from tools.torch_tree_parity import round_stats, walk
 
     stats, binned = round_stats(tm, frame, y, kw, n_old=n_old)
     try:
         compared, ties, gaps = walk(tm, other, stats, binned, n_old=n_old,
-                                    lam=lam)
+                                    lam=lam, rel=rel)
     except AssertionError as e:
         raise RuntimeError(f"a split differs beyond a near-tie: {e}")
     return compared, ties, float(gaps.max()) if gaps.size else 0.0
@@ -639,11 +689,13 @@ class _LevelBook:
         self.levels, self.sums = {}, {}
 
     def compare(self, train_name, rec, K, B, C, dtype, label, extra=()):
-        """Every level of one kind ``rec`` saw, plus ``extra`` (name,
-        inputs, n_bins, calls) cases, each held and timed; the train's
-        calls x times are summed into ``sums``."""
-        cases = [(f"{label} level {d}", inp, B, calls)
-                 for d, inp, calls in rec.levels(K, B, C, dtype)]
+        """Every level of one kind ``rec`` saw (none when ``rec`` is
+        None), plus ``extra`` (name, inputs, n_bins, calls) cases, each
+        held and timed; the train's calls x times are summed into
+        ``sums``."""
+        cases = [] if rec is None else [
+            (f"{label} level {d}", inp, B, calls)
+            for d, inp, calls in rec.levels(K, B, C, dtype)]
         tot = self.sums.setdefault(train_name, [0, 0.0, 0.0])
         for name, (b, r, v, n), nb, calls in cases + list(extra):
             res = _hist_compare(self.torch, self.hist_op, b, r, v, n, nb,
@@ -1158,6 +1210,679 @@ def _phase_glm(c) -> dict:
             "auc": perf["auc"], "auc_launches": perf_launches,
             "others": others, "parity_coef_rel": coef_rel,
             "mojo_err": mojo_err}
+
+
+class _env:
+    """Environment variables set for a block and restored after it (the
+    training knobs are read at train time)."""
+
+    def __init__(self, **kv):
+        self.kv = {k: str(v) for k, v in kv.items()}
+
+    def __enter__(self):
+        import os
+
+        self.old = {k: os.environ.get(k) for k in self.kv}
+        os.environ.update(self.kv)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _ChunkRecorder:
+    """Keeps the first (binned, rel, vals) an out-of-core train's first
+    tree hands the histogram kernel at each level (chunk 0's) and counts
+    the calls per level over the whole train: the chunked grower calls
+    the kernel once per chunk per level, chunk by chunk, so call i of a
+    tree is level (i // n_chunks) % levels."""
+
+    def __init__(self, hist_op, n_chunks: int, levels: int):
+        self.op, self.kernel = hist_op, hist_op.build_histogram_batched
+        self.n_chunks, self.levels_per_tree = n_chunks, levels
+        self.seen, self.calls, self.i = {}, {}, 0
+
+    def __enter__(self):
+        def record(binned, rel, vals, n_nodes, n_bins):
+            if n_bins == 4096:                 # the train AUC's histogram
+                return self.kernel(binned, rel, vals, n_nodes, n_bins)
+            d = (self.i // self.n_chunks) % self.levels_per_tree
+            self.i += 1
+            self.seen.setdefault(d, (binned, rel, vals, n_nodes))
+            self.calls[d] = self.calls.get(d, 0) + 1
+            return self.kernel(binned, rel, vals, n_nodes, n_bins)
+
+        self.op.build_histogram_batched = record
+        return self
+
+    def __exit__(self, *exc):
+        self.op.build_histogram_batched = self.kernel
+
+    def levels(self, K, n_bins, C, dtype):
+        return sorted((d, v, self.calls[d]) for d, v in self.seen.items())
+
+
+def _masked_equal(torch, a, b) -> bool:
+    """Trees bitwise equal, split_feat/split_bin/na_left compared where
+    a node splits (elsewhere a bundled argmax leaves another unused
+    bin)."""
+    isp = a.is_split
+    if not torch.equal(isp.cpu(), b.is_split.cpu()):
+        return False
+    return all(torch.equal(getattr(a, f)[isp].cpu(),
+                           getattr(b, f)[b.is_split].cpu())
+               for f in ("split_feat", "split_bin", "na_left")) and all(
+        torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+        for f in ("value", "gain", "cover"))
+
+
+def _mirror_walk(a, b) -> tuple[int, int, int]:
+    """Walk two stacked forests from each root while their decisions
+    agree. Where they differ, both must split on one feature into the
+    same two row sets: at another empty bin (children equal: cover and
+    leaf value; the walk goes on below) or mirrored (children swapped;
+    the subtrees are not compared, a per-node mtries draw follows the
+    child's position). Returns (nodes equal, other-bin cuts, mirrored
+    ties); raises on any other difference."""
+    f = {k: getattr(a, k).cpu().numpy() for k in a._fields}
+    g = {k: getattr(b, k).cpu().numpy() for k in b._fields}
+    equal = moved = ties = 0
+    T, N = f["is_split"].shape
+    for t in range(T):
+        todo = [0]
+        while todo:
+            i = todo.pop()
+            fa = (f["is_split"][t, i], f["split_feat"][t, i],
+                  f["split_bin"][t, i], f["na_left"][t, i])
+            fb = (g["is_split"][t, i], g["split_feat"][t, i],
+                  g["split_bin"][t, i], g["na_left"][t, i])
+            if not fa[0] and not fb[0]:
+                equal += int(f["value"][t, i] == g["value"][t, i])
+                continue
+            lo, hi = 2 * i + 1, 2 * i + 2
+            if fa == fb:
+                equal += 1
+                todo += [lo, hi]
+                continue
+            same = fa[0] and fb[0] and fa[1] == fb[1]
+            if same and all(f[k][t, j] == g[k][t, j] for k in ("cover",
+                            "value") for j in (lo, hi)):
+                moved += 1
+                todo += [lo, hi]
+                continue
+            if not (same and all(f[k][t, lo] == g[k][t, hi]
+                                 and f[k][t, hi] == g[k][t, lo]
+                                 for k in ("cover", "value"))):
+                raise RuntimeError(f"tree {t} node {i}: {fa} against {fb} "
+                                   "splits other rows")
+            ties += 1
+    return equal, moved, ties
+
+
+def _phase_efb(c) -> dict:
+    """21. efb: gbm_wide_sparse (tools/bench_suite.py:612-687) at
+    _WS_ROWS rows, F = 1,005 (40 one-hot groups of 25, Zipf-skewed, and
+    5 dense columns): GBM unbundled then bundled, warm train seconds,
+    the plan and its width; card vs CPU bundled at 65,536 rows; DRF
+    bundled against unbundled (counts: bitwise); B1 held at the bundled
+    train's levels and the unbundled root, B3 at the bundled forest's
+    levels, B4 at the bundled model's depth groups. Returns the phase's
+    numbers and keeps the frame in ``c.wframe`` for phase 23."""
+    from h2o_kubernetes_tpu_torch import DRF, GBM, Frame
+    from h2o_kubernetes_tpu_torch.models.tree import core as tree_core
+    from h2o_kubernetes_tpu_torch.models.tree import efb as efb_mod
+    from tools.datasets import wide_sparse_arrays
+
+    torch, hist_op, card, book = c.torch, c.hist_op, c.card, c.book
+    hk, bk = hist_op.LAUNCHES, hist_op.BATCHED_LAUNCHES
+    u8 = torch.uint8
+    t0 = time.perf_counter()
+    cols, dom = wide_sparse_arrays(_WS_ROWS, n_groups=_WS_GROUPS,
+                                   group_card=_WS_CARD, seed=9)
+    # exactly half ones: a gaussian round on it has ±0.5 gradients, and
+    # every histogram sum is exact (phase 23's EFB + out-of-core check)
+    yh = np.zeros(_WS_ROWS, dtype=np.float32)
+    yh[np.random.default_rng(9).permutation(_WS_ROWS)[: _WS_ROWS // 2]] = 1
+    cols["yh"] = yh
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame = Frame.from_arrays(cols, domains=dom)
+    names = [n for n in cols if n not in ("y", "yh")]
+    F, rows = len(names), frame.nrows
+    small = {k: v[:_PARITY_ROWS].copy() for k, v in cols.items()}
+    del cols
+    _log(f"[efb] wide sparse frame {rows} rows x {F} features "
+         f"({_WS_GROUPS} one-hot groups of {_WS_CARD} + dense) generated "
+         f"in {gen_s:.2f}s, on {frame.device} in "
+         f"{time.perf_counter() - t0:.2f}s")
+
+    def fit(fr, mode, ooc="0"):
+        with _env(H2O_TPU_EFB=mode, H2O_TPU_OOC=ooc):
+            return GBM(ntrees=_WS_TREES, max_depth=_WS_DEPTH, learn_rate=0.2,
+                       seed=1).train(y="y", training_frame=fr,
+                                     ignored_columns=["yh"])
+
+    # both legs in device memory (H2O_TPU_OOC=0): under the default
+    # "auto" the unbundled 1,005 MB matrix passes the ~826 MB headroom
+    # the budget leaves and streams out of core (the third leg)
+    legs = {}
+    for mode, ooc, label in (("0", "0", "unbundled"), ("1", "0", "bundled"),
+                             ("0", "auto", "unbundled, defaults")):
+        plan_s = None
+        if mode == "1":
+            with _env(H2O_TPU_EFB="1"):
+                t0 = time.perf_counter()
+                _, plan = efb_mod.fit_plan_cached(frame, names, 256)
+                plan_s = time.perf_counter() - t0
+        with _HistRecorder(hist_op) as rec:
+            t0 = time.perf_counter()
+            fit(frame, mode, ooc)
+            cold = time.perf_counter() - t0
+        hist_op.reset_launches()
+        times, m = _warm_trains(lambda: fit(frame, mode, ooc),
+                                _WS_WARM if ooc == "0" else 1)
+        legs[label] = dict(model=m, rec=rec, cold_s=cold, warm_s=times,
+                           median_s=statistics.median(times),
+                           launches=dict(hk), plan_s=plan_s,
+                           ooc=m.ooc_stats)
+    d = legs.pop("unbundled, defaults")
+    st = d["ooc"]
+    _log(f"[efb] unbundled under the defaults (H2O_TPU_OOC=auto): out of "
+         f"core {st is not None}, {st and st['chunks']} chunks of "
+         f"{st and st['chunk_rows']} rows; first train {d['cold_s']:.3f}s, "
+         f"one more {d['warm_s'][0]:.3f}s (the host chunks are re-binned "
+         f"each train); upload {st and st['upload_gb_per_s']} GB/s, overlap "
+         f"{st and st['overlap_ratio']} [{card}]")
+    if st is None:
+        raise RuntimeError("efb: the unbundled frame did not go out of core "
+                           "under the defaults")
+    del d["rec"]
+    Fb = plan.fb
+    mb = {"unbundled": rows * F / 2 ** 20, "bundled": rows * Fb / 2 ** 20}
+    top = {k: sorted(v["model"].varimp(), key=v["model"].varimp().get)[-3:]
+           for k, v in legs.items()}
+    aucs = {k: v["model"].scoring_history[-1]["train_auc"]
+            for k, v in legs.items()}
+    bundles = sum(1 for kind, _ in plan.cols if kind == "bundle")
+    u, b = legs["unbundled"], legs["bundled"]
+    _log(f"[efb] GBM ntrees={_WS_TREES} max_depth={_WS_DEPTH}: unbundled "
+         f"first train {u['cold_s']:.3f}s, {_WS_WARM} warm "
+         f"{[round(t, 4) for t in u['warm_s']]} s (median "
+         f"{u['median_s']:.4f}s); bundled first train {b['cold_s']:.3f}s "
+         f"after planning {b['plan_s']:.3f}s, {_WS_WARM} warm "
+         f"{[round(t, 4) for t in b['warm_s']]} s (median "
+         f"{b['median_s']:.4f}s) = {u['median_s'] / b['median_s']:.2f}x; "
+         f"F {F} -> Fb {Fb} ({bundles} bundles, {plan.conflicts} conflicts, "
+         f"{len(plan.demoted)} demoted); binned {mb['unbundled']:.1f} MB -> "
+         f"{mb['bundled']:.1f} MB; train_auc {aucs}; varimp top-3 agree "
+         f"{top['unbundled'] == top['bundled']}; histogram launches per "
+         f"{_WS_WARM} trains: unbundled {u['launches']}, bundled "
+         f"{b['launches']} [{card}]")
+    want = _WS_WARM * (_WS_DEPTH * _WS_TREES + 1)
+    if sum(b["launches"].values()) != want or \
+            sum(u["launches"].values()) != want or not 0.5 < aucs[
+                "bundled"] <= 1 or abs(aucs["bundled"] - aucs[
+                    "unbundled"]) > 1e-3:
+        raise RuntimeError(f"efb: launches {u['launches']} / "
+                           f"{b['launches']} (want {want}) or AUCs {aucs}")
+
+    sf_card = Frame.from_arrays(small, domains=dom)
+    sf_cpu = Frame.from_arrays(small, domains=dom, device="cpu")
+    m_card, m_cpu = fit(sf_card, "1"), fit(sf_cpu, "1")
+    compared, ties, leaf_gap = _near_ties(m_card, m_cpu, sf_card, "y",
+                                          {"ignored_columns": ["yh"]})
+    gaps = {k: abs(m_card.scoring_history[-1][k]
+                   - m_cpu.scoring_history[-1][k])
+            for k in ("train_auc", "train_logloss")}
+    # a bundled member's default side is its node's total minus the
+    # member's slots, so a small child's sums carry the f32 rounding of
+    # the node total, which the card's atomics order differently: the
+    # leaves are read, the metrics held (as for the other families)
+    _log(f"[efb] bundled card vs CPU at {_PARITY_ROWS} rows: {compared} "
+         f"nodes equal, {len(ties)} near-ties {ties}, compared leaves "
+         f"within {leaf_gap:.3e} of the tree's largest |leaf|, metric "
+         f"gaps {gaps}")
+    if max(gaps.values()) > 1e-4:
+        raise RuntimeError("efb: card and CPU bundled training disagree")
+
+    def fit_drf(mode):
+        with _env(H2O_TPU_EFB=mode):
+            return DRF(ntrees=_WS_TREES, max_depth=_WS_DRF_DEPTH,
+                       seed=1).train(y="y", training_frame=frame,
+                                     ignored_columns=["yh"])
+
+    hist_op.reset_launches()
+    with _HistRecorder(hist_op) as rec_drf:
+        t0 = time.perf_counter()
+        d_b = fit_drf("1")
+        drf_b_s = time.perf_counter() - t0
+    drf_batched = dict(bk)
+    t0 = time.perf_counter()
+    d_u = fit_drf("0")
+    drf_u_s = time.perf_counter() - t0
+    # a bundle's candidates are its members' used slots, so where the
+    # unbundled argmax picks "NA alone left" (a cut at an empty bin
+    # below the default), the bundled one picks its mirror "every body
+    # bin left, NA right": the same partition, children swapped (the
+    # JAX package's EFB does the same). Below it the per-node mtries
+    # draws follow the swapped positions, so the walk stops there.
+    drf_same = _masked_equal(torch, d_b.trees, d_u.trees)
+    drf_equal, drf_moved, mirrored = _mirror_walk(d_b.trees, d_u.trees)
+    G = tree_core.drf_group_size(_WS_TREES, tree_core.TreeParams(
+        max_depth=_WS_DRF_DEPTH, n_bins=64, unit_hess=True), Fb)[0]
+    _log(f"[efb] DRF ntrees={_WS_TREES} max_depth={_WS_DRF_DEPTH} "
+         f"mtries={d_b.params.mtries}: bundled {drf_b_s:.3f}s (G={G} trees "
+         f"per launch, batched launches {drf_batched}), unbundled "
+         f"{drf_u_s:.3f}s; bundled against unbundled: trees bitwise "
+         f"{drf_same}; {drf_equal} nodes equal from the roots, "
+         f"{drf_moved} the same rows at another empty bin, {mirrored} "
+         f"mirrored (same rows, children swapped), no other difference "
+         f"({int(d_b.trees.is_split.sum())} splits) "
+         f"[{card}]")
+
+    book.compare("efb gbm", b["rec"], 1, 256, 3, u8, "efb d5")
+    (_, root, calls), = [lv for lv in u["rec"].levels(1, 256, 3, u8)
+                         if lv[0] == 0]
+    book.compare("wide gbm root", None, 1, 256, 3, u8, "wide d5",
+                 [("wide d5 level 0", root, 256, calls)])
+    book.compare("efb drf", rec_drf, G, 64, 2, u8, "efb drf")
+    _log_sums(book.sums, ("efb gbm", "wide gbm root", "efb drf"), card)
+    del root, u["rec"], b["rec"], rec_drf
+    torch.cuda.empty_cache()
+
+    mb_ = b["model"]
+    X = mb_._design_matrix(frame)[:_ROWS].cpu().numpy()
+    kern = c.shap_kernel.flat_shap_tab_kernel
+    before = kern.launches
+    p1 = mb_.score_numpy(X)[:, 1].astype(np.float64)
+    phi = mb_.contrib_numpy(X)
+    shap_launches = kern.launches - before
+    add = float(np.abs(phi.astype(np.float64).sum(axis=1)
+                       - np.log(p1 / (1.0 - p1))).max())
+    shap = _shap_compare(torch, c.shap_kernel, mb_, X, "efb gbm", card)
+    # the [rows, F+1] outputs at F = 1,005 cap a dispatch's rows
+    per = mb_._contrib_dispatch()[0]
+    n_disp = -(-X.shape[0] // per)
+    _log(f"[efb] serve the bundled model: {X.shape[0]} rows x {F} "
+         f"features, additivity max |sum(phi) - logit(p1)| = {add:.3e}, "
+         f"shap_tab launches {shap_launches} over "
+         f"{len(shap['groups'])} groups in {n_disp} dispatches of at most "
+         f"{per} rows [{card}]")
+    if add > 1e-4 or shap_launches != n_disp * len(shap["groups"]) or \
+            phi.shape != (X.shape[0], F + 1):
+        raise RuntimeError("efb: serving the bundled model failed")
+    c.wframe, c.wnames = frame, names
+    return {"rows": rows, "features": F, "bundled_width": Fb,
+            "bundles": bundles, "conflicts": plan.conflicts,
+            "demoted": len(plan.demoted), "plan_s": b["plan_s"],
+            "binned_mb": mb, "cold_s": {k: v["cold_s"]
+                                        for k, v in legs.items()},
+            "warm_train_s": {k: v["warm_s"] for k, v in legs.items()},
+            "launches_per_train": {k: {r: n // _WS_WARM for r, n in
+                                       v["launches"].items()}
+                                   for k, v in legs.items()},
+            "train_auc": aucs,
+            "unbundled_defaults": {"cold_s": d["cold_s"],
+                                   "train_s": d["warm_s"], "ooc": st},
+            "varimp_top3_agree": top["unbundled"] == top["bundled"],
+            "parity_nodes": compared, "parity_ties": len(ties),
+            "parity_leaf_gap": leaf_gap, "parity_metric_gaps": gaps,
+            "drf_s": {"bundled": drf_b_s, "unbundled": drf_u_s},
+            "drf_trees_bitwise": drf_same, "drf_nodes_equal": drf_equal,
+            "drf_other_bin_cuts": drf_moved, "drf_mirrored_ties": mirrored,
+            "drf_batched_launches": drf_batched, "drf_group": G,
+            "shap_launches_per_contrib_call": shap_launches,
+            "additivity": add, "shap": shap}
+
+
+def _phase_goss(c) -> dict:
+    """22. goss: gbm_goss_10m (tools/bench_suite.py:689-765):
+    airlines_arrays at _GOSS_ROWS rows (2,000,000-row chunks, seeds
+    10+k, as airlines_frame builds it), GBM ntrees=10 max_depth=5
+    learn_rate=0.2 unsampled then with GOSS a = b = 0.1: warm per-tree
+    seconds, the histogram rows per level, the rows dropped, the train
+    AUC delta (recorded); B1 held at the compacted levels;
+    multi:softprob with GOSS on phase 13's frame (B3 held at its
+    levels)."""
+    from h2o_kubernetes_tpu_torch import GBM, Frame, XGBoost
+    from h2o_kubernetes_tpu_torch.models.tree import core as tree_core
+    from h2o_kubernetes_tpu_torch.models.tree.core import goss_cap_rows
+    from h2o_kubernetes_tpu_torch.runtime import prng
+    from tools.datasets import _chunked_arrays, airlines_arrays
+
+    torch, hist_op, card, book = c.torch, c.hist_op, c.card, c.book
+    hk, bk = hist_op.LAUNCHES, hist_op.BATCHED_LAUNCHES
+    u8 = torch.uint8
+    t0 = time.perf_counter()
+    cols, dom = _chunked_arrays(airlines_arrays, _GOSS_ROWS, 2_000_000,
+                                seed=10)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame = Frame.from_arrays(cols, domains=dom)
+    rows, F = frame.nrows, len(cols) - 1
+    del cols
+    _log(f"[goss] airlines frame {rows} rows x {F} features generated in "
+         f"{gen_s:.2f}s, on {frame.device} in "
+         f"{time.perf_counter() - t0:.2f}s")
+    knobs = dict(H2O_TPU_GOSS_TOP_A="0.1", H2O_TPU_GOSS_RAND_B="0.1")
+
+    def fit(on):
+        with _env(H2O_TPU_GOSS="1" if on else "0", **knobs):
+            return GBM(ntrees=_GOSS_TREES, max_depth=5, learn_rate=0.2,
+                       seed=1).train(y="IsDepDelayed", training_frame=frame)
+
+    legs = {}
+    for on, label in ((False, "unsampled"), (True, "goss")):
+        with _HistRecorder(hist_op) as rec:
+            t0 = time.perf_counter()
+            fit(on)
+            cold = time.perf_counter() - t0
+        hist_op.reset_launches()
+        times, m = _warm_trains(lambda: fit(on), _WS_WARM)
+        legs[label] = dict(model=m, rec=rec, cold_s=cold, warm_s=times,
+                           per_tree_s=statistics.median(times)
+                           / _GOSS_TREES, launches=dict(hk),
+                           auc=m.scoring_history[-1]["train_auc"])
+    cap = goss_cap_rows(rows, 0.1, 0.1)
+    lv_rows = {k: sorted({v[0].shape[1] for _, v, _ in
+                          legs[k]["rec"].levels(1, 256, 3, u8)})
+               for k in legs}
+    g, un = legs["goss"], legs["unsampled"]
+    dropped = g["model"].goss_dropped
+    delta = abs(g["auc"] - un["auc"])
+    _log(f"[goss] GBM ntrees={_GOSS_TREES} max_depth=5 at {rows} rows: "
+         f"unsampled first {un['cold_s']:.3f}s, warm "
+         f"{[round(t, 4) for t in un['warm_s']]} s = "
+         f"{un['per_tree_s']:.4f} s/tree; GOSS a=b=0.1 first "
+         f"{g['cold_s']:.3f}s, warm {[round(t, 4) for t in g['warm_s']]} s "
+         f"= {g['per_tree_s']:.4f} s/tree "
+         f"({un['per_tree_s'] / g['per_tree_s']:.2f}x); histogram rows per "
+         f"level {lv_rows} (cap {cap}); dropped {dropped}; train_auc "
+         f"unsampled {un['auc']:.6f} GOSS {g['auc']:.6f}, delta "
+         f"{delta:.6f} (the suite's acceptance 0.002, recorded); launches "
+         f"per {_WS_WARM} trains {g['launches']} [{card}]")
+    if dropped != 0 or lv_rows["goss"] != [cap] or \
+            lv_rows["unsampled"] != [rows] or \
+            sum(g["launches"].values()) != _WS_WARM * (5 * _GOSS_TREES + 1):
+        raise RuntimeError(f"goss: dropped {dropped}, level rows {lv_rows}, "
+                           f"launches {g['launches']}")
+    book.compare("goss gbm", g["rec"], 1, 256, 3, u8, "goss d5")
+    del un["rec"], g["rec"]
+    # a round's GOSS work on its own, each synced: the amplified weights
+    # (the global stats and two threefry draws a row), the compaction,
+    # and the full-row re-descent of the grown tree
+    binned = frame.binned(g["model"].bin_spec)
+    gen = torch.Generator(device=binned.device).manual_seed(0)
+    gr = torch.randn(rows, device=binned.device, generator=gen)
+    ones = torch.ones_like(gr)
+    bp = tree_core.BoostParams(goss_a=0.1, goss_b=0.1)
+    kg = tree_core.goss_round_keys(prng.key(1, binned.device), 1)[0]
+    w_amp = tree_core.goss_amplified_w(gr, ones, kg, bp)
+    tree0 = tree_core.Tree(*(a[:1] for a in g["model"].trees))
+    part_ms = {
+        "amplified_w": _sync_s(torch, lambda: tree_core.goss_amplified_w(
+            gr, ones, kg, bp), 3) * 1e3,
+        "compact": _sync_s(torch, lambda: tree_core.goss_compact(
+            binned, gr, ones, w_amp, cap), 3) * 1e3,
+        "redescent": _sync_s(torch, lambda: tree_core.descend_trees(
+            tree0, binned, 5, 256), 3) * 1e3}
+    _log(f"[goss] one round's GOSS work at {rows} rows, each alone: "
+         f"{ {k: round(v, 3) for k, v in part_ms.items()} } ms, against "
+         f"{(g['per_tree_s'] - un['per_tree_s']) * 1e3:.3f} ms a tree "
+         f"more than unsampled [{card}]")
+    del binned, gr, ones, w_amp
+
+    def fit_sp():
+        with _env(H2O_TPU_GOSS="1", **knobs):
+            return XGBoost(objective="multi:softprob", ntrees=_MN_TREES,
+                           max_depth=5, learn_rate=0.2, seed=1).train(
+                y="y", training_frame=c.mframe)
+
+    hist_op.reset_launches()
+    with _HistRecorder(hist_op) as rec_sp:
+        t0 = time.perf_counter()
+        sp = fit_sp()
+        sp_s = time.perf_counter() - t0
+    sp_batched = dict(bk)
+    K = sp.nclasses
+    sp_ll = sp.scoring_history[-1]["train_logloss"]
+    _log(f"[goss] multi:softprob with GOSS on {c.mframe.nrows} rows, K={K}: "
+         f"{sp_s:.3f}s (first train), train_logloss {sp_ll:.6f}, batched "
+         f"launches {sp_batched}, dropped {sp.goss_dropped} [{card}]")
+    if sum(sp_batched.values()) != 5 * _MN_TREES or sp.goss_dropped != 0 \
+            or not 0 < sp_ll < np.log(K):
+        raise RuntimeError(f"goss softprob: launches {sp_batched}, "
+                           f"logloss {sp_ll}")
+    book.compare("goss softprob", rec_sp, K, 256, 3, u8, "goss softprob")
+    _log_sums(book.sums, ("goss gbm", "goss softprob"), card)
+    del rec_sp, frame
+    torch.cuda.empty_cache()
+    return {"rows": rows, "features": F, "cap_rows": cap,
+            "hist_rows_per_level": lv_rows, "dropped": dropped,
+            "cold_s": {k: v["cold_s"] for k, v in legs.items()},
+            "warm_train_s": {k: v["warm_s"] for k, v in legs.items()},
+            "per_tree_s": {k: v["per_tree_s"] for k, v in legs.items()},
+            "train_auc": {k: v["auc"] for k, v in legs.items()},
+            "auc_delta": delta,
+            "launches_per_train": {k: {r: n // _WS_WARM for r, n in
+                                       v["launches"].items()}
+                                   for k, v in legs.items()},
+            "goss_round_parts_ms": part_ms,
+            "softprob_s": sp_s, "softprob_batched_launches": sp_batched}
+
+
+def _upload_gbs(torch, nbytes: int) -> dict:
+    """Host-to-device copy rate of ``nbytes`` from pinned memory (the
+    chunk stream's) and from pageable memory (the control), CUDA events
+    around each copy, the median of three."""
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, pin in (("pinned", True), ("pageable", False)):
+        src = torch.ones(nbytes, dtype=torch.uint8, pin_memory=pin)
+        ms = _cuda_ms(torch, lambda: dst.copy_(src, non_blocking=True), 3)
+        out[label] = nbytes / ms / 1e6
+    return out
+
+
+def _phase_ooc(c) -> dict:
+    """23. ooc: gbm_higgs_10m (tools/bench_suite.py:790-815):
+    higgs_arrays at _OOC_ROWS rows (2,000,000-row chunks, seeds 8+k),
+    GBM ntrees=5 max_depth=6 out of core at the reference's chunk rule
+    (2 chunks) and at 1,048,576 rows a chunk (10), and in device memory:
+    warm seconds, rows·trees/s, the upload rate (pinned, and a pageable
+    control) and the overlap ratio; a gaussian round on an exactly-half
+    response streamed = resident = in memory, bitwise; the bernoulli
+    models against the in-memory one through the near-tie walker, train
+    AUC within 1e-4; EFB + out-of-core on phase 21's frame bitwise to
+    bundled in memory; GOSS + out-of-core selecting the in-memory GOSS
+    rows; one chunked depth-10 tree (B2's partitioned regime on chunk
+    rows); B1 held at both chunk grids' levels."""
+    from h2o_kubernetes_tpu_torch import GBM, Frame
+    from h2o_kubernetes_tpu_torch.models.tree import core as tree_core
+    from h2o_kubernetes_tpu_torch.models.tree import ooc as ooc_mod
+    from tools.datasets import _chunked_arrays, higgs_arrays
+
+    torch, hist_op, card, book = c.torch, c.hist_op, c.card, c.book
+    u8 = torch.uint8
+    t0 = time.perf_counter()
+    cols, dom = _chunked_arrays(higgs_arrays, _OOC_ROWS, 2_000_000, seed=8)
+    rows = cols["y"].shape[0]
+    yh = np.zeros(rows, dtype=np.float32)
+    yh[np.random.default_rng(8).permutation(rows)[: rows // 2]] = 1.0
+    cols["yh"] = yh
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame = Frame.from_arrays(cols, domains=dom)
+    F = len(cols) - 2
+    del cols, yh
+    _log(f"[ooc] HIGGS frame {rows} rows x {F} features generated in "
+         f"{gen_s:.2f}s, on {frame.device} in "
+         f"{time.perf_counter() - t0:.2f}s; binned matrix "
+         f"{rows * F / 1e6:.0f} MB")
+
+    def fit(knobs, y="y", **kw):
+        args = dict(ntrees=_OOC_TREES, max_depth=_OOC_DEPTH, seed=1)
+        args.update(kw)
+        with _env(**knobs):
+            return GBM(**args).train(
+                y=y, training_frame=frame,
+                ignored_columns=[n for n in ("y", "yh") if n != y])
+
+    rule = {"H2O_TPU_OOC": "1"}
+    small = {"H2O_TPU_OOC": "1", "H2O_TPU_OOC_CHUNK_ROWS": _OOC_SMALL_CHUNK}
+    legs = {}
+    for label, knobs in (("ooc rule", rule), ("ooc 1M", small),
+                         ("in memory", {"H2O_TPU_OOC": "0"})):
+        n_chunks = None
+        if label != "in memory":
+            tp = tree_core.TreeParams(max_depth=_OOC_DEPTH, n_bins=256)
+            with _env(**knobs):
+                cr = ooc_mod.chunk_rows_for(rows, F, 2 ** 30,
+                                            tree_core.level_hist_bytes(tp, F))
+            n_chunks = -(-rows // cr)
+            rec = _ChunkRecorder(hist_op, n_chunks, _OOC_DEPTH)
+        else:
+            cr, rec = None, _HistRecorder(hist_op)
+        with rec:
+            t0 = time.perf_counter()
+            fit(knobs)
+            cold = time.perf_counter() - t0
+        times, m = _warm_trains(lambda: fit(knobs), _WS_WARM)
+        med = statistics.median(times)
+        legs[label] = dict(model=m, rec=rec, cold_s=cold, warm_s=times,
+                           rate=rows * _OOC_TREES / med, chunk_rows=cr,
+                           chunks=n_chunks, stats=m.ooc_stats,
+                           auc=m.scoring_history[-1]["train_auc"])
+        st = m.ooc_stats
+        _log(f"[ooc] {label}: chunk rows {cr} ({n_chunks} chunks); first "
+             f"train {cold:.3f}s, warm {[round(t, 4) for t in times]} s = "
+             f"{legs[label]['rate']:.0f} rows·trees/s at the median; "
+             f"train_auc {legs[label]['auc']:.6f}; stream "
+             f"{st if st is None else {k: st[k] for k in ('passes', 'upload_ms', 'compute_ms', 'wall_ms', 'upload_gb_per_s', 'overlap_ratio')}}"
+             f" [{card}]")
+        if (st is None) != (label == "in memory") or (
+                st is not None and (st["chunks"] != n_chunks
+                                    or not st["streamed"])):
+            raise RuntimeError(f"ooc {label}: the stream did not run as "
+                               f"set: {st}")
+    up = _upload_gbs(torch, F * legs["ooc 1M"]["chunk_rows"])
+    _log(f"[ooc] upload of one {F} x {_OOC_SMALL_CHUNK} chunk: pinned "
+         f"{up['pinned']:.2f} GB/s, pageable {up['pageable']:.2f} GB/s "
+         f"[{card}]")
+    hbm = legs["in memory"]["model"]
+    walks = {}
+    for label in ("ooc rule", "ooc 1M"):
+        m = legs[label]["model"]
+        # at 10,000,000 rows a histogram cell sums up to ~10^6 float32
+        # values, whose rounding is ~1e-5 of a node's G²/H, and a split's
+        # gain is the small difference of three such terms: ties are
+        # held at 1e-4 of G²/H (1e-6 at the 65,536-row parity slices)
+        compared, ties, leaf_gap = _near_ties(m, hbm, frame, "y",
+                                              {"ignored_columns": ["yh"]},
+                                              rel=1e-4)
+        gap = abs(legs[label]["auc"] - legs["in memory"]["auc"])
+        walks[label] = {"nodes": compared, "ties": len(ties),
+                        "leaf_gap": leaf_gap, "auc_gap": gap}
+        # the card's f32 atomics sum 10,000,000 rows in another order
+        # than the chunks' sum of partial sums: leaves are read, the
+        # structure and the AUC held
+        _log(f"[ooc] {label} vs in memory: {compared} nodes equal, "
+             f"{len(ties)} near-ties {ties}, compared leaves within "
+             f"{leaf_gap:.3e} of the tree's largest |leaf|, train_auc gap "
+             f"{gap:.3e}")
+        if gap > 1e-4:
+            raise RuntimeError(f"ooc {label}: differs from in memory")
+
+    exact = dict(ntrees=1, distribution="gaussian")
+    t_s = fit(small, "yh", **exact).trees
+    t_r = fit(dict(small, H2O_TPU_OOC_RESIDENT="1"), "yh", **exact).trees
+    t_m = fit({"H2O_TPU_OOC": "0"}, "yh", **exact).trees
+    same = [all(torch.equal(a, b) for a, b in zip(t_s, t)) for t in
+            (t_r, t_m)]
+    def fit_wide(knobs):
+        with _env(H2O_TPU_EFB="1", **knobs):
+            return GBM(ntrees=1, max_depth=_WS_DEPTH,
+                       distribution="gaussian", seed=1).train(
+                y="yh", training_frame=c.wframe, ignored_columns=["y"])
+
+    e_ooc = fit_wide({"H2O_TPU_OOC": "1", "H2O_TPU_OOC_CHUNK_ROWS":
+                      -(-c.wframe.nrows // 4)})
+    e_hbm = fit_wide({"H2O_TPU_OOC": "0"})
+    efb_same = all(torch.equal(a, b) for a, b in zip(e_ooc.trees,
+                                                     e_hbm.trees))
+    seen = {"in memory": [], "ooc": []}
+    spies = []
+    for mod, key in ((tree_core, "in memory"), (ooc_mod, "ooc")):
+        real = mod.goss_compact
+
+        def compact(binned, g, h, w_amp, cap, _real=real, _key=key):
+            seen[_key].append(w_amp.clone())
+            return _real(binned, g, h, w_amp, cap)
+        spies.append((mod, real))
+        mod.goss_compact = compact
+    try:
+        goss = dict(H2O_TPU_GOSS="1", H2O_TPU_GOSS_TOP_A="0.1",
+                    H2O_TPU_GOSS_RAND_B="0.1")
+        fit(dict(goss, H2O_TPU_OOC="0"), ntrees=1)
+        fit(dict(goss, **small), ntrees=1)
+    finally:
+        for mod, real in spies:
+            mod.goss_compact = real
+    w_m, w_o = seen["in memory"][0], torch.cat(seen["ooc"])[:rows]
+    goss_same = torch.equal(w_m, w_o)
+    kept = float((w_m > 0).float().mean())
+    del seen, w_m, w_o
+    _log(f"[ooc] exact gaussian round (yh, ±0.5 gradients): streamed == "
+         f"resident {same[0]}, == in memory {same[1]}; EFB + out-of-core "
+         f"on the wide frame == bundled in memory {efb_same} "
+         f"({e_ooc.ooc_stats['chunks']} chunks of Fb columns); GOSS + "
+         f"out-of-core amplified weights == in-memory GOSS {goss_same} "
+         f"({kept:.4f} of the rows kept) [{card}]")
+    if not (all(same) and efb_same and goss_same):
+        raise RuntimeError("ooc: a bitwise check failed")
+
+    hist_op.reset_launches()
+    n_small = legs["ooc 1M"]["chunks"]
+    with _ChunkRecorder(hist_op, n_small, _OOC_DEEP) as rec_deep:
+        t0 = time.perf_counter()
+        deep = fit(small, ntrees=1, max_depth=_OOC_DEEP)
+        deep_s = time.perf_counter() - t0
+    deep_launches = dict(hist_op.LAUNCHES)
+    deep_parts = hist_op.PARTITION_LAUNCHES["row_partition"]
+    _log(f"[ooc] chunked depth-{_OOC_DEEP} tree over {n_small} chunks: "
+         f"{deep_s:.3f}s, launches {deep_launches}, row partitions "
+         f"{deep_parts} [{card}]")
+    if deep_launches["partitioned"] <= 0 or deep_parts <= 0:
+        raise RuntimeError("ooc: the chunked depth-10 tree took no "
+                           "partitioned launch")
+    _, lv9, calls9 = [lv for lv in rec_deep.levels(1, 256, 3, u8)
+                      if lv[0] == _OOC_DEEP - 1][0]
+    book.compare("ooc deep", None, 1, 256, 3, u8, "ooc d10",
+                 [(f"ooc d10 level {_OOC_DEEP - 1}", lv9, 256, calls9)])
+    book.compare("ooc rule", legs["ooc rule"]["rec"], 1, 256, 3, u8,
+                 "ooc rule d6")
+    book.compare("ooc 1M", legs["ooc 1M"]["rec"], 1, 256, 3, u8,
+                 "ooc 1M d6")
+    _log_sums(book.sums, ("ooc rule", "ooc 1M", "ooc deep"), card)
+    res = {"rows": rows, "features": F, "upload_gb_per_s": up,
+           "walks": walks, "exact_bitwise": same, "efb_ooc_bitwise":
+           efb_same, "goss_ooc_same_rows": goss_same, "goss_kept": kept,
+           "deep_s": deep_s, "deep_launches": deep_launches,
+           "deep_partitions": deep_parts,
+           "deep_partitioned_launches": deep_launches["partitioned"]}
+    for label, v in legs.items():
+        res[label] = {k: v[k] for k in ("cold_s", "warm_s", "rate",
+                                        "chunk_rows", "chunks", "stats",
+                                        "auc")}
+    del legs, frame, c.wframe, rec_deep, lv9
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -1896,7 +2621,13 @@ def main() -> int:
     glm_res = _phase_glm(ctx)
     shap["xgboost"] = xgb_res.pop("shap")
 
-    # -- 21. report ----------------------------------------------------------
+    # -- 21-23. efb, goss, out-of-core ---------------------------------------
+    efb_res = _phase_efb(ctx)
+    shap["efb gbm"] = efb_res.pop("shap")
+    goss_res = _phase_goss(ctx)
+    ooc_res = _phase_ooc(ctx)
+
+    # -- 24. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -1940,20 +2671,24 @@ def main() -> int:
              train_launches,
              "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)",
              ("gbm depth 5", "huber depth 5", "xgboost_hist",
-              "lambdarank"),
+              "lambdarank", "efb gbm", "wide gbm root", "goss gbm",
+              "ooc rule", "ooc 1M"),
              lambda k, v: k.startswith(("gbm d5", "huber d5", "auc",
-                                        "xgb d6", "rank d6"))),
+                                        "xgb d6", "rank d6", "efb d5",
+                                        "wide d5", "goss d5", "ooc rule d6",
+                                        "ooc 1M d6"))),
             ("histogram_deep", "gbm d10 level 9",
              deep_launches["partitioned"],
              {"partitioned": deep_launches["partitioned"]},
              "h2o_kubernetes_tpu/ops/histogram.py:300 (_hist_kernel)",
-             ("gbm depth 10",),
-             lambda k, v: k in deep_levels),
+             ("gbm depth 10", "ooc deep"),
+             lambda k, v: k in deep_levels or k == "ooc d10 level 9"),
             ("histogram_batched", "drf level 7",
              sum(drf_batched.values()) + sum(mn_batched.values()),
              {r: drf_batched[r] + mn_batched[r] for r in drf_batched},
              "h2o_kubernetes_tpu/ops/histogram.py:399 (_hist_vmappable)",
-             ("drf", "multinomial"), lambda k, v: v["K"] > 1)):
+             ("drf", "multinomial", "efb drf", "goss softprob"),
+             lambda k, v: v["K"] > 1)):
         res = levels[level]
         held = {k: v for k, v in levels.items() if keep(k, v)}
         records.append({
@@ -2004,6 +2739,21 @@ def main() -> int:
         "train_s": xgb_res["softprob_train_s"],
         "batched_launches_per_train":
             xgb_res["softprob_batched_launches_per_train"]}
+    # phases 21-23, each path's launches counted from zero around its run
+    records[0]["launches_per_contrib_call"]["efb gbm"] = \
+        efb_res["shap_launches_per_contrib_call"]
+    records[1]["efb"] = {k: v for k, v in efb_res.items()
+                         if not k.startswith("drf")}
+    records[1]["goss"] = {k: v for k, v in goss_res.items()
+                          if not k.startswith("softprob")}
+    records[1]["ooc"] = {k: v for k, v in ooc_res.items()
+                         if not k.startswith("deep")}
+    records[2]["ooc_deep"] = {k: v for k, v in ooc_res.items()
+                              if k.startswith("deep")}
+    records[3]["efb_drf"] = {k: v for k, v in efb_res.items()
+                             if k.startswith("drf")}
+    records[3]["goss_softprob"] = {k: v for k, v in goss_res.items()
+                                   if k.startswith("softprob")}
     _log(json.dumps({"kernels": records}))
     _log(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,16 @@ dispatches on the tensor's device (ops/histogram.py).
 |---|---|---|
 | H2O_TPU_NBINS | 256 | default histogram bins per feature (incl. the NA bin) for the tree learners, in [4, 256] (models/gbm.py) |
 | H2O_TPU_HIST_BYTES_BUDGET | 2³⁰ | deep-tree level-histogram memory budget: a GBM whose deepest level's histograms need more raises up front (models/gbm.py) |
+| H2O_TPU_EFB | auto | Exclusive Feature Bundling: 0 off, 1 plan at any width and keep any shrink, auto plan frames of >= H2O_TPU_EFB_MIN_F features and keep a plan whose bundled width Fb <= H2O_TPU_EFB_MIN_SHRINK · F (models/tree/efb.py) |
+| H2O_TPU_EFB_CONFLICT | 0 | fraction of rows two members of one bundle may both claim (first member wins); 0 = exact exclusivity; a member past it on the full data is demoted to its own column (models/tree/efb.py) |
+| H2O_TPU_EFB_MIN_F | 64 | auto mode's width floor: narrower frames are never planned (models/tree/efb.py) |
+| H2O_TPU_EFB_MIN_SHRINK | 0.75 | auto mode keeps a plan only when Fb <= this · F (models/tree/efb.py) |
+| H2O_TPU_GOSS | 0 | 1 = gradient-based one-side sampling for boosted trees (GBM, pointwise XGBoost): per round the top-a rows by |g| plus a seeded b of the rest, amplified by (1-a)/b; DRF and rank:* never sample (models/gbm.py `goss_params`) |
+| H2O_TPU_GOSS_TOP_A | 0.1 | GOSS's a, in [0, 1) (models/gbm.py) |
+| H2O_TPU_GOSS_RAND_B | 0.1 | GOSS's b, in (0, 1], a + b <= 1 (models/gbm.py) |
+| H2O_TPU_OOC | auto | out-of-core boosting: 1 force (where eligible), 0 off, auto when the uint8 binned matrix passes the headroom H2O_TPU_HIST_BYTES_BUDGET leaves after the level histograms; multinomial, DRF, huber, checkpoints, score_every, row/column sampling and mtries stay in device memory (models/gbm.py `_ooc_chunk_rows`) |
+| H2O_TPU_OOC_CHUNK_ROWS | unset | rows per streamed chunk; unset: a quarter of the budget's headroom over F, at least 1 MiB of codes (models/tree/ooc.py `chunk_rows_for`) |
+| H2O_TPU_OOC_RESIDENT | 0 | 1 keeps the out-of-core chunks on the device instead of streaming them from pinned host memory (the streamed = resident check; models/tree/ooc.py) |
 | H2O_TPU_SCORE_BATCH_US | 2000 | REST scoring micro-batcher window, µs; 0 = dispatch immediately (rest.py) |
 | H2O_TPU_SCORE_TIMEOUT | 60 | seconds a scoring request may wait for its micro-batched result before 503 (rest.py) |
 | H2O_TPU_SCORE_QUEUE_MAX | 256 | scoring admission-queue bound: requests past it are load-shed with 429 + Retry-After; <=0 unbounded (rest.py) |

@@ -15,7 +15,8 @@ JAX package's schedule: a seeded forest equals the JAX package's
 grown on a one-row-shard mesh, whatever G is. ``checkpoint=<forest>``
 grows a forest on to ``ntrees`` trees, walking the schedule from the
 checkpoint's tree count; an offset column is refused, as in the JAX
-package.
+package. Exclusive Feature Bundling (``H2O_TPU_EFB``) applies to forests
+as to GBM; GOSS never does: a forest stays bagged.
 """
 
 from __future__ import annotations

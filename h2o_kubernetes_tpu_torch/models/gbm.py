@@ -17,13 +17,20 @@ checkpoint continuation (``checkpoint=<model>``, ``ntrees`` the total).
 Every random draw is the JAX package's (``runtime/prng.py``), keyed by
 the JAX package's schedule, so a seeded model grows the same trees.
 Models add ``predict_leaf_node_assignment`` and the float64 host
-``predict_contributions`` on a Frame. GOSS, EFB, out-of-core boosting,
-``score_every`` and cross-validation raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+``predict_contributions`` on a Frame.
+
+The JAX package's training knobs, read at train time: GOSS
+(``H2O_TPU_GOSS``, ``goss_params``), Exclusive Feature Bundling
+(``H2O_TPU_EFB``, ``tree/efb.py``; ``auto`` bundles frames of 64
+features or more where it shrinks them) and out-of-core boosting
+(``H2O_TPU_OOC``, ``_ooc_chunk_rows``, ``tree/ooc.py``). ``score_every``
+and cross-validation raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 from typing import Sequence
@@ -35,11 +42,13 @@ from ..config import default_nbins, hist_bytes_budget
 from ..operator.registry import FlatTreeScorer
 from ..runtime import prng
 from .base import TrainData, resolve_xy
-from .tree.binning import BinSpec, fused_fit_bins
+from .tree import efb as efb_mod
+from .tree.binning import BinSpec, fit_bins, fused_fit_bins
 from .tree.core import (BoostParams, Tree, TreeParams, boost_trees,
                         boost_trees_drf, boost_trees_multi, descend_trees,
                         draws_random, drf_group_size, flatten_cover,
-                        flatten_trees, level_hist_bytes, stack_predict)
+                        flatten_trees, goss_round_keys, level_hist_bytes,
+                        stack_predict)
 
 __all__ = ["GBM", "GBMModel", "GBMParams", "gbm_model_from_arrays"]
 
@@ -92,12 +101,32 @@ def _make_tree_params(p: GBMParams, distribution: str) -> TreeParams:
                       mtries=p.mtries)
 
 
+def goss_params(p: GBMParams, distribution: str) -> tuple[float, float]:
+    """(top_a, rand_b) of GOSS, or (0.0, 0.0) when off: on under
+    ``H2O_TPU_GOSS=1`` for boosted trees (GBM, pointwise XGBoost); DRF
+    stays bagged and rank:* objectives never sample. The knobs are read
+    at train time and checked as the JAX package checks them."""
+    if p._drf_mode or distribution.startswith("rank:"):
+        return 0.0, 0.0
+    if os.environ.get("H2O_TPU_GOSS", "0") != "1":
+        return 0.0, 0.0
+    a = float(os.environ.get("H2O_TPU_GOSS_TOP_A", "0.1"))
+    b = float(os.environ.get("H2O_TPU_GOSS_RAND_B", "0.1"))
+    if not (0.0 <= a < 1.0 and 0.0 < b <= 1.0 and a + b <= 1.0):
+        raise ValueError(
+            f"bad GOSS knobs: H2O_TPU_GOSS_TOP_A={a} / "
+            f"H2O_TPU_GOSS_RAND_B={b} — need 0 <= a < 1, 0 < b, "
+            "a + b <= 1")
+    return a, b
+
+
 def _make_boost_params(p: GBMParams, distribution: str) -> BoostParams:
+    goss_a, goss_b = goss_params(p, distribution)
     return BoostParams(distribution=distribution,
                        learn_rate=1.0 if p._drf_mode else p.learn_rate,
                        sample_rate=p.sample_rate,
                        col_sample_rate_per_tree=p.col_sample_rate_per_tree,
-                       drf_mode=p._drf_mode)
+                       drf_mode=p._drf_mode, goss_a=goss_a, goss_b=goss_b)
 
 
 def _chunk_sizes(p: GBMParams, rows: int, F: int, K: int,
@@ -132,11 +161,52 @@ def _unported(p: GBMParams) -> str | None:
     """The first option this port does not train, with its ROADMAP item."""
     if p.score_every:
         return "score_every (ROADMAP Queue 1 item 11)"
-    for env, what in (("H2O_TPU_GOSS", "GOSS"), ("H2O_TPU_EFB", "EFB"),
-                      ("H2O_TPU_OOC", "out-of-core boosting")):
-        if os.environ.get(env) == "1":
-            return f"{what} ({env}=1; ROADMAP Queue 1 item 9)"
     return None
+
+
+def _ooc_chunk_rows(p: GBMParams, data: TrainData, K: int, F: int,
+                    hist_bytes: int, budget: float, ckpt) -> int | None:
+    """Rows per chunk when out-of-core boosting engages, else None.
+    ``H2O_TPU_OOC=1`` forces it where eligible, ``0`` turns it off, and
+    otherwise it engages when the uint8 binned matrix (rows x F, the
+    bundled width under EFB) passes the headroom the histogram budget
+    leaves after the level histograms. Eligible is pointwise
+    single-output boosting: multinomial, DRF, huber, checkpoints,
+    score_every, row and column sampling and mtries stay in device
+    memory, as in the JAX package."""
+    env = os.environ.get("H2O_TPU_OOC", "auto")
+    if env == "0":
+        return None
+    if K != 1 or p._drf_mode or ckpt is not None or \
+            data.distribution == "huber" or p.score_every or \
+            p.sample_rate < 1.0 or p.col_sample_rate_per_tree < 1.0 \
+            or p.mtries > 0:
+        return None
+    rows = data.y.shape[0]
+    if env != "1" and rows * F <= max(budget - hist_bytes, 0):
+        return None
+    from .tree.ooc import chunk_rows_for
+
+    return chunk_rows_for(rows, F, budget, hist_bytes)
+
+
+def _warn_goss_overflow(dropped: int) -> None:
+    """A loud notice that GOSS compaction dropped selected rows: the
+    static buffer is sized for the expected a+b fraction, and a frame
+    whose row order follows |g| can select more than that into one
+    buffer (an out-of-core chunk). The dropped rows are the high-|g|
+    ones GOSS keeps, and the chunked and in-memory paths then differ."""
+    if dropped <= 0:
+        return
+    logging.getLogger("h2o_kubernetes_tpu_torch").warning(
+        "GOSS compaction overflow: %d selected row contributions were "
+        "dropped because the rows (or an out-of-core chunk) selected "
+        "more rows than the static capacity (sized for the expected "
+        "a+b fraction). "
+        "The row order likely correlates with |gradient| — shuffle "
+        "the training frame, or raise H2O_TPU_GOSS_TOP_A/"
+        "H2O_TPU_GOSS_RAND_B so the capacity covers the clustering.",
+        dropped)
 
 
 def _init_margin(y, w, off, dist: str, K: int):
@@ -275,6 +345,11 @@ class GBMModel(FlatTreeScorer):
         self.trees = trees
         self.scoring_history: list[dict] = []
         self.validation_metrics: dict | None = None
+        # an out-of-core train's stream sums (ooc.BinnedChunks.
+        # stream_stats), None when the binned matrix stayed on the device
+        self.ooc_stats: dict | None = None
+        # GOSS rows dropped past the compaction buffers (None: no GOSS)
+        self.goss_dropped: int | None = None
         self._varimp = _stacked_varimp(trees, data.feature_names)
 
     def varimp(self) -> dict[str, float]:
@@ -441,35 +516,66 @@ class GBM:
             _check_checkpoint(ckpt, p, data, K, offset_column)
         tp = _make_tree_params(p, dist)
         F = len(data.feature_names)
+        dev = training_frame.device
+        # GOSS first: a bad knob or a sample_rate < 1 fails before any
+        # binning. Its per-round keys come from the seed outside the
+        # round-key schedule, indexed by global round.
+        bp = _make_boost_params(p, dist)
+        if bp.goss_b > 0 and p.sample_rate < 1.0:
+            raise ValueError(
+                "H2O_TPU_GOSS replaces row subsampling — train with "
+                f"sample_rate=1.0 (got {p.sample_rate}) or disable "
+                "the GOSS knob")
+        goss_keys = None if bp.goss_b <= 0 else goss_round_keys(
+            prng.key(p.seed, dev), p.ntrees)[start_t:]
+        # then the EFB plan: histograms, the budget and the out-of-core
+        # gate run at the bundled width F_eff
+        bin_spec = efb_plan = efb = None
+        F_eff = F
+        if efb_mod.efb_eligible(F, ckpt):
+            bin_spec, efb_plan = efb_mod.fit_plan_cached(
+                training_frame, data.feature_names, p.nbins)
+            if efb_plan is not None:
+                efb = efb_plan.device_luts()
+                F_eff = efb_plan.fb
         # the JAX package's validation: K class trees' histograms are
         # live at once while they fit 2^30 bytes (it grows them one by
         # one past that; the port grows them in groups, drf_group_size)
-        need, budget = level_hist_bytes(tp, F), hist_bytes_budget()
+        need, budget = level_hist_bytes(tp, F_eff), hist_bytes_budget()
         if K > 1 and K * need <= 2 ** 30:
             need *= K
         if need > budget:
             raise ValueError(
-                f"max_depth={p.max_depth} with {F} histogram columns x "
+                f"max_depth={p.max_depth} with {F_eff} histogram columns x "
                 f"{p.nbins} bins needs ~{need / 2 ** 20:.0f} MiB of level "
                 f"histograms (> budget {budget / 2 ** 20:.0f} MiB). Lower "
                 "max_depth or nbins, drop features, or raise "
                 "H2O_TPU_HIST_BYTES_BUDGET if the device has room.")
-        dev = training_frame.device
-        if ckpt is None:
-            bin_spec, binned = fused_fit_bins(training_frame,
-                                              data.feature_names, p.nbins)
-        else:
+        ooc_chunk = _ooc_chunk_rows(p, data, K, F_eff, need, budget, ckpt)
+        binned = None
+        if ckpt is not None:
             # the checkpoint's bins, applied, so old and new trees compose
             spec = ckpt.bin_spec
             bin_spec = BinSpec(list(spec.names), list(spec.is_enum),
                                spec.n_bins, spec.edges_matrix().to(dev))
             binned = training_frame.binned(bin_spec)
+        elif efb_plan is not None:
+            if ooc_chunk is None:
+                binned = efb_plan.binned_device()
+        elif bin_spec is None and ooc_chunk is None:
+            bin_spec, binned = fused_fit_bins(training_frame,
+                                              data.feature_names, p.nbins)
+        else:
+            if bin_spec is None:
+                bin_spec = fit_bins(training_frame, data.feature_names,
+                                    p.nbins)
+            if ooc_chunk is None:
+                binned = training_frame.binned(bin_spec)
         rows = data.y.shape[0]
-        bp = _make_boost_params(p, dist)
-        keys = _round_keys(p, rows, F, K, dev, start_t) \
+        keys = _round_keys(p, rows, F_eff, K, dev, start_t) \
             if draws_random(tp, bp, F) else None
         n_new = p.ntrees - start_t
-        G = drf_group_size(K, tp, F)[0]
+        G = drf_group_size(K, tp, F_eff)[0]
         off = data.offset if data.offset is not None \
             else torch.zeros_like(data.y)
         margin_scale = 1.0
@@ -480,11 +586,11 @@ class GBM:
             init = np.zeros(K, dtype=np.float32) if K > 1 else 0.0
             if K == 1:
                 trees = boost_trees_drf(binned, data.y, data.w, n_new, tp,
-                                        bp, keys)
+                                        bp, keys, efb)
             else:
                 trees = boost_trees_multi(
                     binned, data.y, data.w, None, n_new, K, tp, bp, G,
-                    keys)[1]
+                    keys, efb)[1]
         else:
             if ckpt is not None:
                 init, margin = self._checkpoint_margin(
@@ -501,13 +607,24 @@ class GBM:
                 margin = torch.zeros_like(data.y)
             else:
                 init, margin = _init_margin(data.y, data.w, off, dist, K)
-            if K == 1:
-                margin, trees = boost_trees(binned, data.y, data.w, margin,
-                                            n_new, tp, bp, keys)
+            if ooc_chunk is not None:
+                from .tree.ooc import boost_trees_chunked, make_chunks
+
+                cks = make_chunks(training_frame, bin_spec, data.y, data.w,
+                                  margin, ooc_chunk, plan=efb_plan)
+                margin, trees, dropped, ooc_stats = boost_trees_chunked(
+                    cks, n_new, tp, bp, efb, goss_keys)
+            elif K == 1:
+                margin, trees, dropped = boost_trees(
+                    binned, data.y, data.w, margin, n_new, tp, bp, keys,
+                    efb, goss_keys)
             else:
-                margin, trees = boost_trees_multi(
+                margin, trees, dropped = boost_trees_multi(
                     binned, data.y, data.w, margin, n_new, K, tp, bp, G,
-                    keys)
+                    keys, efb, goss_keys)
+            if dropped is not None:
+                dropped = int(dropped)
+                _warn_goss_overflow(dropped)
             if isinstance(init, torch.Tensor):
                 init = init.cpu().numpy() if K > 1 else float(init)
             if not np.isfinite(init).all():
@@ -517,6 +634,10 @@ class GBM:
             trees = Tree(*(torch.cat([a, b]) for a, b in zip(old, trees)))
         model = self.model_cls(data, p, bin_spec, trees, init, offset_column,
                                margin_scale=margin_scale)
+        if ooc_chunk is not None:
+            model.ooc_stats = ooc_stats
+        if bp.goss_b > 0 and not p._drf_mode:
+            model.goss_dropped = dropped
         if p._drf_mode:
             perf = model.model_performance(training_frame, y)
             model.scoring_history = [{"ntrees": p.ntrees, **{

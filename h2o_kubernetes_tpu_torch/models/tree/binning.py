@@ -26,11 +26,14 @@ import torch
 from ...runtime import prng
 
 __all__ = ["BinSpec", "fit_bins", "apply_bins", "bin_frame",
-           "fused_fit_bins"]
+           "fused_fit_bins", "bin_frame_host_chunks", "host_codes_block"]
 
 # above this many rows the quantile edges come from a uniform row sample
 _QUANTILE_SAMPLE = 1 << 16
 _SAMPLE_SEED = 0x51BB
+# columns binned per device pass of ``host_codes_block``: a 128-column
+# block of 1,000,000 rows is a 128 MB uint8 transient
+_CODES_BLOCK = 128
 
 
 @dataclass
@@ -190,3 +193,52 @@ def fused_fit_bins(frame, feature_names: list[str], n_bins: int = 256
         hit = (spec, bin_frame(frame, spec))
         frame.cache_put(key, hit)
     return hit
+
+
+def host_codes_block(frame, bin_spec: BinSpec, js, rows: int | None = None
+                     ) -> np.ndarray:
+    """Bin codes of features ``js`` (indices into ``bin_spec``) as a
+    host uint8 [len(js), rows] block, feature-major: ``_CODES_BLOCK``
+    columns at a time are binned on the frame's device and copied to the
+    host together, so a wide frame never holds a dense [F, rows] matrix
+    on the device. ``rows`` keeps the first rows only (the EFB
+    planner's sample)."""
+    edges = bin_spec.edges_matrix()
+    js = list(js)
+    n = frame.nrows if rows is None else rows
+    out = np.empty((len(js), n), dtype=np.uint8)
+    for lo in range(0, len(js), _CODES_BLOCK):
+        blk = js[lo: lo + _CODES_BLOCK]
+        codes = torch.stack([
+            apply_bins(frame.vec(bin_spec.names[j]).as_float()[:n]
+                       .contiguous(), edges[j], bin_spec.is_enum[j],
+                       bin_spec.na_bin) for j in blk])
+        out[lo: lo + len(blk)] = codes.cpu().numpy()
+    return out
+
+
+def bin_frame_host_chunks(frame, bin_spec: BinSpec, chunk_rows: int,
+                          pin_memory: bool = False) -> list[torch.Tensor]:
+    """The binned matrix as host row chunks for out-of-core training:
+    each chunk its own contiguous [F, chunk_rows] uint8 tensor (pinned
+    with ``pin_memory``, so a copy to the card can overlap other work),
+    allocated once. Columns are binned one at a time on the frame's
+    device and copied to the host, so the device holds one float32 and
+    one uint8 column at a time. Chunk c holds rows [c·chunk_rows,
+    (c+1)·chunk_rows) of ``bin_frame``'s output; rows past the frame's
+    end get the NA bin (their weight is 0 downstream)."""
+    names = bin_spec.names
+    edges = bin_spec.edges_matrix()
+    rows = frame.nrows
+    n_chunks = -(-rows // chunk_rows)
+    bufs = [torch.full((len(names), chunk_rows), bin_spec.na_bin,
+                       dtype=torch.uint8, pin_memory=pin_memory)
+            for _ in range(n_chunks)]
+    for j, name in enumerate(names):
+        b = apply_bins(frame.vec(name).as_float(), edges[j],
+                       bin_spec.is_enum[j], bin_spec.na_bin).cpu()
+        for c in range(n_chunks):
+            lo = c * chunk_rows
+            hi = min(lo + chunk_rows, rows)
+            bufs[c][j, : hi - lo] = b[lo:hi]
+    return bufs

@@ -19,6 +19,23 @@ Split semantics: ``bin <= split_bin`` goes left; the NA bin is the last
 bin and ``na_left`` records the learned NA direction. The binned matrix
 is feature-major, [F, rows] uint8.
 
+Exclusive Feature Bundling (``efb``, an ``efb.EFBLuts``): the binned
+matrix is then the bundled one, [Fb, rows], and so are the histograms;
+``_find_splits_efb`` scores every bundle slot as the original (feature,
+bin) cut it encodes and returns the winner decoded, and
+``row_orig_bins`` decodes a row's slot back to its original bin, so
+trees never name a bundle. Column masks and ``mtries`` stay in the
+original feature space.
+
+GOSS (``BoostParams.goss_b > 0``): per round the rows are ranked by
+|g| through layout-invariant global statistics (the max and an int32
+count histogram) and a per-row threefry draw keyed by (round key, row
+id); the selected rows, their weights amplified, are compacted into a
+static [F, cap] buffer on the device (a cumsum-position scatter, no
+host sync), the tree grows over that buffer, and every row re-descends
+the tree for the margin update. The chunked out-of-core path
+(``ooc.py``) picks the same rows.
+
 The JAX package sums each level's histograms over its row shards
 (``lax.psum``); the port sums on one device in another f32 order, so
 trees agree bitwise only where every sum is exact (dyadic gradients and
@@ -48,7 +65,10 @@ __all__ = ["TreeParams", "Tree", "BoostParams", "grow_tree",
            "draws_random", "drf_group_size", "level_hist_bytes", "descend_tree",
            "descend_trees", "stack_predict", "huber_delta",
            "predict_tree", "flatten_trees",
-           "flatten_cover", "FlatTrees", "flat_margin"]
+           "flatten_cover", "FlatTrees", "flat_margin", "row_orig_bins",
+           "goss_round_keys", "goss_cap_rows", "goss_rank_stat",
+           "goss_local_counts", "goss_threshold", "goss_row_factor",
+           "goss_amplified_w", "goss_compact"]
 
 # rounds descended together: bounds the [rounds·K, rows] int64 node
 # cursor of one block on very large ensembles
@@ -107,8 +127,9 @@ def _split_gains(left, tot4, p: TreeParams):
     return torch.where(ok, raw, float("-inf"))
 
 
-def _find_splits(hist, p: TreeParams, feat_ok=None):
-    """Best split per node from a [n_nodes, F, B, 3] histogram.
+def _find_splits(hist, p: TreeParams, feat_ok=None, efb=None):
+    """Best split per node from a [n_nodes, F, B, 3] histogram (with
+    ``efb``, a bundled [n_nodes, Fb, B, 3] one: ``_find_splits_efb``).
 
     Every (feature, threshold-bin) cut is scored with the NA bin (last)
     on each side in turn, over the features ``feat_ok`` ([n_nodes, F]
@@ -117,6 +138,8 @@ def _find_splits(hist, p: TreeParams, feat_ok=None):
     na_left, can_split, node_value, best_gain, cover, left, right);
     left/right are the chosen split's side totals [n, 3], which are the
     children's node totals."""
+    if efb is not None:
+        return _find_splits_efb(hist, p, efb, feat_ok)
     nb = hist.shape[2]
     na = hist[:, :, nb - 1, :]                          # [n, F, 3]
     cum = torch.cumsum(hist[:, :, : nb - 1, :], dim=2)  # left, NA excluded
@@ -150,9 +173,92 @@ def _find_splits(hist, p: TreeParams, feat_ok=None):
             C, left, right)
 
 
-def row_orig_bins(binned, f, rows):
-    """Per-row bin of per-row feature ``f`` from the [F, rows] matrix."""
-    return binned[f.long(), rows].to(torch.int32)
+def _find_splits_efb(hist, p: TreeParams, efb, feat_ok):
+    """Split finding on a bundled [n_nodes, Fb, B, 3] histogram: every
+    candidate slot is scored as the original (feature, threshold-bin)
+    cut it encodes, and the winner comes back decoded. The candidates
+    and their tie order (original feature-major, bin-minor, through
+    ``efb.perm``) are ``_find_splits``'s; a passthrough column's gains
+    are its unbundled ones; a bundled member's default-bin mass is the
+    node total minus the member's own slots (exact under zero
+    conflicts, so bitwise to the unbundled split where the sums are
+    exact, within f32 rounding elsewhere). ``feat_ok`` is [n, F] in the
+    original feature space."""
+    nb = hist.shape[2]
+    n, Fb = hist.shape[0], hist.shape[1]
+    S = nb - 1
+    sf = efb.slot_feat[:, :S].long()                     # [Fb, S]
+    sb = efb.slot_bin[:, :S]
+    body_mask = (efb.slot_feat >= 0) & (efb.slot_bin < nb - 1)  # [Fb, nb]
+    bm = body_mask.to(hist.dtype)
+    body = hist[:, :, :S, :] * bm[None, :, :S, None]
+    cum = torch.cumsum(body, dim=2)                      # [n, Fb, S, 3]
+    # node totals from column 0: its body cumsum tail plus its non-body
+    # mass (the default slot and the members' NA slots; for a
+    # passthrough column only its NA bin)
+    nonbody0 = (~body_mask[0]).to(hist.dtype)
+    totn = cum[:, 0, -1, :] + torch.sum(
+        hist[:, 0, :, :] * nonbody0[None, :, None], dim=1)     # [n, 3]
+    tot4 = totn[:, None, None, :]
+
+    def take(a, idx):                                    # idx [Fb, S]
+        return a.gather(2, idx.long()[None, :, :, None].expand(
+            n, Fb, S, 3))
+    na_c = take(hist, efb.na_slot[:, :S])                # [n, Fb, S, 3]
+    mstart = efb.mstart[:, :S]
+    pre = take(cum, torch.clamp(mstart - 1, min=0))
+    started = (mstart > 0)[None, :, :, None]
+    mleft = torch.where(started, cum - pre, cum)
+    mtot = take(cum, efb.mend[:, :S])
+    mtot = torch.where(started, mtot - pre, mtot)
+    has_rem = efb.has_rem[:, :S]
+    rem = torch.where(has_rem[None, :, :, None], tot4 - (mtot + na_c), 0.0)
+    add_rem = has_rem & (sb >= efb.dbin[:, :S])
+    left = mleft + torch.where(add_rem[None, :, :, None], rem, 0.0)
+
+    gain_na_r = _split_gains(left, tot4, p)              # NA goes right
+    gain_na_l = _split_gains(left + na_c, tot4, p)       # NA goes left
+    na_left_better = gain_na_l > gain_na_r
+    gain = torch.maximum(gain_na_l, gain_na_r)           # [n, Fb, S]
+    ok = body_mask[None, :, :S].expand(n, Fb, S)
+    if feat_ok is not None:
+        ok = ok & feat_ok[:, sf.clamp(min=0).reshape(-1)].reshape(n, Fb, S)
+    gain = torch.where(ok, gain, float("-inf"))
+    perm = efb.perm.long()
+    flat = gain.reshape(n, Fb * S)[:, perm]              # (feat, bin) order
+    best_rank = torch.argmax(flat, dim=1)
+    best_gain = flat.gather(1, best_rank[:, None])[:, 0]
+    best = perm[best_rank]                               # flat (col, slot)
+    feat = sf.reshape(-1)[best].clamp(min=0).to(torch.int32)
+    bin_ = sb.reshape(-1)[best].clamp(0, nb - 2).to(torch.int32)
+    na_l = na_left_better.reshape(n, -1).gather(1, best[:, None])[:, 0]
+
+    def pick(l4):                                        # -> [n, 3]
+        return l4.reshape(n, Fb * S, 3).gather(
+            1, best[:, None, None].expand(-1, 1, 3))[:, 0]
+    left_w = torch.where(na_l[:, None], pick(left + na_c), pick(left))
+    right_w = totn - left_w
+    G, H, C = totn[:, 0], totn[:, 1], totn[:, 2]
+    can_split = (best_gain > p.gamma) & (C >= 2 * p.min_rows) & \
+        torch.isfinite(best_gain)
+    return (feat, bin_, na_l, can_split, _leaf_value(G, H, p), best_gain,
+            C, left_w, right_w)
+
+
+def row_orig_bins(binned, f, rows, efb=None):
+    """Per-row original-space bin of per-row feature ``f`` (any shape
+    broadcasting against ``rows``) from the [F, rows] matrix; with
+    ``efb`` from the bundled [Fb, rows] one: the row's slot in f's
+    bundle column, decoded (a slot of another member is f's default
+    bin; a member's NA slot decodes to the NA bin)."""
+    f = f.long()
+    if efb is None:
+        return binned[f, rows].to(torch.int32)
+    col = efb.feat_col[f].long()
+    s = binned[col, rows].long()
+    sf = efb.slot_feat[col, s]
+    sb = efb.slot_bin[col, s]
+    return torch.where(sf == f, sb, efb.feat_default[f]).to(torch.int32)
 
 
 def _hist(binned, rel, g, h, w, n_nodes, n_bins, p: TreeParams):
@@ -182,7 +288,8 @@ def _feat_ok(col_mask, keys, d: int, n_nodes: int, F: int,
     return ok
 
 
-def _grow_trees(binned, g, h, w, p: TreeParams, keys=None, col_mask=None):
+def _grow_trees(binned, g, h, w, p: TreeParams, keys=None, col_mask=None,
+                efb=None):
     """T trees at once over all rows -> (Tree [T, N], leaf [T, rows]):
     ``leaf`` is each row's final heap index per tree, so the boosting
     loop reads ``tree.value[leaf]`` instead of re-descending.
@@ -190,6 +297,8 @@ def _grow_trees(binned, g, h, w, p: TreeParams, keys=None, col_mask=None):
     g, h, w: [T, rows], or [rows] shared by every tree (broadcast).
     keys: [T, 2] per-tree threefry keys, needed when ``p.mtries`` is in
     (0, F); col_mask: [T, F] bool per-tree column sample, or None.
+    efb: bundle LUTs when ``binned`` is the bundled [Fb, rows] matrix
+    (histograms at width Fb, masks and splits in the original F).
 
     Each level builds ONE batched histogram for all T trees (kernel B3
     on a card). Per level after the root, only LEFT children are
@@ -198,7 +307,8 @@ def _grow_trees(binned, g, h, w, p: TreeParams, keys=None, col_mask=None):
     level's leaves take their totals from the parent split's side
     stats, with no histogram pass, except for a depth-0 stump, which
     needs one single-bin pass."""
-    F, rows = binned.shape
+    Fh, rows = binned.shape
+    F = Fh if efb is None else efb.feat_col.shape[0]
     dev = binned.device
     T = torch.broadcast_shapes(g.shape, h.shape, w.shape, (1, rows))[0]
     N = 2 ** (p.max_depth + 1) - 1
@@ -238,10 +348,10 @@ def _grow_trees(binned, g, h, w, p: TreeParams, keys=None, col_mask=None):
             hist_l = torch.where(keep, hist_l, 0.0)
             hist_r = torch.where(keep, hist_prev, 0.0) - hist_l
             hist = torch.stack([hist_l, hist_r], dim=2).reshape(
-                T, n_nodes, F, p.n_bins, 3)
+                T, n_nodes, Fh, p.n_bins, 3)
         ok = _feat_ok(col_mask, keys, d, n_nodes, F, p)
-        out = _find_splits(hist.reshape(T * n_nodes, F, p.n_bins, 3), p,
-                           None if ok is None else ok.reshape(-1, F))
+        out = _find_splits(hist.reshape(T * n_nodes, Fh, p.n_bins, 3), p,
+                           None if ok is None else ok.reshape(-1, F), efb)
         (feat, bin_, na_l, can, val, g_best, cov, left_prev,
          right_prev) = (a.reshape((T, n_nodes) + a.shape[1:])
                         for a in out)
@@ -253,33 +363,46 @@ def _grow_trees(binned, g, h, w, p: TreeParams, keys=None, col_mask=None):
         gain[:, idx] = torch.where(can, g_best, 0.0)
         cover[:, idx] = cov
         hist_prev, can_prev = hist, can
-        # descend: dead rows stay dead; rows in unsplit nodes die
-        live = rel >= 0
-        safe = torch.where(live, rel, 0).long()
-        rowbin = row_orig_bins(binned, feat.gather(1, safe), ar)
-        go_right = torch.where(rowbin == p.n_bins - 1,
-                               ~na_l.gather(1, safe),
-                               rowbin > bin_.gather(1, safe))
-        child = 2 * rel + go_right.to(torch.int32)
-        moved = live & can.gather(1, safe)
-        rel = torch.where(moved, child, -1).to(torch.int32)
-        abs_node = torch.where(moved, (2 ** (d + 1) - 1) + child.long(),
-                               abs_node)
+        rel, abs_node = descend_level(binned, rel, abs_node,
+                                      (feat, bin_, na_l, can), d, p.n_bins,
+                                      efb, ar)
     return Tree(split_feat, split_bin, na_left, is_split, value, gain,
                 cover), abs_node
 
 
-def _grow_tree(binned, g, h, w, p: TreeParams):
+def descend_level(binned, rel, abs_node, split, d: int, n_bins: int,
+                  efb=None, ar=None):
+    """Move every row from level d to d+1 through level d's splits
+    ``split`` = (feat, bin, na_left, can_split), each [T, 2^d]: rel and
+    abs_node are [T, rows] (the relative node, -1 once dead, and the
+    heap node). Dead rows stay dead; rows of unsplit nodes die."""
+    if ar is None:
+        ar = torch.arange(binned.shape[1], device=binned.device)
+    feat, bin_, na_l, can = split
+    live = rel >= 0
+    safe = torch.where(live, rel, 0).long()
+    rowbin = row_orig_bins(binned, feat.gather(1, safe), ar, efb)
+    go_right = torch.where(rowbin == n_bins - 1, ~na_l.gather(1, safe),
+                           rowbin > bin_.gather(1, safe))
+    child = 2 * rel + go_right.to(torch.int32)
+    moved = live & can.gather(1, safe)
+    rel = torch.where(moved, child, -1).to(torch.int32)
+    abs_node = torch.where(moved, (2 ** (d + 1) - 1) + child.long(),
+                           abs_node)
+    return rel, abs_node
+
+
+def _grow_tree(binned, g, h, w, p: TreeParams, efb=None):
     """One tree: the T=1 case of ``_grow_trees`` -> (Tree [N],
     leaf [rows])."""
-    tree, leaf = _grow_trees(binned, g, h, w, p)
+    tree, leaf = _grow_trees(binned, g, h, w, p, efb=efb)
     return Tree(*(a[0] for a in tree)), leaf[0]
 
 
-def grow_tree(binned, g, h, w, p: TreeParams) -> Tree:
-    """Build one tree from [F, rows] codes and per-row g/h/w on their
-    device."""
-    return _grow_tree(binned, g, h, w, p)[0]
+def grow_tree(binned, g, h, w, p: TreeParams, efb=None) -> Tree:
+    """Build one tree from [F, rows] codes (or bundled [Fb, rows] ones
+    with ``efb``) and per-row g/h/w on their device."""
+    return _grow_tree(binned, g, h, w, p, efb)[0]
 
 
 def _grad_hess(distribution: str, margin, y):
@@ -318,6 +441,11 @@ class BoostParams(NamedTuple):
     drf_mode: bool = False
     quantile_alpha: float = 0.5     # quantile distribution's τ
     huber_alpha: float = 0.9        # huber δ = this quantile of |resid|
+    # GOSS: goss_b > 0 turns it on (models/gbm.goss_params reads the
+    # knobs); keep the top goss_a of the rows by |g| and a seeded goss_b
+    # of the rest, amplified by (1 - a) / b
+    goss_a: float = 0.0
+    goss_b: float = 0.0
 
 
 def huber_delta(r, w, alpha: float):
@@ -395,39 +523,182 @@ def _round_sampling(bp: BoostParams, w, F: int, k_row, k_col):
     return w_t, col_mask
 
 
+# |g| ranking histogram resolution, compaction slack over the expected
+# a+b rows, and the fold_in tag of the GOSS key stream (the JAX
+# package's constants)
+_GOSS_BINS = 2048
+_GOSS_SLACK = 1.25
+_GOSS_KEY_TAG = 0x9055
+
+
+def goss_round_keys(key, n_trees: int):
+    """[n_trees, 2] per-round GOSS keys from the estimator's seed key,
+    outside the per-dispatch round-key schedule: the in-memory and the
+    chunked paths index it by global round, so both draw the same
+    per-row patterns at one seed."""
+    return prng.split(prng.fold_in(key, _GOSS_KEY_TAG), n_trees)
+
+
+def goss_cap_rows(rows: int, a: float, b: float) -> int:
+    """Static capacity of the compacted row buffer: 1.25 times the
+    expected a+b selected rows plus 64, rounded up to 8, at most
+    ``rows``. Past it the last selected rows are dropped and counted
+    (``goss_compact``)."""
+    cap = int(rows * (a + b) * _GOSS_SLACK) + 64
+    cap = -(-cap // 8) * 8
+    return min(rows, cap)
+
+
+def goss_rank_stat(g, w):
+    """Per-row ranking statistic |g| (multi-output [K, rows]
+    gradients: the class L1 norm), 0 on rows without weight."""
+    absg = torch.abs(g) if g.dim() == 1 else torch.sum(torch.abs(g), dim=0)
+    return torch.where(w > 0, absg, 0.0)
+
+
+def _goss_bin_ids(absg, m):
+    scale = _GOSS_BINS / torch.clamp(m, min=1e-30)
+    return torch.clamp((absg * scale).to(torch.int32), 0, _GOSS_BINS - 1)
+
+
+def goss_local_counts(absg, live, m):
+    """(int32 [_GOSS_BINS] counts of the live rows per |g| bin, int32
+    live count): integer sums, the same over any split of the rows."""
+    bins = _goss_bin_ids(absg, m).long()
+    counts = torch.zeros(_GOSS_BINS, dtype=torch.int32, device=absg.device
+                         ).index_add_(0, bins, live.to(torch.int32))
+    return counts, torch.sum(live.to(torch.int32)).to(torch.int32)
+
+
+def goss_threshold(counts, total, a: float):
+    """(T, frac_T) from the global count histogram: rows in bins above
+    T are kept outright, a row in bin T when its draw is under frac_T —
+    the top ``a`` of the rows in expectation, whatever the ties. XLA
+    contracts the JAX package's ``a * total - above`` into one fused
+    multiply-add; here that is an exact float64 product and difference
+    rounded to float32 once."""
+    suffix = torch.cumsum(counts.flip(0), 0).flip(0).to(torch.float32)
+    a32 = torch.tensor(np.float32(a), device=counts.device)
+    total = total.to(torch.float32)
+    T = torch.clamp(torch.sum((suffix >= a32 * total).to(torch.int32)) - 1,
+                    0, _GOSS_BINS - 1)
+    cnt_T = counts[T.long()].to(torch.float32)
+    above = suffix[T.long()] - cnt_T
+    num = (a32.double() * total.double() - above.double()).float()
+    frac = torch.clamp(num / torch.clamp(cnt_T, min=1.0), 0.0, 1.0)
+    return T, frac
+
+
+def goss_row_factor(absg, live, m, T, frac_T, kg, row_ids, a: float,
+                    b: float):
+    """float32 per-row factor in {0, 1, (1-a)/b}: kept outright, kept
+    amplified, or dropped. The two uniforms per row are threefry draws
+    of (kg, global row id), so the rule does not depend on how the rows
+    are laid out."""
+    dev = absg.device
+    q = torch.tensor(np.float32(b / (1.0 - a)), device=dev)
+    amp = torch.tensor(np.float32((1.0 - a) / b), device=dev)
+    u = prng.uniform(prng.fold_in(kg, row_ids), (2,))          # [rows, 2]
+    bins = _goss_bin_ids(absg, m)
+    top = (bins > T) | ((bins == T) & (u[:, 0] < frac_T))
+    one, zero = torch.ones((), device=dev), torch.zeros((), device=dev)
+    factor = torch.where(top, one, torch.where(u[:, 1] < q, amp, zero))
+    return torch.where(live, factor, 0.0)
+
+
+def goss_amplified_w(g, w, kg, bp: BoostParams):
+    """Per-row amplified weight w·factor of one round over all rows
+    (one row shard): the global max |g|, the count histogram, the
+    threshold, then each row's factor by its row id."""
+    absg = goss_rank_stat(g, w)
+    live = w > 0
+    m = torch.max(absg)
+    counts, total = goss_local_counts(absg, live, m)
+    T, frac = goss_threshold(counts, total, bp.goss_a)
+    row_ids = torch.arange(w.shape[-1], dtype=torch.int32, device=w.device)
+    return w * goss_row_factor(absg, live, m, T, frac, kg, row_ids,
+                               bp.goss_a, bp.goss_b)
+
+
+def goss_compact(binned, g, h, w_amp, cap: int, row0: int = 0):
+    """The selected rows (w_amp > 0), in row order, gathered into static
+    buffers: binned [F, cap], g/h [cap] (or [K, cap]), w [cap]; slots
+    past the selected count hold row 0 with weight 0 (dead), as
+    ``nonzero(size=cap, fill_value=0)`` gives. Positions come from a
+    cumsum and a scatter on the device, with no host sync. Returns
+    (binned, g, h, w, dropped): ``dropped`` the device count of
+    selected rows past ``cap``."""
+    sel = w_amp > 0
+    rows = sel.shape[0]
+    pos = torch.cumsum(sel.to(torch.int32), 0) - 1
+    nsel = pos[-1] + 1
+    dev = sel.device
+    target = torch.where(sel & (pos < cap), pos, cap).long()
+    idx = torch.zeros(cap + 1, dtype=torch.int64, device=dev).scatter_(
+        0, target, torch.arange(rows, dtype=torch.int64, device=dev))[:cap]
+    valid = torch.arange(cap, device=dev) < nsel
+    wC = torch.where(valid, w_amp[idx], 0.0)
+    if g.dim() == 1:
+        gC, hC = g[idx], h[idx]
+    else:
+        gC, hC = g[:, idx], h[:, idx]
+    dropped = torch.clamp(nsel - cap, min=0)
+    return binned.index_select(1, idx), gC, hC, wC, dropped
+
+
 def boost_trees(binned, y, w, margin, n_trees: int, p: TreeParams,
-                bp: BoostParams, keys=None) -> tuple[torch.Tensor, Tree]:
+                bp: BoostParams, keys=None, efb=None, goss_keys=None):
     """``n_trees`` boosting rounds, one tree each: sampling -> grad/hess
     -> grow -> margin update, with the margin kept on its device.
-    ``keys``: the [n_trees, 2] round keys when ``draws_random``.
-    Returns (margin, trees stacked [T, N])."""
-    F = binned.shape[0]
+    ``keys``: the [n_trees, 2] round keys when ``draws_random``; ``efb``
+    the bundle LUTs when ``binned`` is bundled; ``goss_keys`` the
+    [n_trees, 2] GOSS keys when ``bp.goss_b > 0``: each round then grows
+    over its compacted selected rows and every row re-descends the tree.
+    Returns (margin, trees stacked [T, N], the GOSS rows dropped past
+    the buffer as a device scalar, or None)."""
+    F = binned.shape[0] if efb is None else efb.feat_col.shape[0]
     k_row, k_col, k_tree = _round_subkeys(keys, n_trees)
-    trees = []
+    goss = bp.goss_b > 0.0
+    cap = goss_cap_rows(binned.shape[1], bp.goss_a, bp.goss_b)
+    trees, dropped = [], None
     for r in range(n_trees):
         w_t, col_mask = _round_sampling(bp, w, F, k_row[r], k_col[r])
         g, h = _boost_grad_hess(bp, margin, y, w)
-        tree, leaf = _grow_trees(binned, g, h, w_t, p, k_tree[r], col_mask)
-        tree = tree._replace(value=bp.learn_rate * tree.value)
+        if goss:
+            w_amp = goss_amplified_w(g, w_t, goss_keys[r], bp)
+            bC, gC, hC, wC, dr = goss_compact(binned, g, h, w_amp, cap)
+            dropped = dr if dropped is None else dropped + dr
+            tree, _ = _grow_trees(bC, gC, hC, wC, p, k_tree[r], col_mask,
+                                  efb)
+            tree = tree._replace(value=bp.learn_rate * tree.value)
+            leaf = descend_trees(tree, binned, p.max_depth, p.n_bins, efb)
+        else:
+            tree, leaf = _grow_trees(binned, g, h, w_t, p, k_tree[r],
+                                     col_mask, efb)
+            tree = tree._replace(value=bp.learn_rate * tree.value)
         margin = margin + tree.value[0][leaf[0]]
         trees.append(tree)
-    return margin, Tree(*(torch.cat(a) for a in zip(*trees)))
+    return margin, Tree(*(torch.cat(a) for a in zip(*trees))), dropped
 
 
 def boost_trees_multi(binned, y, w, margin, n_trees: int, K: int,
-                      p: TreeParams, bp: BoostParams, G: int, keys=None
-                      ) -> tuple[torch.Tensor, Tree]:
+                      p: TreeParams, bp: BoostParams, G: int, keys=None,
+                      efb=None, goss_keys=None):
     """Multinomial rounds: K class trees per round from one row sample
     and one column mask, grown G at a time through the batched
     histogram, softmax gradients (DRF: g = -onehot(y), h = 1, margin
-    untouched). ``margin`` is [rows, K]; ``keys`` as in
-    ``boost_trees``. Returns (margin, trees interleaved class-fastest
-    [n_trees·K, N])."""
-    F = binned.shape[0]
+    untouched). ``margin`` is [rows, K]; ``keys``, ``efb`` and
+    ``goss_keys`` as in ``boost_trees`` (one GOSS draw per round, rows
+    ranked by the class L1 norm of g, shared by the K trees). Returns
+    (margin, trees interleaved class-fastest [n_trees·K, N], GOSS rows
+    dropped or None)."""
+    F = binned.shape[0] if efb is None else efb.feat_col.shape[0]
     cls = torch.arange(K, dtype=y.dtype, device=y.device)
     yk = (y[None, :] == cls[:, None]).to(torch.float32)      # [K, rows]
     k_row, k_col, k_tree = _round_subkeys(keys, n_trees)
-    trees = []
+    goss = bp.goss_b > 0.0
+    cap = goss_cap_rows(binned.shape[1], bp.goss_a, bp.goss_b)
+    trees, dropped = [], None
     for r in range(n_trees):
         w_t, col_mask = _round_sampling(bp, w, F, k_row[r], k_col[r])
         if bp.drf_mode:
@@ -435,21 +706,30 @@ def boost_trees_multi(binned, y, w, margin, n_trees: int, K: int,
         else:
             probs = torch.softmax(margin, dim=1).T             # [K, rows]
             g, h = probs - yk, probs * (1.0 - probs)
+        bG, wG = binned, w_t
+        if goss:
+            w_amp = goss_amplified_w(g, w_t, goss_keys[r], bp)
+            bG, g, h, wG, dr = goss_compact(binned, g, h, w_amp, cap)
+            dropped = dr if dropped is None else dropped + dr
         keys_k = None if keys is None else prng.split(k_tree[r][0], K)
         parts = []
         for k0 in range(0, K, G):
             k1 = min(K, k0 + G)
             cm = None if col_mask is None else col_mask.expand(k1 - k0, F)
             parts.append(_grow_trees(
-                binned, g[k0:k1], h[k0:k1], w_t, p,
-                None if keys_k is None else keys_k[k0:k1], cm))
+                bG, g[k0:k1], h[k0:k1], wG, p,
+                None if keys_k is None else keys_k[k0:k1], cm, efb))
         tree = Tree(*(torch.cat(a) for a in zip(*(t for t, _ in parts))))
         tree = tree._replace(value=bp.learn_rate * tree.value)
         if not bp.drf_mode:
-            leaf = torch.cat([lf for _, lf in parts])          # [K, rows]
+            if goss:                       # the grow saw the sample only
+                leaf = descend_trees(tree, binned, p.max_depth, p.n_bins,
+                                     efb)
+            else:
+                leaf = torch.cat([lf for _, lf in parts])      # [K, rows]
             margin = margin + tree.value.gather(1, leaf).T
         trees.append(tree)
-    return margin, Tree(*(torch.cat(a) for a in zip(*trees)))
+    return margin, Tree(*(torch.cat(a) for a in zip(*trees))), dropped
 
 
 def drf_group_size(n_trees: int, p: TreeParams, F: int) -> tuple[int, int]:
@@ -464,14 +744,15 @@ def drf_group_size(n_trees: int, p: TreeParams, F: int) -> tuple[int, int]:
 
 
 def boost_trees_drf(binned, y, w, n_trees: int, p: TreeParams,
-                    bp: BoostParams, keys=None) -> Tree:
+                    bp: BoostParams, keys=None, efb=None) -> Tree:
     """A forest of ``n_trees`` independent trees, G at a time
     (``drf_group_size``): per tree a bootstrap row sample and a column
     mask from its own [2] key of ``keys`` (as in ``boost_trees``),
     g = -y, h = 1. The trees cannot depend on G: each tree's draws come
-    from its own key, and the threefry draws are prefix-stable."""
-    F = binned.shape[0]
-    G, _ = drf_group_size(n_trees, p, F)
+    from its own key, and the threefry draws are prefix-stable. G is
+    sized at the histogram width (the bundled one with ``efb``)."""
+    F = binned.shape[0] if efb is None else efb.feat_col.shape[0]
+    G, _ = drf_group_size(n_trees, p, binned.shape[0])
     g, h = -y, torch.ones_like(y)
     trees = []
     for t0 in range(0, n_trees, G):
@@ -482,7 +763,7 @@ def boost_trees_drf(binned, y, w, n_trees: int, p: TreeParams,
         if w_t.dim() == 1:                 # no row sample: G copies of w
             w_t = w_t.expand(min(G, n_trees - t0), -1)
         trees.append(_grow_trees(binned, g, h, w_t, p, k_tree,
-                                 col_mask)[0])
+                                 col_mask, efb)[0])
     return Tree(*(torch.cat(a) for a in zip(*trees)))
 
 
@@ -493,14 +774,16 @@ def level_hist_bytes(p: TreeParams, F: int) -> int:
     return 5 * (2 ** max(p.max_depth - 1, 0)) * F * p.n_bins * C * 4
 
 
-def descend_tree(tree: Tree, binned, max_depth: int, n_bins: int):
-    """Per-row resting heap node of one tree over [F, rows] codes."""
+def descend_tree(tree: Tree, binned, max_depth: int, n_bins: int,
+                 efb=None):
+    """Per-row resting heap node of one tree over [F, rows] codes (or
+    bundled ones with ``efb``)."""
     rows = binned.shape[1]
     ar = torch.arange(rows, device=binned.device)
     node = torch.zeros(rows, dtype=torch.int64, device=binned.device)
     for _ in range(max_depth):
         f = tree.split_feat[node]
-        rowbin = row_orig_bins(binned, f.clamp(min=0), ar)
+        rowbin = row_orig_bins(binned, f.clamp(min=0), ar, efb)
         go_right = torch.where(rowbin == n_bins - 1, ~tree.na_left[node],
                                rowbin > tree.split_bin[node])
         node = torch.where(tree.is_split[node], 2 * node + 1 + go_right.long(),
@@ -508,15 +791,18 @@ def descend_tree(tree: Tree, binned, max_depth: int, n_bins: int):
     return node
 
 
-def predict_tree(tree: Tree, binned, max_depth: int, n_bins: int):
+def predict_tree(tree: Tree, binned, max_depth: int, n_bins: int,
+                 efb=None):
     """Per-row leaf value (descend + gather)."""
-    return tree.value[descend_tree(tree, binned, max_depth, n_bins)]
+    return tree.value[descend_tree(tree, binned, max_depth, n_bins, efb)]
 
 
-def descend_trees(trees: Tree, binned, max_depth: int, n_bins: int):
+def descend_trees(trees: Tree, binned, max_depth: int, n_bins: int,
+                  efb=None):
     """[T, rows] resting heap node of every tree of a stacked [T, N]
-    Tree over [F, rows] codes (the leaf assignment; the JAX package's
-    ``_stack_leaf_nodes``), ``_ROUND_BLOCK`` trees at a time."""
+    Tree over [F, rows] codes (or bundled ones with ``efb``; the leaf
+    assignment, the JAX package's ``_stack_leaf_nodes``),
+    ``_ROUND_BLOCK`` trees at a time."""
     T, rows = trees.split_feat.shape[0], binned.shape[1]
     ar = torch.arange(rows, device=binned.device)
     out = []
@@ -528,7 +814,7 @@ def descend_trees(trees: Tree, binned, max_depth: int, n_bins: int):
                            device=binned.device)
         for _ in range(max_depth):
             f = sf.gather(1, node)
-            rowbin = binned[f.clamp(min=0), ar].to(torch.int32)
+            rowbin = row_orig_bins(binned, f.clamp(min=0), ar, efb)
             go_right = torch.where(rowbin == n_bins - 1,
                                    ~nl.gather(1, node),
                                    rowbin > sb.gather(1, node))

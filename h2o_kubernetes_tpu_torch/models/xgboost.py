@@ -10,7 +10,10 @@ mass, ``gamma`` as the minimum split gain, and the objective aliases
 ``count:poisson``). A pointwise objective trains through ``GBM.train``
 (the histogram kernel at every level; K class trees per launch for
 ``multi:softprob``) and its model exports and serves like a GBM's, as
-``algo="xgboost"``.
+``algo="xgboost"``. Pointwise objectives take GOSS, EFB and out-of-core
+boosting through ``GBM.train`` under the same knobs; ``rank:*``
+objectives take neither GOSS nor EFB, as in the JAX package (the
+ranking round grows and re-descends the unbundled matrix).
 
 Learning to rank: ``rank:pairwise`` and ``rank:ndcg`` (LambdaMART) over
 a query ``group_column``. Each round computes the pairwise lambda

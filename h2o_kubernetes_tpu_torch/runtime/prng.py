@@ -11,7 +11,9 @@ the same bits:
 - ``key(seed)``: the raw key ``[seed >> 32, seed & 0xFFFFFFFF]``;
 - ``split(key, n)``: the partitionable ("fold-like") split, threefry of
   the counters ``(i >> 32, i & 0xFFFFFFFF)`` for i < n;
-- ``fold_in(key, data)``: threefry of the pair ``(0, data)``;
+- ``fold_in(key, data)``: threefry of the pair ``(0, data)``; ``data``
+  a Python int, or an integer tensor of row ids, one key per element
+  (``jax.vmap(jax.random.fold_in, in_axes=(None, 0))``);
 - ``random_bits(key, shape)``: 32-bit draws, ``y0 ^ y1`` of the
   threefry of each element's row-major counter;
 - ``uniform(key, shape)``: the mantissa trick,
@@ -89,8 +91,17 @@ def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """[..., 2] key -> [..., 2] key (``jax.random.fold_in``)."""
+def fold_in(k: torch.Tensor, data) -> torch.Tensor:
+    """[..., 2] key -> [..., 2] key (``jax.random.fold_in``). With an
+    integer tensor ``data`` of shape [n], one [2] key folds with each
+    element -> [n, 2] keys (the JAX package's ``jax.vmap(fold_in,
+    in_axes=(None, 0))``, as GOSS keys its per-row draws by row id)."""
+    if isinstance(data, torch.Tensor):
+        if k.dim() != 1:
+            raise ValueError("fold_in over a data tensor takes one [2] key")
+        d = data.to(device=k.device, dtype=torch.int64) & _M32
+        y0, y1 = threefry2x32(k[0], k[1], 0, d)
+        return torch.stack([y0, y1], dim=-1)
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], 0, int(data) & _M32)
     return torch.stack([y0, y1], dim=-1)
 

@@ -44,7 +44,8 @@ def test_imports_without_jax():
         "frame.frame", "models.tree.binning", "ops.histogram", "ops._build",
         "metrics", "models.gbm", "models.drf", "runtime.prng", "mojo",
         "persist", "operator.registry", "runtime.retry", "models.xgboost",
-        "models.glm", "models.datainfo")} <= names
+        "models.glm", "models.datainfo", "models.tree.efb",
+        "models.tree.ooc")} <= names
 
 
 def test_no_source_imports_jax_or_reference():

@@ -148,3 +148,69 @@ def test_xgboost_and_glm_train_on_the_card_by_default():
     perf = g_card.model_performance(hold, y="y")
     assert sum(H.LAUNCHES.values()) == sum(before.values()) + 1
     assert 0.5 < perf["auc"] <= 1.0
+
+
+def _exact_cols(rows=4096, seed=11):
+    """A dense column, two one-hot groups of 8 (bundled under EFB) and
+    y in {0, 1}, exactly half ones: one gaussian round's sums are
+    exact, so its tree is bitwise the same on the card and the CPU."""
+    rng = np.random.default_rng(seed)
+    cols = {"d0": rng.normal(size=rows).astype(np.float32)}
+    for g in range(2):
+        cat = rng.integers(0, 8, size=rows)
+        for k in range(8):
+            cols[f"g{g}_{k}"] = (cat == k).astype(np.float32)
+    y = np.zeros(rows, dtype=np.float32)
+    y[rng.permutation(rows)[: rows // 2]] = 1.0
+    cols["y"] = y
+    return cols
+
+
+_KNOBS = {
+    "efb": {"H2O_TPU_EFB": "1"},
+    "goss": {"H2O_TPU_GOSS": "1", "H2O_TPU_GOSS_TOP_A": "0.5",
+             "H2O_TPU_GOSS_RAND_B": "0.25"},
+    "ooc": {"H2O_TPU_OOC": "1", "H2O_TPU_OOC_CHUNK_ROWS": "1024"},
+    "efb_ooc": {"H2O_TPU_EFB": "1", "H2O_TPU_OOC": "1",
+                "H2O_TPU_OOC_CHUNK_ROWS": "1024"},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_KNOBS))
+def test_efb_goss_ooc_train_on_the_card(monkeypatch, case):
+    """EFB, GOSS and out-of-core boosting train on the card through the
+    histogram kernel: one gaussian round on a dyadic response (exact
+    sums) bitwise the CPU's tree, and three bernoulli rounds with train
+    AUC and logloss within 1e-4 of the CPU's. Out-of-core streams its
+    chunks from pinned memory (upload time and rate recorded)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    for k, v in _KNOBS[case].items():
+        monkeypatch.setenv(k, v)
+    cols = _exact_cols()
+    card, cpu = Frame.from_arrays(cols), Frame.from_arrays(cols, device="cpu")
+    kw = dict(ntrees=1, max_depth=4, distribution="gaussian", seed=3,
+              min_rows=4.0)
+    before = sum(H.LAUNCHES.values())
+    m = GBM(**kw).train(y="y", training_frame=card)
+    c = GBM(**kw).train(y="y", training_frame=cpu)
+    assert m.device.type == "cuda" and sum(H.LAUNCHES.values()) > before
+    isp = c.trees.is_split
+    for f in ("split_feat", "split_bin", "na_left"):
+        assert torch.equal(getattr(m.trees, f).cpu()[isp],
+                           getattr(c.trees, f)[isp]), f
+    for f in ("is_split", "value", "gain", "cover"):
+        assert torch.equal(getattr(m.trees, f).cpu(), getattr(c.trees, f)), f
+    if "ooc" in case:
+        st = m.ooc_stats
+        assert st["streamed"] and st["chunks"] == 4
+        assert st["upload_ms"] > 0 and st["upload_gb_per_s"] > 0
+        assert 0.0 <= st["overlap_ratio"] <= 1.0
+    bern = dict(ntrees=3, max_depth=3, learn_rate=0.2, seed=1)
+    cols = _cols(5000)
+    m = GBM(**bern).train(y="y", training_frame=Frame.from_arrays(cols))
+    c = GBM(**bern).train(y="y", training_frame=Frame.from_arrays(
+        cols, device="cpu"))
+    for k, v in c.scoring_history[-1].items():
+        assert abs(m.scoring_history[-1][k] - v) <= 1e-4, (case, k)

@@ -1,5 +1,6 @@
-"""Rehearse chip_smoke.py's phases 18-20 (xgboost, lambdarank, glm) on
-the CPU, without a card: the entry points' default device resolves to
+"""Rehearse chip_smoke.py's phases 18-23 (xgboost, lambdarank, glm,
+efb, goss, ooc) on the CPU, without a card, at small sizes: the entry
+points' default device resolves to
 the CPU, the histogram and TreeSHAP kernels are replaced by counting
 fakes over their plain versions (the histogram fake sums in float64 and
 counts ``LAUNCHES``/``BATCHED_LAUNCHES`` under the regime ``hist_plan``
@@ -9,6 +10,12 @@ are the CPU's and say nothing of the card.
 
     PYTHONPATH=. python3 tools/torch_rehearse_phases.py \
         [--rows 70000] [--rank-rows 20000] [--phases xgboost,lambdarank,glm]
+        [--ws-rows 200000 --ws-groups 2 --efb-hist-budget 20000000]
+        [--goss-rows 200000] [--ooc-rows 300000]
+
+With ``--card`` it installs no fakes and runs the phases on the card at
+the given sizes (kernels built on first use): a short check of new
+phases before a whole chip_smoke.py run.
 
 ``--rows`` must exceed 65,536 (phase 18 and 20 compare card and CPU on
 that many rows; the AUC takes its histogram path past it). The
@@ -68,6 +75,8 @@ def _install_fakes():
                              vals.shape[2], binned.element_size(),
                              binned.shape[1])
         H.LAUNCHES[regime] += 1
+        if regime == "partitioned":
+            H.PARTITION_LAUNCHES["row_partition"] += 1
         if rel.shape[0] > 1:
             H.BATCHED_LAUNCHES[regime] += 1
         return out
@@ -90,24 +99,51 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=70_000)
     ap.add_argument("--rank-rows", type=int, default=20_000)
     ap.add_argument("--phases", default="xgboost,lambdarank,glm")
+    ap.add_argument("--ws-rows", type=int, default=70_000)
+    ap.add_argument("--ws-groups", type=int, default=4)
+    ap.add_argument("--goss-rows", type=int, default=200_000)
+    ap.add_argument("--ooc-rows", type=int, default=300_000)
+    ap.add_argument("--efb-hist-budget", type=int, default=None,
+                    help="H2O_TPU_HIST_BYTES_BUDGET for the efb phase, so "
+                         "that a small unbundled frame goes out of core "
+                         "under the defaults as the full one does")
+    ap.add_argument("--card", action="store_true",
+                    help="run on the card, with the real kernels")
     args = ap.parse_args()
-    H, S, rest = _install_fakes()
+    if args.card:
+        from h2o_kubernetes_tpu_torch import rest
+        from h2o_kubernetes_tpu_torch.ops import histogram as H
+        from h2o_kubernetes_tpu_torch.ops import shap_kernel as S
+    else:
+        H, S, rest = _install_fakes()
     import chip_smoke as cs
     from h2o_kubernetes_tpu_torch import Frame, start_server
 
     cs._WARM_TRAINS, cs._REPEATS = 2, 2
     cs._RANK_ROWS = args.rank_rows
+    if args.ooc_rows < cs._OOC_ROWS:       # keep ten chunks
+        cs._OOC_SMALL_CHUNK = -(-args.ooc_rows // 10)
+    cs._WS_ROWS, cs._WS_GROUPS = args.ws_rows, args.ws_groups
+    cs._GOSS_ROWS, cs._OOC_ROWS = args.goss_rows, args.ooc_rows
+    if not args.card:
+        cs._upload_gbs = lambda torch, nbytes: {"pinned": 0.0,
+                                                "pageable": 0.0}
     hcols, hdom = cs._higgs_cols(args.rows, 0)
     ctx = types.SimpleNamespace(
         torch=torch, hist_op=H, shap_kernel=S, rest=rest,
-        start_server=start_server, card="CPU rehearsal", profile=False,
+        start_server=start_server,
+        card=cs._card_line() if args.card else "CPU rehearsal",
+        profile=False,
         hframe=Frame.from_arrays(hcols, domains=hdom), hcols=hcols,
         hdom=hdom, mframe=Frame.from_arrays(cs._multinomial_cols(
             args.rows // 2, 0)),
-        book=cs._LevelBook(torch, H, "CPU rehearsal", 2))
+        book=cs._LevelBook(torch, H, "rehearsal", 2))
     for phase in args.phases.split(","):
         t0 = time.perf_counter()
-        res = getattr(cs, f"_phase_{phase}")(ctx)
+        budget = args.efb_hist_budget if phase == "efb" else None
+        with cs._env(**({} if budget is None else
+                        {"H2O_TPU_HIST_BYTES_BUDGET": budget})):
+            res = getattr(cs, f"_phase_{phase}")(ctx)
         print(f"[rehearsal] {phase} passed in "
               f"{time.perf_counter() - t0:.1f}s: {json.dumps(res)[:400]}",
               flush=True)

@@ -71,12 +71,14 @@ def _gain64(bf, g, h, split, na_left, b, n_bins, lam=0.0, alpha=0.0):
     return term(left) + term(~left) - term(whole), term(whole)
 
 
-def round_stats(tm, tf, y, kw, n_old=0):
+def round_stats(tm, tf, y, kw, n_old=0, goss=None):
     """Per new tree of the port model ``tm`` trained on ``tf`` with the
     ``train`` keywords ``kw``: float64 (g·w, h·w) at the round's margin
     (the model's own trees before it) under the round's weights after
     sampling; with the [F, rows] codes, on the host. The first ``n_old``
-    trees came from a checkpoint."""
+    trees came from a checkpoint. ``goss=(a, b)``: the model trained
+    under GOSS; each round's weights are then its amplified ones, drawn
+    as training drew them (at the float32 margin, on the CPU)."""
     from h2o_kubernetes_tpu_torch.models.base import resolve_xy
 
     p = tm.params
@@ -103,6 +105,16 @@ def round_stats(tm, tf, y, kw, n_old=0):
                            col_sample_rate_per_tree=(
                                p.col_sample_rate_per_tree))
     T = tm.trees.value.shape[0]
+    if goss is not None:
+        from h2o_kubernetes_tpu_torch.runtime import prng
+
+        bp = bp._replace(goss_a=goss[0], goss_b=goss[1])
+        gkeys = tcore.goss_round_keys(prng.key(p.seed), p.ntrees)
+        y32 = torch.as_tensor(yv, dtype=torch.float32)
+        w32 = data.w.cpu()
+        m32 = torch.tensor(np.float32(init)) + (
+            torch.zeros_like(w32) if data.offset is None
+            else data.offset.cpu())
     keys = None
     if tcore.draws_random(tp, bp, F):
         keys = _round_keys(p, binned.shape[1], F, 1, "cpu", n_old)
@@ -116,19 +128,25 @@ def round_stats(tm, tf, y, kw, n_old=0):
                                                       + 1], 1)
                 wt = tcore._round_sampling(bp, data.w.cpu(), F, kr[0],
                                            kc[0])[0][0].double().numpy()
+            if goss is not None:
+                g32 = tcore._boost_grad_hess(bp, m32, y32, w32)[0]
+                wt = tcore.goss_amplified_w(g32, w32, gkeys[t],
+                                            bp).double().numpy()
             g, h = grad_hess64(dist, margin, yv, w)
             out.append((g * wt, h * wt))
-        margin = margin + tcore.predict_tree(
-            tree, binned, p.max_depth, p.nbins).double().numpy()
+        step = tcore.predict_tree(tree, binned, p.max_depth, p.nbins)
+        margin = margin + step.double().numpy()
+        if goss is not None:
+            m32 = m32 + step
     return out, binned.numpy()
 
 
-def walk(tm, jm, stats, binned, n_old=0, lam=0.0, alpha=0.0):
+def walk(tm, jm, stats, binned, n_old=0, lam=0.0, alpha=0.0, rel=1e-6):
     """Walk every new tree from the root while the two packages'
     decisions agree. A node where they differ must be a float64
     near-tie: the two decisions' float64 gains on the node's rows differ
-    by at most 1e-6 of the node's G²/H (f32 cannot order them finer);
-    its subtree is not compared. Returns (nodes compared, ties, compared
+    by at most ``rel`` (1e-6) of the node's G²/H (f32 cannot order them
+    finer); its subtree is not compared. Returns (nodes compared, ties, compared
     leaf gaps over the tree's largest |leaf|, per tree)."""
     B = tm.params.nbins
     tt = {f: _np(getattr(tm.trees, f)) for f in FIELDS + ("value",)}
@@ -155,7 +173,7 @@ def walk(tm, jm, stats, binned, n_old=0, lam=0.0, alpha=0.0):
                                  h[rows], d[0], d[3], d[2], B, lam, alpha)
                          for d in (dec_t, dec_j)]
                 gap = abs(gains[0][0] - gains[1][0])
-                assert gap <= 1e-6 * gains[0][1], (t, node, dec_t, dec_j,
+                assert gap <= rel * gains[0][1], (t, node, dec_t, dec_j,
                                                   gains)
                 ties.append((t, node))
                 continue
