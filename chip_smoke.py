@@ -3,8 +3,8 @@
 scorer-replica serving path, binomial GBM training, DRF and multinomial
 GBM training, the other GBM distributions, checkpoint continuation, the
 train -> export -> registry -> replica loop, XGBoost-hist (pointwise and
-LambdaMART ranking), GLM, Exclusive Feature Bundling, GOSS and
-out-of-core boosting on one CUDA card.
+LambdaMART ranking), GLM, Exclusive Feature Bundling, GOSS,
+out-of-core boosting, DeepLearning and Word2Vec on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -164,17 +164,41 @@ Phases, in order; any failure exits non-zero:
    compacting the in-memory GOSS weights bitwise; one chunked depth-10
    tree (B2's partitioned regime on chunk rows, held at level 9); B1
    held at both chunk grids' levels;
-24. report — one JSON line of kernel records (B4 with its variants,
+24. deeplearning — deeplearning_mlp (tools/bench_suite.py:282-291):
+   higgs_arrays(200,000, seed=2), DeepLearning(hidden=[64, 64],
+   epochs=1, seed=1), 6,250 Adam steps of 32 rows: a warm-up and three
+   timed trains as rows/s (median and spread), train AUC and logloss
+   (past 65,536 rows the AUC's score histogram is B1's: its launches
+   counted around that call, B1 held and timed at its input); the
+   device events of one step and the device-busy share, from two short
+   trains (200 and 400 steps) under torch.profiler; the estimator's
+   default width (200, 200) once; an autoencoder (16,): anomaly and
+   deepfeatures shapes, reconstruction MSE; card vs CPU on 20,000 rows,
+   each trained on its own device: train AUC and logloss within 1e-5,
+   predictions within 1e-5; the artifact in MojoModel within 1e-5 of
+   predict;
+25. word2vec — word2vec_skipgram (:293-302): text8_like_tokens(200,000,
+   vocab_size=5,000, seed=5), Word2Vec(vec_size=32, epochs=1,
+   min_word_freq=2, seed=1): a warm-up and three timed trains as
+   tokens/s; one step and its gradient scatter (index_add_) timed on
+   their own; find_synonyms; the artifact's word vectors bitwise; card
+   vs CPU on 20,000 tokens (embeddings within 1e-4 of the largest); the
+   estimator's defaults on a text8-sized corpus (17,005,207 tokens,
+   71,290 words) once, as tokens/s;
+26. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
    row partition; the launches of phases 15-23 beside each, B1's levels
    including the xgboost_hist, lambdarank, bundled, compacted and chunk
-   trains', B4's models the XGBoost and the bundled one), the card
-   line, and as the last line {"ok": true, "device": {...}}.
+   trains' and DeepLearning's AUC, B4's models the XGBoost and the
+   bundled one), one JSON line of phases 24-25's learner numbers (they
+   add no kernel), the card line, and as the last line {"ok": true,
+   "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
 contrib_numpy, GBM train, DRF train and multinomial train call, of one
 train of each family in phase 15 (and of its bernoulli control), and of
-one XGBoost, lambdarank (and its lambda gradients) and GLM train.
+one XGBoost, lambdarank (and its lambda gradients) and GLM train, and
+of one deeplearning_mlp train.
 """
 
 from __future__ import annotations
@@ -248,6 +272,28 @@ _OOC_TREES = 5
 _OOC_DEPTH = 6
 _OOC_SMALL_CHUNK = 1_048_576
 _OOC_DEEP = 10
+# phase 24, deeplearning_mlp (tools/bench_suite.py:282-291): HIGGS rows
+# (seed 2), DeepLearning(hidden=[64, 64], epochs=1, seed=1); card vs CPU
+# on its first rows; a short train of each step count gives the
+# launches per step
+_DL_ROWS = 200_000
+_DL_HIDDEN = [64, 64]
+_DL_WARM = 3
+_DL_PARITY_ROWS = 20_000
+_DL_PROBE_STEPS = (200, 400)
+# card vs CPU at _DL_PARITY_ROWS: train AUC and logloss, predictions
+_DL_METRIC_LIMIT = 1e-5
+_DL_PRED_LIMIT = 1e-5
+# phase 25, word2vec_skipgram (:293-302): text8_like_tokens(200,000,
+# vocab_size=5,000, seed=5), Word2Vec(vec_size=32, epochs=1,
+# min_word_freq=2, seed=1); the estimator's defaults on a text8-sized
+# corpus (text8: 17,005,207 tokens, 71,290 words of at least 5)
+_W2V_TOKENS = 200_000
+_W2V_VOCAB = 5_000
+_W2V_WARM = 3
+_W2V_PARITY_TOKENS = 20_000
+_TEXT8_TOKENS = 17_005_207
+_TEXT8_VOCAB = 71_290
 # a histogram cell may be this far from the float64 sum, relative to
 # its Σ|v|: above the kernel's float32 rounding at 1,000,000 rows, below
 # what bf16-rounded values give
@@ -1885,6 +1931,285 @@ def _phase_ooc(c) -> dict:
     return res
 
 
+def _profile_counts(torch, fn) -> tuple[int, float, float]:
+    """(device events, device-busy microseconds, wall microseconds) of
+    one call of fn under torch.profiler: every kernel, copy and memset
+    on the card counts as a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0
+           and e.key != "Activity Buffer Request"]
+    return (sum(e.count for e in dev),
+            sum(e.self_device_time_total for e in dev), wall_us)
+
+
+def _phase_deeplearning(c) -> dict:
+    """24. deeplearning: deeplearning_mlp's shape (200,000 HIGGS rows,
+    hidden [64, 64], one epoch: 6,250 Adam steps of 32 rows): a warm-up
+    and three timed trains as rows/s, train AUC and logloss; the
+    launches of one step and the device-busy share from two short
+    trains (200 and 400 steps) under torch.profiler; the estimator's
+    default width (200, 200) once; an autoencoder (16,); card vs CPU on
+    20,000 rows; the artifact in MojoModel; B1 held at the train AUC's
+    score histogram, its launches counted around that call."""
+    from tools.datasets import higgs_arrays
+
+    from h2o_kubernetes_tpu_torch import (DeepLearning, Frame, MojoModel,
+                                          export_mojo)
+
+    torch, card = c.torch, c.card
+    cols, dom = higgs_arrays(_DL_ROWS, seed=2)
+    frame = Frame.from_arrays(cols, domains=dom)
+    rows = frame.nrows
+
+    def fit(fr=frame, **kw):
+        kw = dict(dict(hidden=_DL_HIDDEN, epochs=1, seed=1), **kw)
+        m = DeepLearning(**kw).train(y="y", training_frame=fr)
+        torch.cuda.synchronize()
+        return m
+
+    t0 = time.perf_counter()
+    fit()
+    first_s = time.perf_counter() - t0
+    times, model = _warm_trains(fit, _DL_WARM)
+    med = statistics.median(times)
+    steps = rows // 32
+    # the train's metrics: past 65,536 rows the AUC's 4096-bin score
+    # histogram is B1's, its inputs kept and its launches counted from
+    # zero around this call
+    hist_op = c.hist_op
+    hist_op.reset_launches()
+    with _HistRecorder(hist_op) as rec:
+        perf = model.model_performance(frame, "y")
+    auc_launches = dict(hist_op.LAUNCHES)
+    _log(f"[deeplearning] deeplearning_mlp: {rows} HIGGS rows, hidden "
+         f"{_DL_HIDDEN}, 1 epoch = {steps} Adam steps of 32 rows: first "
+         f"train {first_s:.3f}s; {_DL_WARM} warm trains "
+         f"{[round(t, 4) for t in times]} s, median {med:.4f}s (min "
+         f"{min(times):.4f}, max {max(times):.4f}) = {rows / med:.1f} "
+         f"rows/s ({steps / med:.1f} steps/s); train auc "
+         f"{perf['auc']:.6f} logloss {perf['logloss']:.6f} [{card}]")
+    if not (0.6 < perf["auc"] <= 1 and np.isfinite(perf["logloss"])):
+        raise RuntimeError("deeplearning: the MLP did not learn")
+    if sum(auc_launches.values()) != 1:
+        raise RuntimeError(f"deeplearning: the train AUC made histogram "
+                           f"launches {auc_launches}, not one")
+    # launches per step: two trains of one iteration each, 200 and 400
+    # steps (train_samples_per_iteration = steps * 32), differenced
+    probe = {}
+    for n in _DL_PROBE_STEPS:
+        probe[n] = c.profile_counts(torch, lambda n=n: fit(
+            train_samples_per_iteration=n * 32, epochs=n * 32 / rows))
+    (k0, _, _), (k1, busy, wall) = (probe[n] for n in _DL_PROBE_STEPS)
+    per_step = (k1 - k0) / (_DL_PROBE_STEPS[1] - _DL_PROBE_STEPS[0])
+    busy_share = busy / wall
+    _log(f"[deeplearning] device events per step {per_step:.2f} (trains "
+         f"of {_DL_PROBE_STEPS[0]} / {_DL_PROBE_STEPS[1]} steps: {k0} / "
+         f"{k1}); the {_DL_PROBE_STEPS[1]}-step train: device busy "
+         f"{busy / 1e3:.3f} ms of {wall / 1e3:.3f} ms wall = "
+         f"{busy_share:.1%} (profiled) [{card}]")
+    if c.profile:
+        _profile(torch, "deeplearning train", fit, top=12)
+    t0 = time.perf_counter()
+    wide = DeepLearning(epochs=1, seed=1).train(y="y", training_frame=frame)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    wide_auc = wide.model_performance(frame, "y")["auc"]
+    _log(f"[deeplearning] the estimator's default width {wide.params.hidden}"
+         f", 1 epoch: {wide_s:.3f}s = {rows / wide_s:.1f} rows/s, train "
+         f"auc {wide_auc:.6f} [{card}]")
+    feats = [n for n in cols if n != "y"]
+    t0 = time.perf_counter()
+    ae = DeepLearning(hidden=(16,), epochs=1, seed=1, autoencoder=True
+                      ).train(training_frame=frame, ignored_columns=["y"])
+    torch.cuda.synchronize()
+    ae_s = time.perf_counter() - t0
+    an, df = ae.anomaly(frame), ae.deepfeatures(frame, 0)
+    ae_mse = ae.model_performance(frame)["mse"]
+    _log(f"[deeplearning] autoencoder (16,) on the {len(feats)} features: "
+         f"{ae_s:.3f}s; anomaly {an.shape}, deepfeatures {df.shape}, "
+         f"reconstruction mse {ae_mse:.6f} [{card}]")
+    if not (an.shape == (rows,) and df.shape == (rows, 16)
+            and np.isfinite(an).all() and 0 < ae_mse < 1):
+        raise RuntimeError("deeplearning: bad autoencoder outputs")
+    # card vs CPU on the first rows, each trained on its own device; the
+    # limits are set from the measured gaps (9.8e-08 in the metrics,
+    # 1.520e-06 in the predictions on an H100). The CPU's tiny ops run
+    # on one thread.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    small = {k: v[:_DL_PARITY_ROWS] for k, v in cols.items()}
+    f_card = Frame.from_arrays(small, domains=dom)
+    f_cpu = Frame.from_arrays(small, domains=dom, device="cpu")
+    m_card, m_cpu = fit(f_card), fit(f_cpu)
+    torch.set_num_threads(threads)
+    hc, hp = m_card.scoring_history[-1], m_cpu.scoring_history[-1]
+    metric_gap = max(abs(hc[k] - hp[k]) for k in ("train_auc",
+                                                  "train_logloss"))
+    Xs = m_cpu._design_matrix(f_cpu).numpy()
+    pred_gap = float(np.abs(m_card.score_numpy(Xs) - m_cpu.score_numpy(Xs)
+                            ).max())
+    w_gap = max(float(np.abs(a["w"] - b["w"]).max() / np.abs(b["w"]).max())
+                for a, b in zip(m_card.net_numpy(), m_cpu.net_numpy()))
+    _log(f"[deeplearning] card vs CPU at {_DL_PARITY_ROWS} rows: train auc "
+         f"{hc['train_auc']:.6f} / {hp['train_auc']:.6f}, logloss "
+         f"{hc['train_logloss']:.6f} / {hp['train_logloss']:.6f} (largest "
+         f"gap {metric_gap:.3e}, limit {_DL_METRIC_LIMIT:.0e}), largest "
+         f"prediction gap {pred_gap:.3e} (limit {_DL_PRED_LIMIT:.0e}), "
+         f"weights within {w_gap:.3e} of each layer's largest [{card}]")
+    if metric_gap > _DL_METRIC_LIMIT or pred_gap > _DL_PRED_LIMIT:
+        raise RuntimeError("deeplearning: card vs CPU disagree")
+    buf = io.BytesIO()
+    export_mojo(model, buf)
+    Xq = model._design_matrix(frame)[:_REQ_ROWS].cpu().numpy()
+    mojo_err = float(np.abs(MojoModel(io.BytesIO(buf.getvalue())).predict(
+        Xq) - model.score_numpy(Xq).astype(np.float64)).max())
+    _log(f"[deeplearning] the artifact ({len(buf.getvalue())} bytes) in "
+         f"MojoModel within {mojo_err:.3e} of predict on {_REQ_ROWS} rows "
+         f"[{card}]")
+    if mojo_err > 1e-5:
+        raise RuntimeError("deeplearning: the artifact disagrees")
+    # B1 at the train AUC's score histogram, held and timed as phase 18
+    # holds xgboost_hist's
+    c.book.compare("deeplearning_mlp", None, 1, 4096, 3, torch.int16, "dl",
+                   [_auc_case(rec, "dl", torch.int16)])
+    _log_sums(c.book.sums, ("deeplearning_mlp",), card)
+    auc_err = c.book.levels["auc (dl)"]["max_rel_err"]
+    return {"rows": rows, "hidden": _DL_HIDDEN, "steps": steps,
+            "train_s": times, "median_s": med, "first_s": first_s,
+            "rows_per_s": rows / med, "auc": perf["auc"],
+            "logloss": perf["logloss"], "events_per_step": per_step,
+            "busy_share": busy_share, "default_width_s": wide_s,
+            "default_width_rows_per_s": rows / wide_s,
+            "autoencoder_s": ae_s, "autoencoder_mse": ae_mse,
+            "parity_metric_gap": metric_gap, "parity_pred_gap": pred_gap,
+            "parity_weight_rel": w_gap, "mojo_err": mojo_err,
+            "auc_launches": auc_launches, "auc_max_rel_err": auc_err}
+
+
+def _phase_word2vec(c) -> dict:
+    """25. word2vec: word2vec_skipgram's shape (200,000 Zipf tokens over
+    5,000 words, vec_size 32, one epoch: 244 steps of 8,192 pairs) as
+    tokens/s over a warm-up and three timed trains; one step and its
+    gradient scatter timed on their own; the estimator's defaults on a
+    text8-sized corpus once; card vs CPU on 20,000 tokens; synonyms and
+    the artifact's word vectors."""
+    from tools.datasets import text8_like_tokens
+
+    from h2o_kubernetes_tpu_torch import Frame, MojoModel, Word2Vec, \
+        export_mojo
+    from h2o_kubernetes_tpu_torch.models import word2vec as W2V
+    from h2o_kubernetes_tpu_torch.runtime import prng
+
+    torch, card = c.torch, c.card
+    toks = text8_like_tokens(_W2V_TOKENS, vocab_size=_W2V_VOCAB, seed=5)
+    frame = Frame.from_arrays({"words": toks})
+    kw = dict(vec_size=32, epochs=1, min_word_freq=2, seed=1)
+
+    def fit(fr=frame, **extra):
+        return Word2Vec(**dict(kw, **extra)).train(fr)
+
+    t0 = time.perf_counter()
+    fit()
+    first_s = time.perf_counter() - t0
+    times, model = _warm_trains(fit, _W2V_WARM)
+    med = statistics.median(times)
+    V, n = len(model.vocab), len(toks)
+    batch = min(8192, max(512, n))
+    steps = n * 2 * 5 // batch
+    _log(f"[word2vec] word2vec_skipgram: {n} tokens, {V} words, vec_size "
+         f"32, 1 epoch = {steps} steps of {batch} pairs: first train "
+         f"{first_s:.3f}s; {_W2V_WARM} warm trains "
+         f"{[round(t, 4) for t in times]} s, median {med:.4f}s (min "
+         f"{min(times):.4f}, max {max(times):.4f}) = {n / med:.1f} tokens/s "
+         f"[{card}]")
+    # one step at this shape, and its scatter (the three index_add_ into
+    # zeroed [V, D] buffers) on its own
+    col = frame.vec("words")
+    _, _, corpus, sent_id, cdf = W2V.build_vocab(
+        col.to_numpy(), list(col.domain), 2)
+    dev = frame.device
+    corp = torch.as_tensor(corpus.astype(np.int64), device=dev)
+    sent = torch.as_tensor(sent_id, device=dev)
+    cdf_d = torch.as_tensor(cdf, device=dev)
+    ci, off, sign, u = (a[0] for a in next(W2V.epoch_draws(
+        prng.key(3, device=dev), 1, batch, n, 5, 5, 1)))
+    Win = torch.as_tensor(model.W, device=dev)
+    Wout = Win.clone()
+    G = tuple(torch.empty_like(Win) for _ in range(3))
+    step_ms = _cuda_ms(torch, lambda: W2V._sgd_step(
+        Win, Wout, corp, sent, cdf_d, ci, off, sign, u, 1e-3, n, G),
+        _REPEATS)
+    cc, oo, _ = W2V.pairs(corp, sent, ci, off, sign, n)
+    negs = torch.searchsorted(cdf_d, u).reshape(-1)
+    gv = torch.randn((batch, 32), device=dev)
+    gn = torch.randn((batch * 5, 32), device=dev)
+
+    def scatter():
+        for g in G:
+            g.zero_()
+        G[0].index_add_(0, cc, gv)
+        G[1].index_add_(0, oo, gv)
+        G[2].index_add_(0, negs, gn)
+
+    scatter_ms = _cuda_ms(torch, scatter, _REPEATS)
+    _log(f"[word2vec] one step at this shape {step_ms:.4f} ms (median of "
+         f"{_REPEATS}, CUDA events); its scatter (3 zeroed [{V}, 32] "
+         f"buffers, {batch}·7 rows index_add_) {scatter_ms:.4f} ms [{card}]")
+    syn = model.find_synonyms(model.vocab[1], 5)
+    buf = io.BytesIO()
+    export_mojo(model, buf)
+    mm = MojoModel(io.BytesIO(buf.getvalue()))
+    same = all(np.array_equal(mm.word_vector(w), model.W[i])
+               for i, w in enumerate(model.vocab))
+    _log(f"[word2vec] find_synonyms({model.vocab[1]!r}) -> {syn}; the "
+         f"artifact ({len(buf.getvalue())} bytes) round-trips every "
+         f"word_vector bitwise: {same} [{card}]")
+    if not (len(syn) == 5 and same and np.isfinite(model.W).all()):
+        raise RuntimeError("word2vec: bad synonyms or artifact")
+    small = toks[:_W2V_PARITY_TOKENS]
+    a = fit(Frame.from_arrays({"words": small}))
+    b = fit(Frame.from_arrays({"words": small}, device="cpu"))
+    w_rel = float(np.abs(a.W - b.W).max() / np.abs(b.W).max())
+    _log(f"[word2vec] card vs CPU at {_W2V_PARITY_TOKENS} tokens: "
+         f"embeddings within {w_rel:.3e} of the largest [{card}]")
+    if a.vocab != b.vocab or w_rel > 1e-4:
+        raise RuntimeError("word2vec: card vs CPU disagree")
+    t0 = time.perf_counter()
+    big = text8_like_tokens(_TEXT8_TOKENS, vocab_size=_TEXT8_VOCAB, seed=5)
+    bframe = Frame.from_arrays({"words": big})
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tm = Word2Vec(epochs=1, seed=1).train(bframe)
+    text8_s = time.perf_counter() - t0
+    tb = min(8192, max(512, len(big)))
+    _log(f"[word2vec] the estimator's defaults (vec_size 100, window 5, 5 "
+         f"negatives, min_word_freq 5) on {len(big)} tokens "
+         f"(frame built in {build_s:.2f}s): {len(tm.vocab)} words, "
+         f"{len(big) * 10 // tb} steps of {tb} pairs in {text8_s:.3f}s = "
+         f"{len(big) / text8_s:.1f} tokens/s [{card}]")
+    if not np.isfinite(tm.W).all() or len(tm.find_synonyms(
+            tm.vocab[0], 5)) != 5:
+        raise RuntimeError("word2vec: bad text8-sized model")
+    return {"tokens": n, "vocab": V, "steps": steps, "batch": batch,
+            "train_s": times, "median_s": med, "first_s": first_s,
+            "tokens_per_s": n / med, "step_ms": step_ms,
+            "scatter_ms": scatter_ms, "parity_w_rel": w_rel,
+            "text8_tokens": len(big), "text8_vocab": len(tm.vocab),
+            "text8_build_s": build_s, "text8_s": text8_s,
+            "text8_tokens_per_s": len(big) / text8_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2627,6 +2952,11 @@ def main() -> int:
     goss_res = _phase_goss(ctx)
     ooc_res = _phase_ooc(ctx)
 
+    # -- 24-25. deeplearning, word2vec ----------------------------------------
+    ctx.profile_counts = _profile_counts
+    dl_res = _phase_deeplearning(ctx)
+    w2v_res = _phase_word2vec(ctx)
+
     # -- 24. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
@@ -2672,7 +3002,7 @@ def main() -> int:
              "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)",
              ("gbm depth 5", "huber depth 5", "xgboost_hist",
               "lambdarank", "efb gbm", "wide gbm root", "goss gbm",
-              "ooc rule", "ooc 1M"),
+              "ooc rule", "ooc 1M", "deeplearning_mlp"),
              lambda k, v: k.startswith(("gbm d5", "huber d5", "auc",
                                         "xgb d6", "rank d6", "efb d5",
                                         "wide d5", "goss d5", "ooc rule d6",
@@ -2754,6 +3084,12 @@ def main() -> int:
                              if k.startswith("drf")}
     records[3]["goss_softprob"] = {k: v for k, v in goss_res.items()
                                    if k.startswith("softprob")}
+    # phases 24-25 add no kernel; DeepLearning's train AUC launches B1
+    # (counted from zero around that call), Word2Vec none. The learners'
+    # own numbers are a line of their own.
+    records[1]["deeplearning_auc_launches"] = dl_res.pop("auc_launches")
+    _log(json.dumps({"learners": {"deeplearning": dl_res,
+                                  "word2vec": w2v_res}}))
     _log(json.dumps({"kernels": records}))
     _log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of h2o_kubernetes_tpu — GBM (every distribution of
 the JAX package, checkpoint continuation), DRF and XGBoost-hist
 (pointwise and LambdaMART ranking) training, GLM (IRLSM, L-BFGS,
-coordinate descent; seven families), MOJO-v2 export, the model registry
+coordinate descent; seven families), DeepLearning (MLP classifier and
+regressor, autoencoder, checkpoint continuation) and Word2Vec
+(skip-gram with negative sampling), MOJO-v2 export, the model registry
 and the scorer-replica serving path.
 
 Training: ``Frame.from_arrays(...)`` puts a table on a device and
@@ -11,7 +13,12 @@ histograms — for all trees of a round or a forest group at once — with
 a hand-written CUDA kernel on a card (``ops/histogram.py``,
 ``csrc/histogram.cu``); ``XGBoost(...)`` grows its trees through the
 same grower, and ``GLM(...).train(...)`` solves its IRLS steps with
-torch matmul and ``torch.linalg`` there. Serving: a scorer
+torch matmul and ``torch.linalg`` there. ``DeepLearning(...).train(...)``
+steps an ``nn.Module`` MLP with autograd and ``torch.optim`` over
+minibatches, and ``Word2Vec(...).train(frame)`` descends the
+negative-sampling loss with scattered gradients, both on the frame's
+device with the JAX package's random draws (``runtime/prng.py``, a
+bitwise twin of ``jax.random``). Serving: a scorer
 replica loads a MOJO-v2 tree artifact (as written by the JAX package's
 ``export_mojo``) or serves a trained model directly, scores rows with
 ``flat_margin`` and serves per-row TreeSHAP contributions through a
@@ -27,9 +34,11 @@ This package imports torch and never jax or h2o_kubernetes_tpu.
 """
 
 from .frame import Frame
+from .models.deeplearning import DeepLearning, DeepLearningModel
 from .models.drf import DRF, DRFModel
 from .models.gbm import GBM, GBMModel
 from .models.glm import GLM, GLMModel
+from .models.word2vec import Word2Vec, Word2VecModel
 from .models.xgboost import XGBoost, XGBoostModel
 from .mojo import MOJO_FORMAT, MojoModel, export_mojo, import_mojo, \
     read_mojo_parts
@@ -41,7 +50,8 @@ from .runtime.backend import resolve_device
 __version__ = "0.1.0"
 
 __all__ = ["GBM", "GBMModel", "DRF", "DRFModel", "XGBoost", "XGBoostModel",
-           "GLM", "GLMModel", "Frame", "FlatTreeScorer",
+           "GLM", "GLMModel", "DeepLearning", "DeepLearningModel",
+           "Word2Vec", "Word2VecModel", "Frame", "FlatTreeScorer",
            "load_artifact", "start_server", "resolve_device",
            "read_mojo_parts", "MOJO_FORMAT", "export_mojo", "import_mojo",
            "MojoModel", "ModelRegistry", "save_model", "load_model"]

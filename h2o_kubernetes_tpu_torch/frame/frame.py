@@ -48,7 +48,7 @@ class Vec:
         if x.dtype.kind == "M" or kind not in ("numeric", "enum"):
             raise NotImplementedError(
                 f"column '{name}': only numeric and enum columns are "
-                "ported (time/string columns: ROADMAP Queue 1 item 2)")
+                "ported (time/string columns: ROADMAP Queue 1 item 2b)")
         if kind == "enum":
             if x.dtype.kind == "f":  # pre-encoded float codes: NaN is NA
                 x = np.where(np.isnan(x), NA_ENUM, x)

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["DataInfo", "build_datainfo", "expand"]
+__all__ = ["DataInfo", "build_datainfo", "design", "expand"]
 
 
 def expand(X: torch.Tensor, means: torch.Tensor, stds: torch.Tensor,
@@ -47,6 +47,12 @@ def expand(X: torch.Tensor, means: torch.Tensor, stds: torch.Tensor,
     out.append(torch.ones((X.shape[0], 1), dtype=torch.float32,
                           device=X.device))     # intercept last
     return torch.cat(out, dim=1)
+
+
+def design(frame, names: list[str]) -> torch.Tensor:
+    """[rows, F] float32 raw matrix of ``names`` on the frame's device:
+    enum codes, NaN NAs (what ``expand`` takes)."""
+    return torch.stack([frame.vec(n).as_float() for n in names], dim=1)
 
 
 @dataclass

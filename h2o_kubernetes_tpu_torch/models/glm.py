@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .base import Model, TrainData, resolve_xy
-from .datainfo import DataInfo, build_datainfo, expand
+from .datainfo import DataInfo, build_datainfo, design, expand
 
 __all__ = ["GLM", "GLMModel", "GLMParams", "glm_model_from_arrays"]
 
@@ -601,11 +601,6 @@ class GLMModel(Model):
         return getattr(self, attr)
 
 
-def _design(frame, names: list[str]) -> torch.Tensor:
-    """[rows, F] float32 on the frame's device: enum codes, NaN NAs."""
-    return torch.stack([frame.vec(n).as_float() for n in names], dim=1)
-
-
 class GLM:
     """H2OGeneralizedLinearEstimator analog."""
 
@@ -718,7 +713,7 @@ class GLM:
         self._validate(data)
         dinfo = build_datainfo(data, training_frame, p.standardize,
                                drop_first=not p.use_all_factor_levels)
-        Xe = dinfo.expand(_design(training_frame, data.feature_names))
+        Xe = dinfo.expand(design(training_frame, data.feature_names))
         if p.family == "multinomial":
             model = self._train_multinomial(data, dinfo, Xe)
         else:

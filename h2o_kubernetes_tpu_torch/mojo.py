@@ -8,11 +8,15 @@ classes, distribution, offset column, depth, bins, ``drf_mode``, tree
 count, NA bin and laplace's ``margin_scale``. A GLM carries its
 coefficients ``beta`` and its design layout (``means``, ``stds``; the
 meta's ``numeric_idx``, ``enum_specs`` and ``drop_first``), family and
-link. ``export_mojo`` writes a port GBM/DRF/XGBoost/GLM model (or a
-loaded tree scorer) as one; ``read_mojo_parts`` reads any;
-``import_mojo``/``MojoModel`` score a tree or GLM artifact with numpy
-only, on any host. The JAX package's other algos raise, naming the
-ROADMAP item that ports them.
+link. A DeepLearning model carries the same design layout and its
+layers (``net_{i}_w`` [in, out], ``net_{i}_b``; the meta's activation,
+loss and ``autoencoder``); a Word2Vec model its ``embeddings`` and the
+meta's ``vocab``. ``export_mojo`` writes a port GBM/DRF/XGBoost/GLM/
+DeepLearning/Word2Vec model (or a loaded tree scorer) as one;
+``read_mojo_parts`` reads any; ``import_mojo``/``MojoModel`` score a
+tree, GLM or DeepLearning artifact and look up a Word2Vec artifact's
+vectors with numpy only, on any host. The JAX package's other algos
+raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -35,16 +39,15 @@ _READABLE_FORMATS = ("h2o_kubernetes_tpu/mojo/1", _FORMAT)
 MOJO_FORMAT = _FORMAT
 
 TREE_ALGOS = ("gbm", "drf", "xgboost")
-# the algos whose artifacts this module writes and scores
-SCORED_ALGOS = TREE_ALGOS + ("glm",)
-# the JAX package's other artifact algos, by the ROADMAP item (Queue 1)
-# that ports them
+# the algos whose artifacts this module writes and reads
+SCORED_ALGOS = TREE_ALGOS + ("glm", "deeplearning", "word2vec")
+# the JAX package's other artifact algos, by the ROADMAP item (Queue 1's
+# label) that ports them
 _UNPORTED_ALGOS = {
-    "deeplearning": "item 7", "word2vec": "item 7",
-    "kmeans": "item 7", "pca": "item 7", "glrm": "item 7",
-    "naivebayes": "item 7", "isolationforest": "item 7",
-    "coxph": "item 7", "targetencoder": "item 7",
-    "stackedensemble": "item 8"}
+    "kmeans": "item 12", "pca": "item 12", "glrm": "item 12",
+    "naivebayes": "item 12", "isolationforest": "item 12",
+    "coxph": "item 12", "targetencoder": "item 12",
+    "stackedensemble": "item 11"}
 
 
 def _unported(algo) -> str:
@@ -84,12 +87,13 @@ def write_mojo_parts(meta: dict, arrays: dict, path) -> None:
 
 
 def export_mojo(model, path):
-    """Write ``model`` (a port GBM/DRF/XGBoost/GLM model, or a scorer
-    loaded from an artifact) as a MOJO-v2 artifact at ``path`` (a
-    filesystem path or a binary file-like object); returns ``path``. The
-    arrays are the ones the model serves from (a tree model's
-    flattening, a GLM's coefficients and design layout), so an artifact
-    scores as the model does."""
+    """Write ``model`` (a port GBM/DRF/XGBoost/GLM/DeepLearning/Word2Vec
+    model, or a scorer loaded from an artifact) as a MOJO-v2 artifact at
+    ``path`` (a filesystem path or a binary file-like object); returns
+    ``path``. The arrays are the ones the model serves from (a tree
+    model's flattening, a GLM's coefficients, a network's layers, each
+    with its design layout; a Word2Vec model's embeddings), so an
+    artifact scores as the model does."""
     algo = getattr(model, "algo", None)
     if algo not in SCORED_ALGOS or not hasattr(model, "_artifact_arrays"):
         raise ValueError(f"mojo export: {_unported(algo)}")
@@ -102,7 +106,8 @@ def import_mojo(path) -> "MojoModel":
 
 
 class MojoModel:
-    """A tree or GLM artifact scored with numpy only (no torch, no
+    """A tree, GLM or DeepLearning artifact scored, or a Word2Vec
+    artifact's vectors looked up, with numpy only (no torch, no
     device)."""
 
     def __init__(self, path):
@@ -116,6 +121,9 @@ class MojoModel:
                              "the model")
         self.feature_names = self.meta["feature_names"]
         self.nclasses = self.meta["nclasses"]
+        if self.algo == "word2vec":
+            self._word_index = {w: i for i, w in
+                                enumerate(self.meta["vocab"])}
 
     def _matrix(self, data) -> np.ndarray:
         """[n, F] float32 from a mapping name -> array (numbers, or
@@ -185,11 +193,16 @@ class MojoModel:
             else self._matrix(data)
         if self.algo == "glm":
             return self._predict_glm(X, off)
+        if self.algo == "deeplearning":
+            return self._predict_deeplearning(X, off)
+        if self.algo == "word2vec":
+            raise ValueError("word2vec artifacts score no rows: use "
+                             "word_vector() or find_synonyms()")
         return self._combine(self._totals(X), off)
 
     def _expand(self, X) -> np.ndarray:
-        """The GLM design expansion (``models/datainfo.expand``) in
-        numpy float32: mean-imputed standardized numerics, one-hot enums,
+        """The design expansion of GLM and DeepLearning
+        (``models/datainfo.expand``) in numpy float32: mean-imputed standardized numerics, one-hot enums,
         the intercept last."""
         m = self.meta
         means, stds = self.arrays["means"], self.arrays["stds"]
@@ -235,6 +248,57 @@ class MojoModel:
         if fam == "binomial":
             return np.stack([1 - mu, mu], axis=1)
         return mu
+
+    def _predict_deeplearning(self, X, off=None) -> np.ndarray:
+        """[n, K] softmax probabilities, an autoencoder's [n, P]
+        reconstruction, or [n] regression predictions (plus the offset:
+        the net was fit to y - offset)."""
+        m = self.meta
+        h = self._expand(X)[:, :-1]          # the bias is in the layers
+        act = np.tanh if m["activation"] == "tanh" else \
+            (lambda v: np.maximum(v, 0.0))
+        L = m["n_layers"]
+        for i in range(L - 1):
+            h = act(h @ self.arrays[f"net_{i}_w"] +
+                    self.arrays[f"net_{i}_b"])
+        out = h @ self.arrays[f"net_{L - 1}_w"] + \
+            self.arrays[f"net_{L - 1}_b"]
+        if m["loss_kind"] == "ce":
+            z = np.exp(out - out.max(axis=1, keepdims=True))
+            return z / z.sum(axis=1, keepdims=True)
+        if m["autoencoder"]:
+            return out
+        if off is not None:
+            return out[:, 0] + off
+        return out[:, 0]
+
+    # -- word2vec accessors (the embeddings are the model) -------------------
+
+    def word_vector(self, word: str) -> np.ndarray:
+        """A word's embedding row; KeyError for a word not in the
+        vocabulary."""
+        if self.algo != "word2vec":
+            raise ValueError("word_vector() is a word2vec accessor")
+        if word not in self._word_index:
+            raise KeyError(word)
+        return self.arrays["embeddings"][self._word_index[word]]
+
+    def find_synonyms(self, word: str, count: int = 10) -> dict:
+        """The ``count`` words of highest cosine similarity to ``word``
+        (itself excluded), highest first."""
+        W = self.arrays["embeddings"]
+        vocab = self.meta["vocab"]
+        v = self.word_vector(word)
+        sims = (W @ v) / (np.linalg.norm(W, axis=1) *
+                          np.linalg.norm(v) + 1e-12)
+        out = {}
+        for i in np.argsort(-sims):
+            if vocab[i] == word:
+                continue
+            out[vocab[i]] = float(sims[i])
+            if len(out) >= count:
+                break
+        return out
 
     def _totals(self, X):
         """[n, K] per-class float64 leaf-value sums over the flattened

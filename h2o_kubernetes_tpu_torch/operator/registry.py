@@ -324,7 +324,7 @@ class ModelRegistry:
         sequence of (artifact, version, model_key) entries; returns the
         per-artifact load responses. (The JAX package's replica also
         takes a required-model set first, ``/3/ModelRegistry/require``;
-        the port's replica gains that route with ROADMAP Queue 1 item 9,
+        the port's replica gains that route with ROADMAP Queue 1 item
         7b-2.)"""
         return [self.push(base_url, name, version, key,
                           warm_buckets=warm_buckets, timeout=timeout)

@@ -4,7 +4,7 @@ save and load.
 Backends (the JAX package's ``PERSIST_SCHEMES`` registry): bare paths
 are the local file system, ``mem://`` an in-process object store.
 HTTP(S) and the cloud stores (``s3://``, ``gs://``, ``hdfs://``) raise,
-naming ROADMAP Queue 1 item 10, which ports them.
+naming ROADMAP Queue 1 item 13, which ports them.
 
 A model file holds plain data only: numpy arrays, numbers, strings,
 lists and dicts, pickled from the CPU behind a magic line; the loader
@@ -47,7 +47,7 @@ def _unported_scheme(scheme: str):
     def refuse(path: str, *_):
         raise NotImplementedError(
             f"the {scheme}:// persist backend is not ported (ROADMAP "
-            "Queue 1 item 10); use a local path or mem://")
+            "Queue 1 item 13); use a local path or mem://")
     return refuse
 
 

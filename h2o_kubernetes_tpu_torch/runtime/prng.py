@@ -16,8 +16,16 @@ the same bits:
   (``jax.vmap(jax.random.fold_in, in_axes=(None, 0))``);
 - ``random_bits(key, shape)``: 32-bit draws, ``y0 ^ y1`` of the
   threefry of each element's row-major counter;
-- ``uniform(key, shape)``: the mantissa trick,
-  ``f32(bits >> 9 | 0x3F800000) - 1``;
+- ``uniform(key, shape, minval, maxval)``: the mantissa trick,
+  ``f = f32(bits >> 9 | 0x3F800000) - 1``, then
+  ``max(minval, f·(maxval − minval) + minval)`` in float32 with the
+  multiply-add fused, as XLA's CPU backend emits it;
+- ``bernoulli(key, p, shape)``: ``uniform(key, shape) < f32(p)``;
+- ``normal(key, shape)``: ``sqrt(2)·erf_inv(u)`` with u uniform on
+  ``[nextafter(-1, 0), 1)``, through XLA's float32 ``erf_inv`` (Giles'
+  polynomial) and its ``log1p`` (a Cephes rational for small
+  arguments, else its own ``log`` polynomial), transcribed operation
+  by operation with the same fused multiply-adds;
 - ``randint(key, shape, lo, hi)``: two 32-bit draws per value combined
   by the multiply-mod of ``jax.random.randint`` (int32 sampling).
 
@@ -34,10 +42,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint",
-           "threefry2x32"]
+           "bernoulli", "normal", "threefry2x32"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -115,11 +124,127 @@ def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
     return (y0 ^ y1).reshape(k.shape[:-1] + shape)
 
 
-def uniform(k: torch.Tensor, shape) -> torch.Tensor:
-    """[..., 2] key -> [..., *shape] float32 in [0, 1)
-    (``jax.random.uniform``)."""
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a·b + c`` rounded once, as a fused multiply-add (XLA's
+    CPU backend contracts a multiply feeding one add into an FMA). The
+    product of two float32 values is exact in float64; the float64 sum
+    is made round-to-odd (its exact error, from TwoSum, moves an inexact
+    sum with an even last bit one ulp toward the exact value), and a
+    round-to-odd float64 rounds to float32 as the exact value would,
+    since float64 carries more than float32's 24 bits + 2. A plain
+    float64 sum would round twice: wrong where it lands on a float32
+    halfway point the exact value is not on."""
+    p = a.double() * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, math.inf), e)
+    fix = even & (e != 0) & torch.isfinite(e)
+    return torch.where(fix, torch.nextafter(s, toward), s).float()
+
+
+def uniform(k: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """[..., 2] key -> [..., *shape] float32 in [minval, maxval)
+    (``jax.random.uniform``). The bounds are float32, their span a
+    float32 difference, and ``f·span + minval`` one fused multiply-add."""
     bits = (random_bits(k, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return f                        # f·1 + 0 and max(0, f) are f
+    lo = float(np.float32(minval))
+    span = float(np.float32(np.float32(maxval) - np.float32(lo)))
+    return torch.clamp_min(_fma(f, span, lo), lo)
+
+
+def bernoulli(k: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """[..., 2] key -> [..., *shape] bool, true with probability p
+    (``jax.random.bernoulli``: a float32 uniform below float32 p)."""
+    return uniform(k, shape) < float(np.float32(p))
+
+
+# XLA's float32 log1p on the CPU: |x| < 0.41421357 takes the Cephes
+# rational x - x²/2 + x³·P(x)/Q(x); otherwise log(1 + x) through the
+# Cephes logf polynomial on the mantissa in [sqrt(1/2), sqrt(2))
+_LOG1P_P = (4.527e-05, 0.49854103, 6.5787325, 29.911919, 60.94967,
+            57.112965, 20.039553)
+_LOG1P_Q = (1.0, 15.062909, 83.04757, 221.7624, 309.09872, 216.42789,
+            60.11866)
+_LOGF_A = ((0.070376836, -0.1151461, 0.116769984),
+           (-0.12420141, 0.14249323, -0.16668057),
+           (0.20000714, -0.24999994, 0.3333333))
+# Giles' erf_inv polynomial, w < 5 and w >= 5 (XLA's ErfInv32)
+_ERFINV_LT = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
+
+
+def _sqrt(a: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt (float64 carries more than twice
+    float32's precision, so its rounding to float32 is exact; torch's
+    float32 CPU sqrt is not always correctly rounded)."""
+    return torch.sqrt(a.double()).float()
+
+
+def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``a / b`` (as ``_sqrt``)."""
+    return (a.double() / b.double()).float()
+
+
+def _c(v: float) -> float:
+    """A constant as the float32 XLA holds it."""
+    return float(np.float32(v))
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log1p`` for x > -1, operation by operation."""
+    v = x + 1.0
+    bits = torch.clamp_min(v, _c(1.1754944e-38)).view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    ef = ((bits >> 23) - 127).float() + 1.0
+    low = m < _c(0.70710677)
+    t = (m - 1.0) + torch.where(low, m, 0.0)
+    ef = ef - low.float()
+    z = t * t
+    x3 = z * t
+    p = [_fma(_fma(t, _c(a), _c(b)), t, _c(c)) for a, b, c in _LOGF_A]
+    q = _fma(_fma(p[0], x3, p[1]), x3, p[2])
+    y = _fma(q, x3, ef * _c(-0.00021219444))
+    big = _fma(ef, 0.693359375, (t - z * 0.5) + y)
+    x2 = x * x
+    num = torch.full_like(x, _c(_LOG1P_P[0]))
+    den = torch.ones_like(x)
+    for a, b in zip(_LOG1P_P[1:], _LOG1P_Q[1:]):
+        num = _fma(num, x, _c(a))
+        den = _fma(den, x, _c(b))
+    small = x + _fma(x2, -0.5, (x * x2) * _div(num, den))
+    return torch.where(torch.abs(x) < _c(0.41421357), small, big)
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` (Giles), every multiply-add fused."""
+    w = -_log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
+    lt_c = torch.tensor(_ERFINV_LT, dtype=torch.float32, device=x.device)
+    ge_c = torch.tensor(_ERFINV_GE, dtype=torch.float32, device=x.device)
+    coef = torch.where(lt[..., None], lt_c, ge_c)
+    p = coef[..., 0]
+    for i in range(1, len(_ERFINV_LT)):
+        p = _fma(p, w, coef[..., i].double())
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
+
+
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """[..., 2] key -> [..., *shape] float32 standard normals
+    (``jax.random.normal``)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, lo, 1.0)
+    return _erf_inv(u) * _c(np.sqrt(2.0))
 
 
 def randint(k: torch.Tensor, shape, lo: int, hi: int) -> torch.Tensor:

@@ -146,11 +146,11 @@ def test_unported_artifact_algos_name_their_item():
     with zipfile.ZipFile(buf, "w") as z:
         z.writestr("model.json", json.dumps({
             "format": "h2o_kubernetes_tpu/mojo/2",
-            "algo": "deeplearning"}))
+            "algo": "kmeans"}))
         z.writestr("arrays.npz", npz.getvalue())
     with pytest.raises(NotImplementedError,
-                       match="'deeplearning' artifacts are not ported "
-                             r"\(ROADMAP Queue 1 item 7\)"):
+                       match="'kmeans' artifacts are not ported "
+                             r"\(ROADMAP Queue 1 item 12\)"):
         MojoModel(io.BytesIO(buf.getvalue()))
     with pytest.raises(ValueError, match="not ported"):
         export_mojo(object(), io.BytesIO())
@@ -287,7 +287,7 @@ def test_model_file_refuses_code(tmp_path):
     p.write_bytes(b"H2OTPU-TORCH1\n" + pickle.dumps({"x": Evil()}))
     with pytest.raises(pickle.UnpicklingError, match="not plain data"):
         load_model(str(p), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         persist.read_bytes("s3://bucket/m.model")
 
 
@@ -366,3 +366,134 @@ def test_leaf_node_assignment(models, kind):
         assert got.vec(n).domain == want.vec(n).domain
     with pytest.raises(ValueError):
         pm.predict_leaf_node_assignment(models["th"], type="Leaf")
+
+
+# -- DeepLearning and Word2Vec artifacts, both ways -------------------------
+
+def _jax_dl_model(tm, rng):
+    """A JAX-package DeepLearningModel with the port model's layout and
+    fresh random weights (built from numpy: nothing compiles)."""
+    from h2o_kubernetes_tpu.models import deeplearning as JDLM
+    from h2o_kubernetes_tpu.models.base import TrainData as JTrainData
+    from h2o_kubernetes_tpu.models.datainfo import DataInfo as JDataInfo
+
+    d = tm.dinfo
+    jd = JDataInfo(list(d.coef_names), list(d.numeric_idx),
+                   [tuple(s) for s in d.enum_specs], d.means, d.stds,
+                   d.n_expanded, d.drop_first)
+    data = JTrainData(tm.feature_names, None, None, None, 0, tm.nclasses,
+                      tm.response_domain, tm.distribution,
+                      tm.feature_domains)
+    net = [{"w": rng.normal(size=l["w"].shape).astype(np.float32),
+            "b": rng.normal(size=l["b"].shape).astype(np.float32)}
+           for l in tm.net_numpy()]
+    jm = JDLM.DeepLearningModel(data, JDLM.DeepLearningParams(
+        hidden=tm.params.hidden, autoencoder=tm.params.autoencoder,
+        activation=tm.params.activation), jd, net, tm.loss_kind)
+    jm.offset_column = tm.offset_column
+    return jm
+
+
+@pytest.fixture(scope="module")
+def dl_w2v():
+    from h2o_kubernetes_tpu_torch import DeepLearning, Word2Vec
+
+    from test_torch_deeplearning import dl_cols
+
+    cols = dl_cols(512)
+    hold = dl_cols(200, seed=4)
+    fr = Frame.from_arrays(cols, device="cpu")
+    kw = dict(hidden=(6, 5), epochs=1, seed=2)
+    resp = ["y", "yr", "ym", "w", "off"]
+    dl = {"binomial": DeepLearning(**kw).train(
+              y="y", training_frame=fr, ignored_columns=resp[1:]),
+          "offset": DeepLearning(activation="tanh", **kw).train(
+              y="yr", training_frame=fr, offset_column="off",
+              ignored_columns=["y", "ym", "w"]),
+          "autoencoder": DeepLearning(hidden=(3,), epochs=1, seed=2,
+                                      autoencoder=True).train(
+              training_frame=fr, ignored_columns=resp)}
+    toks = np.array([f"w{i % 37}" for i in range(3000)], dtype=object)
+    toks[::11] = None
+    w2v = Word2Vec(vec_size=8, epochs=1, min_word_freq=2, seed=3).train(
+        Frame.from_arrays({"words": toks}, device="cpu"))
+    return dl, hold, w2v
+
+
+def _dl_src(m, hold):
+    X = _dmatrix(m, hold)
+    if not m.offset_column:
+        return X, X
+    data = {n: X[:, j] for j, n in enumerate(m.feature_names)}
+    data["off"] = hold["off"]
+    return X, data
+
+
+@pytest.mark.parametrize("which", ["binomial", "offset", "autoencoder"])
+def test_deeplearning_artifacts_both_ways(dl_w2v, which):
+    """A port DeepLearning artifact scores in the JAX package's
+    MojoModel within 1e-6 of the port model's score_numpy (and in the
+    port's MojoModel as in the JAX package's, 1e-12: both float64
+    numpy); a JAX-written artifact scores in the port's MojoModel as in
+    the JAX package's, and a port model built from its parts scores it
+    within 1e-6."""
+    from h2o_kubernetes_tpu_torch.models.deeplearning import \
+        deeplearning_model_from_arrays
+
+    m, hold = dl_w2v[0][which], dl_w2v[1]
+    X, src = _dl_src(m, hold)
+    off = hold["off"] if m.offset_column else None
+    blob = _blob(m)
+    meta, arrays, _ = read_mojo_parts(io.BytesIO(blob))
+    assert meta["algo"] == "deeplearning" and meta["n_layers"] == len(
+        m.net.layers) and meta["autoencoder"] == (which == "autoencoder")
+    want = jmojo.MojoModel(io.BytesIO(blob)).predict(src)
+    np.testing.assert_allclose(m.score_numpy(X, offset=off), want,
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(MojoModel(io.BytesIO(blob)).predict(src),
+                               want, rtol=1e-12, atol=0)
+    jm = _jax_dl_model(m, np.random.default_rng(7))
+    jbuf = io.BytesIO()
+    jmojo.export_mojo(jm, jbuf)
+    want = jmojo.MojoModel(io.BytesIO(jbuf.getvalue())).predict(src)
+    np.testing.assert_allclose(
+        MojoModel(io.BytesIO(jbuf.getvalue())).predict(src), want,
+        rtol=1e-12, atol=0)
+    meta, arrays, _ = read_mojo_parts(io.BytesIO(jbuf.getvalue()))
+    pm = deeplearning_model_from_arrays(
+        [{"w": arrays[f"net_{i}_w"], "b": arrays[f"net_{i}_b"]}
+         for i in range(meta["n_layers"])], m.dinfo.coef_names,
+        meta["numeric_idx"], meta["enum_specs"], arrays["means"],
+        arrays["stds"], meta["feature_names"], meta["loss_kind"],
+        meta["response_domain"], meta["feature_domains"],
+        offset_column=meta["offset_column"], device="cpu",
+        activation=meta["activation"], autoencoder=meta["autoencoder"])
+    np.testing.assert_allclose(pm.score_numpy(X, offset=off), want,
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_word2vec_artifacts_both_ways(dl_w2v):
+    """Word vectors round-trip bitwise both ways and the synonyms agree."""
+    from h2o_kubernetes_tpu.models.word2vec import Word2VecModel as JW2V
+
+    w2v = dl_w2v[2]
+    blob = _blob(w2v)
+    mine, theirs = MojoModel(io.BytesIO(blob)), jmojo.MojoModel(
+        io.BytesIO(blob))
+    for word in w2v.vocab[:5]:
+        v = w2v.W[w2v.word_index[word]]
+        np.testing.assert_array_equal(mine.word_vector(word), v)
+        np.testing.assert_array_equal(theirs.word_vector(word), v)
+        assert list(mine.find_synonyms(word, 5)) == \
+            list(theirs.find_synonyms(word, 5))
+    W = np.random.default_rng(1).normal(size=(4, 3)).astype(np.float32)
+    jm = JW2V(None, ["a", "b", "c", "d"], np.ones(4), W)
+    jbuf = io.BytesIO()
+    jmojo.export_mojo(jm, jbuf)
+    got = MojoModel(io.BytesIO(jbuf.getvalue()))
+    for i, word in enumerate("abcd"):
+        np.testing.assert_array_equal(got.word_vector(word), W[i])
+    with pytest.raises(KeyError):
+        got.word_vector("zz")
+    with pytest.raises(ValueError, match="score no rows"):
+        got.predict(np.zeros((2, 1), np.float32))

@@ -233,7 +233,7 @@ def _objective(b, dinfo, frame_cols, name):
     fam, y, kw, _ = _args(name)
     tf = Frame.from_arrays(frame_cols, device="cpu")
     data = tresolve(tf, y, ignored=[c for c in _RESP if c != y])
-    Xe = dinfo.expand(tglm._design(tf, data.feature_names)).double().numpy()
+    Xe = dinfo.expand(tglm.design(tf, data.feature_names)).double().numpy()
     eta = Xe @ b
     yv, w = data.y.double().numpy(), data.w.double().numpy()
     if fam == "multinomial":

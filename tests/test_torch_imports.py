@@ -45,7 +45,8 @@ def test_imports_without_jax():
         "metrics", "models.gbm", "models.drf", "runtime.prng", "mojo",
         "persist", "operator.registry", "runtime.retry", "models.xgboost",
         "models.glm", "models.datainfo", "models.tree.efb",
-        "models.tree.ooc")} <= names
+        "models.tree.ooc", "models.deeplearning",
+        "models.word2vec")} <= names
 
 
 def test_no_source_imports_jax_or_reference():
@@ -73,9 +74,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
-    """Frame.from_arrays (and so GBM.train, DRF.train, XGBoost.train
-    and GLM.train, which train where the frame lives) and the
-    carried-across models default to the card."""
+    """Frame.from_arrays (and so GBM.train, DRF.train, XGBoost.train,
+    GLM.train, DeepLearning.train and Word2Vec.train, which train where
+    the frame lives) and the carried-across models default to the
+    card."""
+    from h2o_kubernetes_tpu_torch.models.deeplearning import (
+        carry_net, deeplearning_model_from_arrays)
     from h2o_kubernetes_tpu_torch.models.gbm import gbm_model_from_arrays
     from h2o_kubernetes_tpu_torch.models.glm import glm_model_from_arrays
     from h2o_kubernetes_tpu_torch.models.xgboost import \
@@ -94,8 +98,26 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         glm_model_from_arrays([0.5, 0.0], ["x", "Intercept"], [0], [],
                               [0.0], [1.0], True, ["x"], "binomial")
+    net = [{"w": [[0.5]], "b": [0.0]}]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        carry_net(net)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deeplearning_model_from_arrays(net, ["x", "Intercept"], [0], [],
+                                       [0.0], [1.0], ["x"], "mse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.Word2Vec(min_word_freq=1).train(port.Frame.from_arrays(
+            {"w": ["a", "b", None, "a"]}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.DeepLearning(hidden=(2,), epochs=1).train(
+            y="y", training_frame=port.Frame.from_arrays(cols))
     fr = port.Frame.from_arrays(cols, device="cpu")
     assert fr.device.type == "cpu" and fr["y"].is_enum()
+    model = port.DeepLearning(hidden=(2,), epochs=1).train(
+        y="y", training_frame=fr)
+    assert model.device.type == "cpu" and model.algo == "deeplearning"
+    w2v = port.Word2Vec(min_word_freq=1, vec_size=4).train(
+        port.Frame.from_arrays({"w": ["a", "b", None, "a"]}, device="cpu"))
+    assert w2v.W.shape == (2, 4) and w2v.algo == "word2vec"
     model = port.DRF(ntrees=1, max_depth=1, min_rows=1.0).train(
         y="y", training_frame=fr)
     assert model.device.type == "cpu" and model.algo == "drf"

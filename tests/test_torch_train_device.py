@@ -214,3 +214,36 @@ def test_efb_goss_ooc_train_on_the_card(monkeypatch, case):
         cols, device="cpu"))
     for k, v in c.scoring_history[-1].items():
         assert abs(m.scoring_history[-1][k] - v) <= 1e-4, (case, k)
+
+
+@pytest.mark.cuda
+def test_deeplearning_and_word2vec_train_on_the_card_by_default():
+    """DeepLearning and Word2Vec train where the frame lives, the card
+    by default, with the JAX package's draws: the DL init is bitwise the
+    CPU's, the trains agree with the CPU's (DL train metrics within
+    1e-4 and the weights within 1e-4 of each layer's largest; W2V
+    embeddings within 1e-4 of the largest, the card's scatter adds in
+    another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from h2o_kubernetes_tpu_torch import DeepLearning, Word2Vec
+
+    cols = _cols(4000)
+    card, cpu = Frame.from_arrays(cols), Frame.from_arrays(cols, device="cpu")
+    kw = dict(hidden=(16, 16), epochs=2, seed=1)
+    m = DeepLearning(**kw).train(y="y", training_frame=card)
+    c = DeepLearning(**kw).train(y="y", training_frame=cpu)
+    assert m.device.type == "cuda"
+    for k, v in c.scoring_history[-1].items():
+        assert abs(m.scoring_history[-1][k] - v) <= 1e-4, k
+    for a, b in zip(m.net_numpy(), c.net_numpy()):
+        assert np.abs(a["w"] - b["w"]).max() <= 1e-4 * np.abs(b["w"]).max()
+    rng = np.random.default_rng(3)
+    toks = np.array([f"w{i}" for i in rng.zipf(1.3, 20_000) % 400],
+                    dtype=object)
+    toks[::15] = None
+    wk = dict(vec_size=16, epochs=1, min_word_freq=2, seed=1)
+    a = Word2Vec(**wk).train(Frame.from_arrays({"t": toks}))
+    b = Word2Vec(**wk).train(Frame.from_arrays({"t": toks}, device="cpu"))
+    assert a.vocab == b.vocab
+    assert np.abs(a.W - b.W).max() <= 1e-4 * np.abs(b.W).max()

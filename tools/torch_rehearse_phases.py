@@ -1,5 +1,6 @@
-"""Rehearse chip_smoke.py's phases 18-23 (xgboost, lambdarank, glm,
-efb, goss, ooc) on the CPU, without a card, at small sizes: the entry
+"""Rehearse chip_smoke.py's phases 18-25 (xgboost, lambdarank, glm,
+efb, goss, ooc, deeplearning, word2vec) on the CPU, without a card, at
+small sizes: the entry
 points' default device resolves to
 the CPU, the histogram and TreeSHAP kernels are replaced by counting
 fakes over their plain versions (the histogram fake sums in float64 and
@@ -12,15 +13,19 @@ are the CPU's and say nothing of the card.
         [--rows 70000] [--rank-rows 20000] [--phases xgboost,lambdarank,glm]
         [--ws-rows 200000 --ws-groups 2 --efb-hist-budget 20000000]
         [--goss-rows 200000] [--ooc-rows 300000]
+        [--dl-rows 70000] [--w2v-tokens 50000] [--text8-tokens 300000]
 
 With ``--card`` it installs no fakes and runs the phases on the card at
 the given sizes (kernels built on first use): a short check of new
 phases before a whole chip_smoke.py run.
 
-``--rows`` must exceed 65,536 (phase 18 and 20 compare card and CPU on
-that many rows; the AUC takes its histogram path past it). The
+``--rows`` and ``--dl-rows`` must exceed 65,536 (phases 18 and 20
+compare card and CPU on that many rows; the AUC takes its histogram
+path past it, which phases 18 and 24 hold). The
 xgboost phase takes ~1 min at the defaults on one CPU, lambdarank ~30 s,
-glm ~10 s.
+glm ~10 s. ``--phases deeplearning,word2vec`` at the defaults takes
+~2 min (the text8-sized corpus cut to ``--text8-tokens``; the profiled
+launch counts are the card's alone, zero here).
 """
 
 from __future__ import annotations
@@ -103,6 +108,9 @@ def main() -> int:
     ap.add_argument("--ws-groups", type=int, default=4)
     ap.add_argument("--goss-rows", type=int, default=200_000)
     ap.add_argument("--ooc-rows", type=int, default=300_000)
+    ap.add_argument("--dl-rows", type=int, default=70_000)
+    ap.add_argument("--w2v-tokens", type=int, default=50_000)
+    ap.add_argument("--text8-tokens", type=int, default=300_000)
     ap.add_argument("--efb-hist-budget", type=int, default=None,
                     help="H2O_TPU_HIST_BYTES_BUDGET for the efb phase, so "
                          "that a small unbundled frame goes out of core "
@@ -125,6 +133,8 @@ def main() -> int:
         cs._OOC_SMALL_CHUNK = -(-args.ooc_rows // 10)
     cs._WS_ROWS, cs._WS_GROUPS = args.ws_rows, args.ws_groups
     cs._GOSS_ROWS, cs._OOC_ROWS = args.goss_rows, args.ooc_rows
+    cs._DL_ROWS, cs._W2V_TOKENS = args.dl_rows, args.w2v_tokens
+    cs._TEXT8_TOKENS = args.text8_tokens
     if not args.card:
         cs._upload_gbs = lambda torch, nbytes: {"pinned": 0.0,
                                                 "pageable": 0.0}
@@ -137,7 +147,9 @@ def main() -> int:
         hframe=Frame.from_arrays(hcols, domains=hdom), hcols=hcols,
         hdom=hdom, mframe=Frame.from_arrays(cs._multinomial_cols(
             args.rows // 2, 0)),
-        book=cs._LevelBook(torch, H, "rehearsal", 2))
+        book=cs._LevelBook(torch, H, "rehearsal", 2),
+        profile_counts=cs._profile_counts if args.card else
+        (lambda torch, fn: (fn(), (0, 0.0, 1.0))[1]))
     for phase in args.phases.split(","):
         t0 = time.perf_counter()
         budget = args.efb_hist_budget if phase == "efb" else None
