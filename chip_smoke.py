@@ -4,7 +4,8 @@ scorer-replica serving path, binomial GBM training, DRF and multinomial
 GBM training, the other GBM distributions, checkpoint continuation, the
 train -> export -> registry -> replica loop, XGBoost-hist (pointwise and
 LambdaMART ranking), GLM, Exclusive Feature Bundling, GOSS,
-out-of-core boosting, DeepLearning and Word2Vec on one CUDA card.
+out-of-core boosting, DeepLearning, Word2Vec, and the Frame from a CSV
+file through munging to a GBM's holdout metrics on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -185,14 +186,33 @@ Phases, in order; any failure exits non-zero:
    vs CPU on 20,000 tokens (embeddings within 1e-4 of the largest); the
    estimator's defaults on a text8-sized corpus (17,005,207 tokens,
    71,290 words) once, as tokens/s;
-26. report — one JSON line of kernel records (B4 with its variants,
+26. frame — BASELINE config #1 from the file (tools/bench_suite.py's
+   ingest_airlines_csv at its on-chip size, :157-158 and :189-203):
+   tools/datasets.airlines_csv at 1,000,000 rows (27 columns, 5 enums)
+   written under build/frame, import_file on the card as rows/s, MB/s
+   and cells/s with the CSV path taken (pyarrow's reader or the
+   pure-Python one), card = CPU bitwise; split_frame, two sorts,
+   group_by, merge (a 1,000,000-row left join), impute, table,
+   quantile, a filter, asfactor and rbind, each a synchronized median
+   of 3 on the card, held against the CPU's (bitwise; the group sums
+   within 1e-6 of each group's Σ|x|); GBM ntrees=10 max_depth=5 seed=1
+   on the 0.8 split part, model_performance on the 0.2 part: warm train
+   s, rows·trees/s, train and holdout AUC and logloss, B1's launches on
+   that path, card vs CPU on 200,000 of the train rows (the CPU's
+   histograms summed in float64: structure up to float64 near-ties,
+   holdout AUC within 1e-4; the CPU on float32 plain histograms
+   reported beside it), B1 held at the train's
+   five levels and its two AUC inputs (train, holdout); save_frame -> load_frame bitwise, export_file ->
+   import_file equal to the frame as %g text writes it, and a
+   1,000,000-value time column's as_float and to_numpy card = CPU;
+27. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
    row partition; the launches of phases 15-23 beside each, B1's levels
    including the xgboost_hist, lambdarank, bundled, compacted and chunk
-   trains' and DeepLearning's AUC, B4's models the XGBoost and the
-   bundled one), one JSON line of phases 24-25's learner numbers (they
-   add no kernel), the card line, and as the last line {"ok": true,
-   "device": {...}}.
+   trains', DeepLearning's AUC and the airlines train's, B4's models
+   the XGBoost and the bundled one), one JSON line of phases 24-25's
+   learner numbers and one of phase 26's (they add no kernel), the card
+   line, and as the last line {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
 contrib_numpy, GBM train, DRF train and multinomial train call, of one
@@ -298,6 +318,16 @@ _TEXT8_VOCAB = 71_290
 # its Σ|v|: above the kernel's float32 rounding at 1,000,000 rows, below
 # what bf16-rounded values give
 _HIST_REL_LIMIT = 1e-4
+# phase 26, the airlines CSV (tools/bench_suite.py's ingest_airlines_csv
+# at its on-chip size, :157-158 and :189-203) -> split -> GBM
+_FRAME_ROWS = 1_000_000
+_FRAME_REPEATS = 3
+_FRAME_TREES = 10
+_FRAME_DEPTH = 5
+_FRAME_WARM = 3
+_GROUP_SUM_LIMIT = 1e-6
+_HOLDOUT_AUC_LIMIT = 1e-4
+_FRAME_PARITY_ROWS = 200_000
 
 
 def _log(msg: str) -> None:
@@ -761,14 +791,30 @@ def _auc_case(rec, label: str, dtype) -> tuple:
     return (f"auc ({label})", lv[0][1], 4096, sum(c for _, _, c in lv))
 
 
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``a·b + c`` rounded once, in numpy: the float64 product
+    is exact, the float64 sum is made round-to-odd (TwoSum's exact error
+    moves an inexact sum with an even last bit one ulp toward the exact
+    value), and a round-to-odd float64 rounds to float32 as the exact
+    value would."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    fix = ((s.view(np.int64) & 1) == 0) & (e != 0) & np.isfinite(e)
+    return np.where(fix, np.nextafter(s, np.copysign(np.inf, e)),
+                    s).astype(np.float32)
+
+
 def _xla_nanquantile(x: np.ndarray, q: float) -> np.float32:
     """``jnp.nanquantile(x, q)`` of float32 ``x`` as XLA computes it,
-    transcribed in numpy with no JAX: the live count in float32, the
-    position ``q * (count - 1)``, floor/ceil, weights ``hw = pos -
-    floor`` and ``lw = 1 - hw`` in float32, and XLA's contraction
-    ``fma(hi, hw, lo * lw)`` (float64 product and sum rounded once)."""
+    transcribed in numpy with no JAX: a stable sort (NaN last), the live
+    count in float32, the position ``q * (count - 1)``, floor/ceil,
+    weights ``hw = pos - floor`` and ``lw = 1 - hw`` in float32, and
+    XLA's contraction ``fma(hi, hw, lo * lw)`` rounded once."""
     f32 = np.float32
-    s = np.sort(x)                                  # NaN last
+    s = np.sort(x, kind="stable")                   # NaN last
     count = f32(np.count_nonzero(~np.isnan(x)))
     pos = f32(q) * (count - f32(1))
     hw = f32(pos - np.floor(pos))
@@ -776,7 +822,7 @@ def _xla_nanquantile(x: np.ndarray, q: float) -> np.float32:
     last = count - f32(1)
     lo = s[int(max(min(np.floor(pos), last), 0))]
     hi = s[int(max(min(np.ceil(pos), last), 0))]
-    return f32(np.float64(hi) * np.float64(hw) + np.float64(f32(lo * lw)))
+    return f32(_fma32(hi, hw, f32(lo * lw)))
 
 
 def _shap_compare(torch, shap_kernel, model, X: np.ndarray, label: str,
@@ -2210,6 +2256,383 @@ def _phase_word2vec(c) -> dict:
             "text8_tokens_per_s": len(big) / text8_s}
 
 
+def _tensors_equal(torch, x, y) -> bool:
+    """Bitwise, NaN-aware: equal dtypes, NaN positions equal, every
+    other value bit for bit (a NaN's payload is not a value); ``y``
+    copied to ``x``'s device."""
+    y = y.to(x.device)
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if x.is_floating_point():
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        if not torch.equal(nx, ny):
+            return False
+        bits = torch.int32 if x.element_size() == 4 else torch.int64
+        x, y = (torch.where(nx, 0.0, x).view(bits),
+                torch.where(ny, 0.0, y).view(bits))
+    return torch.equal(x, y)
+
+
+def _frames_equal(torch, a, b) -> bool:
+    """Names, kinds, domains and time origins equal, and every column
+    bitwise (``_tensors_equal``)."""
+    if a.names != b.names or a.nrows != b.nrows:
+        return False
+    for n in a.names:
+        u, v = a[n], b[n]
+        if (u.kind, u.domain) != (v.kind, v.domain) or (
+                u.kind == "time" and u.origin != v.origin
+                and not (np.isnan(u.origin) and np.isnan(v.origin))):
+            return False
+        if not _tensors_equal(torch, u.data, v.data):
+            return False
+    return True
+
+
+class _Float64Plain:
+    """Within the block, the histogram's plain version (what a CPU
+    tensor takes) sums in float64 and rounds each cell to float32 once."""
+
+    def __init__(self, hist_op):
+        self.op, self.plain = hist_op, hist_op.histogram_plain
+
+    def __enter__(self):
+        plain = self.plain
+        self.op.histogram_plain = lambda b, r, v, n, B: plain(
+            b, r, v.double(), n, B).to(v.dtype)
+        return self
+
+    def __exit__(self, *exc):
+        self.op.histogram_plain = self.plain
+
+
+def _group_scale(src, keys, col, out) -> tuple[np.ndarray, np.ndarray]:
+    """Per row of a group_by result ``out``: the group's Σ|x| of column
+    ``col`` of the source frame ``src`` (float64, on the host) and its
+    live count — the yardstick of the float32 segment sums."""
+    def key_matrix(f):
+        return np.stack([np.where(np.isnan(f[k].to_numpy().astype(
+            np.float64)), np.inf, f[k].to_numpy()) for k in keys], 1)
+    ks = key_matrix(src)
+    uniq, inv = np.unique(ks, axis=0, return_inverse=True)
+    x = src[col].as_float().cpu().numpy().astype(np.float64)
+    ok = ~np.isnan(x)
+    scale = np.bincount(inv.ravel()[ok], np.abs(x[ok]), len(uniq))
+    cnt = np.bincount(inv.ravel()[ok], minlength=len(uniq))
+    ko = key_matrix(out)
+    pos = {tuple(r): i for i, r in enumerate(uniq)}
+    idx = np.array([pos[tuple(r)] for r in ko])
+    return scale[idx], cnt[idx]
+
+
+def _phase_frame(c) -> dict:
+    """26. frame: BASELINE config #1 from the file. ``import_file`` of a
+    1,000,000-row airlines CSV (tools/datasets.airlines_csv, 27 columns,
+    5 enums; tools/bench_suite.py's ingest_airlines_csv at its on-chip
+    size) on the card against the same call on the CPU (bitwise), as
+    rows/s, MB/s and cells/s, with the CSV path taken; eleven Frame
+    calls on the card, each a synchronized median of 3 held against the CPU's
+    (bitwise; the group sums within 1e-6 of each group's Σ|x|);
+    ``split_frame([0.8], seed=42)`` -> GBM(ntrees=10, max_depth=5,
+    seed=1) on the 0.8 part -> ``model_performance`` on the 0.2 part:
+    warm train s, rows·trees/s, train and holdout AUC and logloss, B1's
+    launches on that path, card vs CPU on 200,000 train rows (the CPU's
+    histograms summed in float64; structure up to float64 near-ties,
+    holdout AUC within 1e-4), B1 held at the
+    train's levels and its two AUC inputs; ``save_frame``/``load_frame`` and
+    ``export_file``/``import_file`` round trips; a 1,000,000-value time
+    column's ``as_float`` and ``to_numpy`` card = CPU."""
+    import os
+    import shutil
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "frame")
+    os.makedirs(work, exist_ok=True)
+    try:
+        return _frame_body(c, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _frame_body(c, work: str) -> dict:
+    import os
+
+    from tools.datasets import airlines_csv
+
+    from h2o_kubernetes_tpu_torch import (GBM, Frame, export_file,
+                                          import_file, load_frame,
+                                          save_frame)
+    from h2o_kubernetes_tpu_torch.runtime import backend
+
+    torch, card = c.torch, c.card
+    try:
+        import pyarrow  # noqa: F401
+        arrow = True
+    except ImportError:
+        arrow = False
+    dev = backend.resolve_device()          # the card
+    path = os.path.join(work, "airlines.csv")
+    t0 = time.perf_counter()
+    airlines_csv(path, _FRAME_ROWS, seed=0)
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    fr = import_file(path)
+    torch.cuda.synchronize()
+    first_import_s = time.perf_counter() - t0
+    import_s = _sync_s(torch, lambda: import_file(path), _FRAME_REPEATS)
+    card_path = fr.csv_path
+    t0 = time.perf_counter()
+    cpu = import_file(path, device="cpu")
+    cpu_import_s = time.perf_counter() - t0
+    rows, cells = fr.nrows, fr.nrows * fr.ncols
+    same = _frames_equal(torch, fr, cpu)
+    enums = [n for n in fr.names if fr[n].is_enum()]
+    _log(f"[frame] airlines.csv: {rows} rows x {fr.ncols} columns "
+         f"({len(enums)} enums: {enums}), {mb:.1f} MB written in "
+         f"{write_s:.2f}s; import_file on the card: first "
+         f"{first_import_s:.3f}s, then {import_s:.3f}s (median of "
+         f"{_FRAME_REPEATS}) = "
+         f"{rows / import_s:.1f} rows/s, {mb / import_s:.2f} MB/s, "
+         f"{cells / import_s:.1f} cells/s through the {card_path} CSV "
+         f"path (pyarrow importable: {arrow}); on the CPU {cpu_import_s:.3f}"
+         f"s ({cpu.csv_path}); card = CPU (names, kinds, domains, "
+         f"values bitwise) {same} [{card}]")
+    if not (same and rows == _FRAME_ROWS and fr.device == dev):
+        raise RuntimeError("frame: the card's import differs from the CPU's")
+
+    # -- eleven Frame calls, card against CPU ------------------------------
+    parts, cparts = fr.split_frame([0.8], seed=42), \
+        cpu.split_frame([0.8], seed=42)
+    gkeys = ["UniqueCarrier", "Month"]
+
+    def group(f):
+        return f.group_by(gkeys).mean("Distance").sd("AirTime").min(
+            "TaxiOut").count().get_frame()
+    gcpu = group(cpu)
+
+    def imputed(f):
+        g = f[f.names]
+        g.impute("DepTime", "mean")
+        return g
+
+    calls = {
+        "split_frame": lambda f, p: f.split_frame([0.8], seed=42),
+        "sort": lambda f, p: f.sort(["Origin", "DepTime"]),
+        "sort descending": lambda f, p: f.sort(["Origin", "DepTime"],
+                                               ascending=False),
+        "group_by": lambda f, p: group(f),
+        # both sides join the CPU's group table, so the join is exact
+        "merge": lambda f, p: f.merge(gcpu._to(f.device), all_x=True),
+        "impute": lambda f, p: imputed(f),
+        "table": lambda f, p: f.table("UniqueCarrier", "CancellationCode"),
+        "quantile": lambda f, p: f.quantile(),
+        "filter": lambda f, p: f[(f["Distance"] > 500)
+                                 & (f["Cancelled"] == 0)],
+        "asfactor": lambda f, p: Frame({"Month": f["Month"].asfactor()}),
+        "rbind": lambda f, p: p[0].rbind(p[1]),
+    }
+    munge = {}
+    for name, fn in calls.items():
+        s = _sync_s(torch, lambda: fn(fr, parts), _FRAME_REPEATS)
+        t0 = time.perf_counter()
+        want = fn(cpu, cparts)
+        cpu_s = time.perf_counter() - t0
+        got = fn(fr, parts)
+        if name == "split_frame":
+            ok = all(_frames_equal(torch, a, b) for a, b in zip(got, want))
+            out_rows = [p.nrows for p in got]
+        elif name == "group_by":
+            exact = ["UniqueCarrier", "Month", "min_TaxiOut", "nrow"]
+            ok = _frames_equal(torch, got[exact], want[exact])
+            gaps = {}
+            for col, src in (("mean_Distance", "Distance"),
+                             ("sd_AirTime", "AirTime")):
+                scale, cnt = _group_scale(cpu, gkeys, src, want)
+                a = got[col].to_numpy().astype(np.float64)
+                b = want[col].to_numpy().astype(np.float64)
+                ok &= bool(np.array_equal(np.isnan(a), np.isnan(b)))
+                live = ~np.isnan(b)
+                lim = scale / (np.maximum(cnt, 1) if col.startswith("mean")
+                               else 1)
+                gaps[col] = float((np.abs(a - b)[live]
+                                   / np.maximum(lim[live], 1e-300)).max())
+                ok &= gaps[col] <= _GROUP_SUM_LIMIT
+            out_rows = got.nrows
+        else:
+            ok = _frames_equal(torch, got, want)
+            out_rows = got.nrows
+        munge[name] = {"card_s": s, "cpu_s": cpu_s, "rows_out": out_rows,
+                       "equal": bool(ok)}
+        if name == "group_by":
+            munge[name]["rel_gap_of_group_abs_sum"] = gaps
+        _log(f"[frame] {name}: card {s * 1e3:.3f} ms (median of "
+             f"{_FRAME_REPEATS}, synchronized), CPU {cpu_s * 1e3:.3f} ms, "
+             f"{out_rows} rows out; card = CPU {ok}"
+             + (f" (group sums: largest gap / group Σ|x| {gaps}, limit "
+                f"{_GROUP_SUM_LIMIT:.0e})" if name == "group_by" else "")
+             + f" [{card}]")
+        if not ok:
+            raise RuntimeError(f"frame: {name} on the card differs from the "
+                               "CPU's")
+    if munge["merge"]["rows_out"] != rows:
+        raise RuntimeError("frame: the left join lost or grew rows")
+
+    # -- split -> GBM -> holdout metrics ------------------------------------
+    train, test = parts
+    y = "IsDepDelayed"
+    kw = dict(ntrees=_FRAME_TREES, max_depth=_FRAME_DEPTH, seed=1)
+
+    def fit(f=train):
+        m = GBM(**kw).train(y=y, training_frame=f)
+        torch.cuda.synchronize()
+        return m
+
+    t0 = time.perf_counter()
+    fit()
+    first_s = time.perf_counter() - t0
+    times, _ = _warm_trains(fit, _FRAME_WARM)
+    med = statistics.median(times)
+    hist_op = c.hist_op
+    hist_op.reset_launches()
+    with _HistRecorder(hist_op) as rec:
+        model = fit()
+        perf = model.model_performance(test, y)
+    launches = dict(hist_op.LAUNCHES)
+    hist = model.scoring_history[-1]
+    # card vs CPU: each device trains on the first _FRAME_PARITY_ROWS
+    # rows of its 0.8 part (a CPU train of all 800,000 takes ~50 s) and
+    # scores the whole 0.2 part. The CPU's histograms are its plain
+    # version summed in float64 and rounded once: the plain float32
+    # index_add_ adds a bin's rows one after another, and on
+    # CancellationCode's NA bin (98.5% of the rows) that running sum
+    # drifts enough to make a split no float64 gain supports (ROADMAP
+    # Queue 3, C6); the plain float32 train is reported beside it.
+    sub = np.arange(min(_FRAME_PARITY_ROWS, train.nrows))
+    s_card, s_cpu = train.select_rows(sub), cparts[0].select_rows(sub)
+    m_card = GBM(**kw).train(y=y, training_frame=s_card)
+    with _Float64Plain(hist_op):
+        m_cpu = GBM(**kw).train(y=y, training_frame=s_cpu)
+    m_f32 = GBM(**kw).train(y=y, training_frame=s_cpu)
+    auc_card = m_card.model_performance(test, y)["auc"]
+    auc_cpu = m_cpu.model_performance(cparts[1], y)["auc"]
+    auc_f32 = m_f32.model_performance(cparts[1], y)["auc"]
+    compared, ties, leaf_gap = _near_ties(m_card, m_cpu, s_card, y, {})
+    try:
+        f32_walk = _near_ties(m_card, m_f32, s_card, y, {})[:2]
+    except RuntimeError as e:
+        f32_walk = str(e)
+    auc_gap = abs(auc_card - auc_cpu)
+    n_launch = sum(launches.values())
+    _log(f"[frame] GBM ntrees={_FRAME_TREES} max_depth={_FRAME_DEPTH} on "
+         f"the 0.8 part ({train.nrows} rows, {len(model.feature_names)} "
+         f"features): first train {first_s:.3f}s, warm "
+         f"{[round(t, 4) for t in times]} s, median {med:.4f}s = "
+         f"{train.nrows * _FRAME_TREES / med:.1f} rows·trees/s; train auc "
+         f"{hist['train_auc']:.6f} logloss {hist['train_logloss']:.6f}; "
+         f"holdout ({test.nrows} rows) auc {perf['auc']:.6f} logloss "
+         f"{perf['logloss']:.6f}; B1 launches on the path (a train and the "
+         f"holdout metrics) {launches}; card vs CPU trained on "
+         f"{len(sub)} rows: {compared} nodes compared, near-ties {ties}, "
+         f"largest leaf gap {leaf_gap:.3e}, holdout auc {auc_card:.6f} / "
+         f"{auc_cpu:.6f} (gap {auc_gap:.3e}, limit "
+         f"{_HOLDOUT_AUC_LIMIT:.0e}); the CPU train on float32 plain "
+         f"histograms: holdout auc {auc_f32:.6f}, against the card "
+         f"{f32_walk} [{card}]")
+    if n_launch != _FRAME_TREES * _FRAME_DEPTH + 2:
+        raise RuntimeError(f"frame: {n_launch} B1 launches, not "
+                           f"{_FRAME_TREES * _FRAME_DEPTH} levels + 2 AUCs")
+    # the card's f32 atomics sum each node in another order than the
+    # CPU's float64 sums, and past the first near-tie a tree's later
+    # margins differ: leaves are read, the structure (the walker raises
+    # past a near-tie) and the holdout AUC held, as phases 18, 21, 23 do
+    if auc_gap > _HOLDOUT_AUC_LIMIT or not 0.5 < perf["auc"] < 1:
+        raise RuntimeError("frame: the card's GBM disagrees with the CPU's")
+    # B1 at this train's five levels and at the holdout AUC's input
+    book = c.book
+    # the train AUC's score histogram, then the holdout's
+    aucs = rec.levels(1, 4096, 3, torch.int16)
+    book.compare("airlines gbm", rec, 1, 256, 3, torch.uint8, "air d5",
+                 [(f"auc (air {lab})", inp, 4096, calls) for lab, (
+                     _, inp, calls) in zip(("train", "holdout"), aucs)])
+    held = [k for k in book.levels if k.startswith("air d5 level")]
+    if len(held) != _FRAME_DEPTH:
+        raise RuntimeError(f"frame: B1 held at {held}")
+    _log_sums(book.sums, ("airlines gbm",), card)
+
+    # -- round trips ----------------------------------------------------------
+    fpath = os.path.join(work, "airlines.frame")
+    t0 = time.perf_counter()
+    save_frame(fr, fpath)
+    back = load_frame(fpath)
+    torch.cuda.synchronize()
+    frame_file_s = time.perf_counter() - t0
+    file_equal = _frames_equal(torch, back, fr) and back.device == dev
+    cpath = os.path.join(work, "holdout.csv")
+    t0 = time.perf_counter()
+    export_file(test, cpath)
+    export_s = time.perf_counter() - t0
+    again = import_file(cpath)
+    csv_equal = True
+    for n in test.names:
+        u, v = test[n], again[n]
+        if u.is_enum():
+            lab = np.array(list(u.domain) + [""], dtype=object)
+            lab2 = np.array(list(v.domain or []) + [""], dtype=object)
+            a, b = u.to_numpy(), v.to_numpy()
+            csv_equal &= bool((lab[a] == lab2[b]).all()) if v.is_enum() \
+                else False
+        else:
+            x = u.to_numpy()
+            want = np.where(np.isnan(x), np.nan, np.char.mod(
+                "%g", np.nan_to_num(x)).astype(np.float64)
+            ).astype(np.float32)
+            got = v.to_numpy()
+            csv_equal &= bool(np.array_equal(np.isnan(got), np.isnan(want))
+                              and (got[~np.isnan(got)]
+                                   == want[~np.isnan(want)]).all())
+    rng = np.random.default_rng(26)
+    ms = (1_262_304_000_000 + rng.integers(0, 4 * 10 ** 11, _FRAME_ROWS)
+          ).astype("datetime64[ms]")
+    ms[::97] = np.datetime64("NaT")
+    tv = Frame.from_arrays({"t": ms})["t"]
+    tc = Frame.from_arrays({"t": ms}, device="cpu")["t"]
+    time_equal = (tv.kind == tc.kind == "time" and tv.origin == tc.origin
+                  and tv.device == dev
+                  and _tensors_equal(torch, tv.as_float(), tc.as_float())
+                  and _tensors_equal(torch, torch.from_numpy(tv.to_numpy()),
+                                     torch.from_numpy(tc.to_numpy())))
+    _log(f"[frame] save_frame -> load_frame on the card {frame_file_s:.3f}s,"
+         f" bitwise {file_equal}; export_file of the {test.nrows}-row "
+         f"holdout {export_s:.3f}s, import_file back equal to the frame as "
+         f"%g text writes it {csv_equal}; a {_FRAME_ROWS}-value time column"
+         f" (origin {tv.origin}): as_float and to_numpy card = CPU "
+         f"{time_equal} [{card}]")
+    if not (file_equal and csv_equal and time_equal):
+        raise RuntimeError("frame: a round trip or the time column differs")
+    return {"rows": rows, "columns": fr.ncols, "mb": mb,
+            "write_s": write_s, "first_import_s": first_import_s,
+            "import_s": import_s,
+            "rows_per_s": rows / import_s, "mb_per_s": mb / import_s,
+            "cells_per_s": cells / import_s, "csv_path": card_path,
+            "pyarrow": arrow, "cpu_import_s": cpu_import_s,
+            "munge": munge, "gbm": {
+                "train_rows": train.nrows, "test_rows": test.nrows,
+                "first_s": first_s, "warm_s": times, "median_s": med,
+                "rows_trees_per_s": train.nrows * _FRAME_TREES / med,
+                "train_auc": hist["train_auc"],
+                "train_logloss": hist["train_logloss"],
+                "holdout_auc": perf["auc"],
+                "holdout_logloss": perf["logloss"],
+                "parity_rows": len(sub), "parity_holdout_auc": [
+                    auc_card, auc_cpu], "auc_gap": auc_gap,
+                "f32_plain_holdout_auc": auc_f32,
+                "f32_plain_walk": str(f32_walk),
+                "nodes_compared": compared, "near_ties": len(ties),
+                "leaf_gap": leaf_gap, "b1_launches": launches},
+            "frame_file_s": frame_file_s, "export_s": export_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2957,7 +3380,10 @@ def main() -> int:
     dl_res = _phase_deeplearning(ctx)
     w2v_res = _phase_word2vec(ctx)
 
-    # -- 24. report ----------------------------------------------------------
+    # -- 26. frame: airlines.csv -> split -> GBM -> holdout metrics -----------
+    frame_res = _phase_frame(ctx)
+
+    # -- 27. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -3002,11 +3428,11 @@ def main() -> int:
              "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)",
              ("gbm depth 5", "huber depth 5", "xgboost_hist",
               "lambdarank", "efb gbm", "wide gbm root", "goss gbm",
-              "ooc rule", "ooc 1M", "deeplearning_mlp"),
+              "ooc rule", "ooc 1M", "deeplearning_mlp", "airlines gbm"),
              lambda k, v: k.startswith(("gbm d5", "huber d5", "auc",
                                         "xgb d6", "rank d6", "efb d5",
                                         "wide d5", "goss d5", "ooc rule d6",
-                                        "ooc 1M d6"))),
+                                        "ooc 1M d6", "air d5"))),
             ("histogram_deep", "gbm d10 level 9",
              deep_launches["partitioned"],
              {"partitioned": deep_launches["partitioned"]},
@@ -3090,6 +3516,9 @@ def main() -> int:
     records[1]["deeplearning_auc_launches"] = dl_res.pop("auc_launches")
     _log(json.dumps({"learners": {"deeplearning": dl_res,
                                   "word2vec": w2v_res}}))
+    # phase 26 adds no kernel; its path's B1 launches (a train and the
+    # holdout metrics, counted from zero) are in its own line
+    _log(json.dumps({"frame": frame_res}))
     _log(json.dumps({"kernels": records}))
     _log(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,13 @@ regressor, autoencoder, checkpoint continuation) and Word2Vec
 (skip-gram with negative sampling), MOJO-v2 export, the model registry
 and the scorer-replica serving path.
 
+Data: ``import_file(path)`` parses CSV (pyarrow's streamed reader or
+the pure-Python one), Parquet, ORC, Avro, SVMLight and ARFF into a
+Frame on a device; a Frame filters, sorts, splits, joins, groups,
+imputes and computes elementwise on its device (``frame/munge.py``),
+and leaves as CSV (``export_file``) or a frame file (``save_frame``,
+``load_frame``).
+
 Training: ``Frame.from_arrays(...)`` puts a table on a device and
 ``GBM(...).train(y=..., training_frame=frame)`` or
 ``DRF(...).train(...)`` grows the trees there, building each level's
@@ -33,7 +40,7 @@ the caller passes ``device="cpu"``.
 This package imports torch and never jax or h2o_kubernetes_tpu.
 """
 
-from .frame import Frame
+from .frame import Frame, Vec, import_file, parse_setup
 from .models.deeplearning import DeepLearning, DeepLearningModel
 from .models.drf import DRF, DRFModel
 from .models.gbm import GBM, GBMModel
@@ -43,7 +50,8 @@ from .models.xgboost import XGBoost, XGBoostModel
 from .mojo import MOJO_FORMAT, MojoModel, export_mojo, import_mojo, \
     read_mojo_parts
 from .operator.registry import FlatTreeScorer, ModelRegistry, load_artifact
-from .persist import load_model, save_model
+from .persist import (export_file, load_frame, load_model, save_frame,
+                      save_model)
 from .rest import start_server
 from .runtime.backend import resolve_device
 
@@ -54,4 +62,6 @@ __all__ = ["GBM", "GBMModel", "DRF", "DRFModel", "XGBoost", "XGBoostModel",
            "Word2Vec", "Word2VecModel", "Frame", "FlatTreeScorer",
            "load_artifact", "start_server", "resolve_device",
            "read_mojo_parts", "MOJO_FORMAT", "export_mojo", "import_mojo",
-           "MojoModel", "ModelRegistry", "save_model", "load_model"]
+           "MojoModel", "ModelRegistry", "save_model", "load_model", "Vec",
+           "import_file", "parse_setup", "export_file", "save_frame",
+           "load_frame"]

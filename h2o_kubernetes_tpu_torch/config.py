@@ -14,6 +14,9 @@ dispatches on the tensor's device (ops/histogram.py).
 | H2O_TPU_EFB_CONFLICT | 0 | fraction of rows two members of one bundle may both claim (first member wins); 0 = exact exclusivity; a member past it on the full data is demoted to its own column (models/tree/efb.py) |
 | H2O_TPU_EFB_MIN_F | 64 | auto mode's width floor: narrower frames are never planned (models/tree/efb.py) |
 | H2O_TPU_EFB_MIN_SHRINK | 0.75 | auto mode keeps a plan only when Fb <= this · F (models/tree/efb.py) |
+| H2O_TPU_ARROW_CSV | 1 | 0 keeps every CSV import on the pure-Python reader; otherwise pyarrow's streamed reader takes the files it parses as that reader would (main thread only, pyarrow importable, single-character separator, no xz; frame/parse.py `_arrow_csv_eligible`) |
+| H2O_TPU_INGEST_CHUNK_BYTES | 16 MiB | bytes per record batch of the pyarrow CSV reader; a value that is not an int reads as the default (frame/parse.py) |
+| H2O_TPU_SVMLIGHT_DENSE_BUDGET | 200,000,000 | most cells (rows x max feature index) an SVMLight import may densify to; past it the import raises (frame/parse.py) |
 | H2O_TPU_GOSS | 0 | 1 = gradient-based one-side sampling for boosted trees (GBM, pointwise XGBoost): per round the top-a rows by |g| plus a seeded b of the rest, amplified by (1-a)/b; DRF and rank:* never sample (models/gbm.py `goss_params`) |
 | H2O_TPU_GOSS_TOP_A | 0.1 | GOSS's a, in [0, 1) (models/gbm.py) |
 | H2O_TPU_GOSS_RAND_B | 0.1 | GOSS's b, in (0, 1], a + b <= 1 (models/gbm.py) |
@@ -36,7 +39,8 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["default_nbins", "hist_bytes_budget"]
+__all__ = ["default_nbins", "hist_bytes_budget", "arrow_csv_enabled",
+           "ingest_chunk_bytes", "svmlight_dense_budget"]
 
 
 def default_nbins() -> int:
@@ -55,3 +59,25 @@ def default_nbins() -> int:
 def hist_bytes_budget() -> float:
     """H2O_TPU_HIST_BYTES_BUDGET (default 2**30 bytes)."""
     return float(os.environ.get("H2O_TPU_HIST_BYTES_BUDGET", 2 ** 30))
+
+
+def arrow_csv_enabled() -> bool:
+    """H2O_TPU_ARROW_CSV (default 1): 0 disables the pyarrow CSV path."""
+    return os.environ.get("H2O_TPU_ARROW_CSV", "1") != "0"
+
+
+def ingest_chunk_bytes() -> int:
+    """H2O_TPU_INGEST_CHUNK_BYTES (default 16 MiB). A typo must not
+    demote every ingest to the pure-Python reader (the caller would
+    read a ValueError as arrow rejecting the file), so a value that is
+    not an int reads as the default."""
+    try:
+        return int(os.environ.get("H2O_TPU_INGEST_CHUNK_BYTES", 16 << 20))
+    except ValueError:
+        return 16 << 20
+
+
+def svmlight_dense_budget() -> int:
+    """H2O_TPU_SVMLIGHT_DENSE_BUDGET (default 200,000,000 cells)."""
+    return int(os.environ.get("H2O_TPU_SVMLIGHT_DENSE_BUDGET",
+                              200_000_000))

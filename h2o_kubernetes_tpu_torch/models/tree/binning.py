@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ...runtime import prng
+from ...runtime.quantile import nanquantile
 
 __all__ = ["BinSpec", "fit_bins", "apply_bins", "bin_frame",
            "fused_fit_bins", "bin_frame_host_chunks", "host_codes_block"]
@@ -63,34 +64,16 @@ def _check_n_bins(n_bins: int) -> None:
 def _quantiles(sample: torch.Tensor, n_q: int) -> torch.Tensor:
     """[Fn, n] -> [Fn, n_q] NaN-skipping linear quantiles at the interior
     points of an (n_q + 2)-point linspace over [0, 1] — the arithmetic of
-    the JAX package's compiled ``jnp.nanquantile``, step for step, so the
-    edges agree bitwise:
-
-    - the points are ``i * f32(1 / (n_q + 1))`` (XLA's linspace
-      multiplies by the reciprocal);
-    - position ``q * (count - 1)``, floor/ceil, weights ``hw = pos -
-      floor`` and ``lw = 1 - hw``, all in float32;
-    - XLA contracts ``lo * lw + hi * hw`` in the JAX package's binning
-      program into one fused multiply-add, ``fma(lo, lw, hi * hw)``;
-      here that is an exact float64 product and sum rounded to float32
-      (a double rounding could differ from the FMA once in ~2^29
-      values).
-    """
+    the JAX package's compiled ``jnp.nanquantile``, so the edges agree
+    bitwise: the points are ``i * f32(1 / (n_q + 1))`` (XLA's linspace
+    multiplies by the reciprocal), then ``runtime.quantile.nanquantile``
+    with this program's contraction, ``fma(lo, lw, hi * hw)``, rounded
+    once."""
     div = n_q + 1
     step = torch.tensor(np.float32(1) / np.float32(div), device=sample.device)
     qs = torch.arange(1, div, dtype=torch.float32,
                       device=sample.device) * step            # [n_q]
-    a = torch.sort(sample, dim=1).values                       # NaN last
-    counts = (~torch.isnan(a)).sum(dim=1).to(torch.float32)[:, None]
-    pos = qs[None, :] * (counts - 1.0)                         # [Fn, n_q]
-    low, high = torch.floor(pos), torch.ceil(pos)
-    hw = pos - low
-    lw = 1.0 - hw
-    last = counts - 1.0
-    low = torch.clamp(torch.minimum(low, last), min=0.0).long()
-    high = torch.clamp(torch.minimum(high, last), min=0.0).long()
-    lv, hv = a.gather(1, low), a.gather(1, high)
-    return (lv.double() * lw.double() + (hv * hw).double()).float()
+    return nanquantile(sample, qs, fused="lo")
 
 
 def _sampled_feature_matrix(num_cols: list[torch.Tensor]) -> torch.Tensor:

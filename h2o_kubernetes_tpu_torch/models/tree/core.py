@@ -59,6 +59,7 @@ import torch
 from ...config import hist_bytes_budget
 from ...ops.histogram import build_histogram, expand_unit_hess
 from ...runtime import prng
+from ...runtime.quantile import nanquantile
 
 __all__ = ["TreeParams", "Tree", "BoostParams", "grow_tree",
            "boost_trees", "boost_trees_multi", "boost_trees_drf",
@@ -451,26 +452,13 @@ class BoostParams(NamedTuple):
 def huber_delta(r, w, alpha: float):
     """The ``alpha`` quantile of |r| over the rows with w > 0, as the
     JAX package's ``jnp.nanquantile(|r| NaN where w = 0, alpha)``
-    computes it, step for step, on ``r``'s device with no host sync:
-    one sort of |r| (dead rows NaN, sorted last), the live count in
-    float32, the position ``alpha * (count - 1)``, floor/ceil, weights
-    ``hw = pos - floor`` and ``lw = 1 - hw`` in float32, and XLA's
-    contraction of ``lo * lw + hi * hw`` into ``fma(hi, hw, lo * lw)``
-    — here an exact float64 product and sum rounded to float32 (a
-    double rounding could differ from the FMA once in ~2^29 values).
-    A 0-dim float32 tensor; NaN when no row is live."""
+    computes it, on ``r``'s device with no host sync: dead rows NaN,
+    then ``runtime.quantile.nanquantile`` with XLA's contraction of this
+    program, ``fma(hi, hw, lo * lw)``, rounded once. A 0-dim float32
+    tensor; NaN when no row is live."""
     absr = torch.where(w > 0, torch.abs(r), float("nan"))
-    s = torch.sort(absr).values
-    counts = torch.sum(~torch.isnan(absr)).to(torch.float32)
-    pos = torch.tensor(np.float32(alpha), device=r.device) * (counts - 1.0)
-    low, high = torch.floor(pos), torch.ceil(pos)
-    hw = pos - low
-    lw = 1.0 - hw
-    last = counts - 1.0
-    low = torch.clamp(torch.minimum(low, last), min=0.0).long()
-    high = torch.clamp(torch.minimum(high, last), min=0.0).long()
-    lo, hi = s[low], s[high]
-    return (hi.double() * hw.double() + (lo * lw).double()).float()
+    q = torch.tensor([np.float32(alpha)], device=r.device)
+    return nanquantile(absr, q, fused="hi")[0]
 
 
 def _boost_grad_hess(bp: BoostParams, margin, y, w):
@@ -575,8 +563,8 @@ def goss_threshold(counts, total, a: float):
     T are kept outright, a row in bin T when its draw is under frac_T —
     the top ``a`` of the rows in expectation, whatever the ties. XLA
     contracts the JAX package's ``a * total - above`` into one fused
-    multiply-add; here that is an exact float64 product and difference
-    rounded to float32 once."""
+    multiply-add, ``fma(a, total, -above)``, rounded once
+    (``prng._fma``)."""
     suffix = torch.cumsum(counts.flip(0), 0).flip(0).to(torch.float32)
     a32 = torch.tensor(np.float32(a), device=counts.device)
     total = total.to(torch.float32)
@@ -584,7 +572,7 @@ def goss_threshold(counts, total, a: float):
                     0, _GOSS_BINS - 1)
     cnt_T = counts[T.long()].to(torch.float32)
     above = suffix[T.long()] - cnt_T
-    num = (a32.double() * total.double() - above.double()).float()
+    num = prng._fma(a32, total, -above)
     frac = torch.clamp(num / torch.clamp(cnt_T, min=1.0), 0.0, 1.0)
     return T, frac
 

@@ -1,5 +1,6 @@
-"""Persistence: raw bytes over pluggable backends, and GBM/DRF model
-save and load.
+"""Persistence: raw bytes over pluggable backends, GBM/DRF model save
+and load, and frame files (``export_file`` CSV, ``save_frame`` /
+``load_frame`` npz + JSON metadata, both the JAX package's formats).
 
 Backends (the JAX package's ``PERSIST_SCHEMES`` registry): bare paths
 are the local file system, ``mem://`` an in-process object store.
@@ -18,13 +19,15 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import io
+import json
 import os
 import pickle
 from typing import Callable
 
 import numpy as np
 
-__all__ = ["save_model", "load_model", "PERSIST_SCHEMES", "read_bytes",
+__all__ = ["save_model", "load_model", "export_file", "save_frame",
+           "load_frame", "PERSIST_SCHEMES", "read_bytes",
            "write_bytes", "write_bytes_atomic", "list_names", "is_remote",
            "join_path"]
 
@@ -259,3 +262,99 @@ def load_model(path: str, device=None):
     if st.get("group_column"):
         model._group_column = st["group_column"]
     return model
+
+
+# -- frame files ---------------------------------------------------------------
+
+def export_file(frame, path: str, header: bool = True,
+                sep: str = ",") -> str:
+    """h2o.export_file analog: write a Frame as CSV (local or scheme),
+    byte for byte as the JAX package writes it: numbers as ``%g``, enum
+    labels, time columns as ISO datetimes to the millisecond, NA as an
+    empty field, RFC 4180 quoting."""
+    cols = []
+    for name in frame.names:
+        v = frame.vec(name)
+        if v.is_enum():
+            codes = v.to_numpy()
+            dom = np.array(list(v.domain) + [""], dtype=object)
+            col = dom[np.where(codes < 0, len(dom) - 1, codes)]
+        elif v.kind == "time":
+            col = np.array(
+                [np.datetime64(int(m), "ms").astype(str) if m == m else ""
+                 for m in v.to_numpy()], dtype=object)
+        else:
+            x = v.to_numpy()
+            col = np.where(np.isnan(x), "",
+                           np.char.mod("%g", np.nan_to_num(x)))
+        cols.append(col.astype(object))
+    out = io.StringIO()
+    if header:
+        out.write(sep.join(frame.names) + "\n")
+    quoted = []
+    for c in cols:
+        # RFC 4180: embedded quotes double inside a quoted field
+        quoted.append(np.array(
+            [f'"{str(s).replace(chr(34), chr(34) * 2)}"'
+             if (sep in str(s) or '"' in str(s) or "\n" in str(s))
+             else str(s) for s in c], dtype=object))
+    for i in range(frame.nrows):
+        out.write(sep.join(str(q[i]) for q in quoted) + "\n")
+    write_bytes(path, out.getvalue().encode())
+    return path
+
+
+def save_frame(frame, path: str) -> str:
+    """Binary frame file: an npz of the columns (``to_numpy``: enum
+    codes, float32 numbers, float64 absolute epoch-ms) and JSON metadata
+    (names, kinds, domains, time origins) — the JAX package's format, so
+    either package loads the other's files. Data only, no pickle."""
+    arrays: dict[str, np.ndarray] = {}
+    meta: dict = {"names": frame.names, "kinds": {}, "domains": {},
+                  "origins": {}}
+    for name in frame.names:
+        v = frame.vec(name)
+        arrays[f"col_{name}"] = v.to_numpy()
+        meta["kinds"][name] = v.kind
+        if v.domain is not None:
+            meta["domains"][name] = list(v.domain)
+        if v.kind == "time":
+            meta["origins"][name] = v.origin
+    buf = io.BytesIO()
+    np.savez_compressed(buf, __meta__=np.frombuffer(
+        json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+    write_bytes(path, buf.getvalue())
+    return path
+
+
+def load_frame(path: str, device=None):
+    """A ``save_frame`` file (of either package) as a Frame on
+    ``device`` (None = the CUDA card; raises without one unless
+    ``device="cpu"``)."""
+    from .frame import Frame, Vec
+    from .runtime.backend import resolve_device
+
+    dev = resolve_device(device)
+    with np.load(io.BytesIO(read_bytes(path)), allow_pickle=False) as z:
+        try:
+            meta = json.loads(z["__meta__"].tobytes().decode())
+        except (UnicodeDecodeError, json.JSONDecodeError):
+            raise ValueError(
+                f"{path}: frame metadata is not JSON — this looks like a "
+                "frame saved by a pre-0.2 build (pickle metadata); "
+                "re-export it with export_file/save_frame") from None
+        vecs = {}
+        for name in meta["names"]:
+            arr = z[f"col_{name}"]
+            kind = meta["kinds"][name]
+            if kind == "time":
+                # to_numpy wrote absolute epoch-ms float64
+                vecs[name] = Vec.from_numpy(arr, name, kind="time",
+                                            device=dev)
+            elif kind == "enum":
+                vecs[name] = Vec.from_numpy(
+                    arr.astype(np.int32), name,
+                    domain=meta["domains"][name], kind="enum", device=dev)
+            else:
+                vecs[name] = Vec.from_numpy(arr, name, device=dev)
+    return Frame(vecs)

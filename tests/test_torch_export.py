@@ -497,3 +497,73 @@ def test_word2vec_artifacts_both_ways(dl_w2v):
         got.word_vector("zz")
     with pytest.raises(ValueError, match="score no rows"):
         got.predict(np.zeros((2, 1), np.float32))
+
+
+# -- frame files both ways -------------------------------------------------------
+
+def _frame_cols():
+    rng = np.random.default_rng(31)
+    n = 257
+    t = (1_650_000_000_000 + rng.integers(0, 10 ** 9, n)).astype(
+        "datetime64[ms]")
+    t[::9] = np.datetime64("NaT")
+    x = (rng.normal(size=n) * 1e3).astype(np.float32)
+    x[::7] = np.nan
+    x[1], x[2] = -0.0, np.float32(1e-7)
+    return {"x": x, "g": np.array(["a", "b,c", 'q"t', ""])[
+        rng.integers(0, 4, n)], "t": t,
+        "k": rng.integers(0, 9, n).astype(np.float32)}
+
+
+def _same_frame(tf, jf):
+    from test_torch_frame import same_frame
+    with use_mesh(make_mesh(n_rows=1)):
+        same_frame(tf, jf)
+
+
+def test_frame_files_both_ways(tmp_path):
+    """A port save_frame loads in the JAX package's load_frame and the
+    reverse: names, kinds, domains, time origins and values bitwise."""
+    from h2o_kubernetes_tpu_torch import load_frame, save_frame
+
+    c = _frame_cols()
+    tf = Frame.from_arrays(c, device="cpu")
+    with use_mesh(make_mesh(n_rows=1)):
+        jf = h2o.Frame.from_arrays(c)
+    save_frame(tf, str(tmp_path / "port.frame"))
+    h2o.save_frame(jf, str(tmp_path / "jax.frame"))
+    with use_mesh(make_mesh(n_rows=1)):
+        j_from_port = h2o.load_frame(str(tmp_path / "port.frame"))
+    t_from_jax = load_frame(str(tmp_path / "jax.frame"), device="cpu")
+    _same_frame(tf, j_from_port)
+    _same_frame(t_from_jax, jf)
+    _same_frame(load_frame(str(tmp_path / "port.frame"), device="cpu"), jf)
+    (tmp_path / "bad.frame").write_bytes(b"not a frame")
+    with pytest.raises(Exception):
+        load_frame(str(tmp_path / "bad.frame"), device="cpu")
+
+
+def test_export_file_bytes_equal(tmp_path):
+    """export_file writes the same bytes in both packages (numbers as
+    %g, quoted labels, ISO times, empty NA fields), and import_file reads
+    them back as the JAX package does."""
+    from h2o_kubernetes_tpu_torch import export_file, import_file
+
+    c = _frame_cols()
+    tf = Frame.from_arrays(c, device="cpu")
+    with use_mesh(make_mesh(n_rows=1)):
+        jf = h2o.Frame.from_arrays(c)
+        h2o.export_file(jf, str(tmp_path / "jax.csv"))
+    export_file(tf, str(tmp_path / "port.csv"))
+    assert (tmp_path / "port.csv").read_bytes() == \
+        (tmp_path / "jax.csv").read_bytes()
+    export_file(tf, str(tmp_path / "port.tsv"), header=False, sep="\t")
+    with use_mesh(make_mesh(n_rows=1)):
+        h2o.export_file(jf, str(tmp_path / "jax.tsv"), header=False,
+                        sep="\t")
+    assert (tmp_path / "port.tsv").read_bytes() == \
+        (tmp_path / "jax.tsv").read_bytes()
+    back = import_file(str(tmp_path / "port.csv"), device="cpu")
+    with use_mesh(make_mesh(n_rows=1)):
+        jback = h2o.import_file(str(tmp_path / "jax.csv"))
+    _same_frame(back, jback)

@@ -46,7 +46,8 @@ def test_imports_without_jax():
         "persist", "operator.registry", "runtime.retry", "models.xgboost",
         "models.glm", "models.datainfo", "models.tree.efb",
         "models.tree.ooc", "models.deeplearning",
-        "models.word2vec")} <= names
+        "models.word2vec", "frame.parse", "frame.munge",
+        "runtime.quantile")} <= names
 
 
 def test_no_source_imports_jax_or_reference():

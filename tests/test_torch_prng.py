@@ -192,3 +192,26 @@ def test_fma_rounds_once_at_halfway_points():
     np.testing.assert_array_equal(xla.view(np.int32), want.view(np.int32))
     twice = (ta.double() * tb.double() + tc.double()).float().numpy()
     assert (twice != want).sum() >= 1000       # the cases are real ones
+
+
+def test_fused_orders_round_once_at_halfway_points():
+    """C5: each emulated multiply-add of the training path rounds once,
+    with its own fused product, at the halfway operands above (where a
+    float64 sum rounds twice) and random ones, against the exact value:
+    huber's δ and ``Frame.quantile`` (``lerp(..., "hi")``: fma(hi, hw,
+    lo·lw)), the bin edges (``lerp(..., "lo")``: fma(lo, lw, hi·hw)) and
+    GOSS's threshold (fma(a, total, -above))."""
+    from h2o_kubernetes_tpu_torch.runtime.quantile import lerp
+
+    a, b, c = _fma_halfway_cases()
+    want = _fma_exact(a, b, c)
+    ta, tb, tc = (torch.as_tensor(v) for v in (a, b, c))
+    one = torch.ones_like(ta)
+    got = {"hi": lerp(tc, ta, one, tb, "hi"),       # hi·hw + lo·1
+           "lo": lerp(ta, tc, tb, one, "lo"),       # lo·lw + hi·1
+           "goss": prng._fma(ta, tb, -(-tc))}       # a·total - above
+    for name, g in got.items():
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      want.view(np.int32), err_msg=name)
+    with pytest.raises(ValueError, match="fused"):
+        lerp(tc, ta, one, tb, "mid")

@@ -247,3 +247,43 @@ def test_deeplearning_and_word2vec_train_on_the_card_by_default():
     b = Word2Vec(**wk).train(Frame.from_arrays({"t": toks}, device="cpu"))
     assert a.vocab == b.vocab
     assert np.abs(a.W - b.W).max() <= 1e-4 * np.abs(b.W).max()
+
+
+@pytest.mark.cuda
+def test_import_file_and_group_by_on_the_card(tmp_path):
+    """import_file puts the frame on the card by default, equal to the
+    CPU's bitwise; a group_by there gives the CPU's keys, counts, min and
+    max bitwise and its sums within 1e-6 of each group's Σ|x| (float
+    atomics add in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from h2o_kubernetes_tpu_torch import import_file
+
+    rng = np.random.default_rng(3)
+    n = 20_000
+    p = tmp_path / "d.csv"
+    with open(p, "w") as f:
+        f.write("g,x,t\n")
+        for i in range(n):
+            f.write(f"{'abc'[rng.integers(0, 3)]},"
+                    f"{'' if i % 31 == 0 else round(rng.normal(), 5)},"
+                    f"2020-01-{1 + i % 28:02d} 10:00:{i % 60:02d}\n")
+    card, cpu = import_file(str(p)), import_file(str(p), device="cpu")
+    assert card.device.type == "cuda"
+    for name in cpu.names:
+        a, b = card[name], cpu[name]
+        assert (a.kind, a.domain, a.origin) == (b.kind, b.domain, b.origin)
+        assert torch.equal(a.data.cpu().view(torch.int32),
+                           b.data.view(torch.int32))
+    go = [f.group_by("g").sum("x").min("x").max("t").count().get_frame()
+          for f in (card, cpu)]
+    assert go[0].device.type == "cuda"
+    for name in ("g", "nrow", "min_x", "max_t"):
+        assert np.array_equal(go[0][name].to_numpy(), go[1][name].to_numpy(),
+                              equal_nan=True), name
+    x = cpu["x"].to_numpy().astype(np.float64)
+    codes = cpu["g"].to_numpy()
+    scale = np.array([np.nansum(np.abs(x[codes == g])) for g in range(3)])
+    gap = np.abs(go[0]["sum_x"].to_numpy().astype(np.float64)
+                 - go[1]["sum_x"].to_numpy())
+    assert (gap <= 1e-6 * scale).all(), gap

@@ -1,6 +1,6 @@
-"""Rehearse chip_smoke.py's phases 18-25 (xgboost, lambdarank, glm,
-efb, goss, ooc, deeplearning, word2vec) on the CPU, without a card, at
-small sizes: the entry
+"""Rehearse chip_smoke.py's phases 18-26 (xgboost, lambdarank, glm,
+efb, goss, ooc, deeplearning, word2vec, frame) on the CPU, without a
+card, at small sizes: the entry
 points' default device resolves to
 the CPU, the histogram and TreeSHAP kernels are replaced by counting
 fakes over their plain versions (the histogram fake sums in float64 and
@@ -14,6 +14,7 @@ are the CPU's and say nothing of the card.
         [--ws-rows 200000 --ws-groups 2 --efb-hist-budget 20000000]
         [--goss-rows 200000] [--ooc-rows 300000]
         [--dl-rows 70000] [--w2v-tokens 50000] [--text8-tokens 300000]
+        [--frame-rows 100000]
 
 With ``--card`` it installs no fakes and runs the phases on the card at
 the given sizes (kernels built on first use): a short check of new
@@ -25,7 +26,11 @@ path past it, which phases 18 and 24 hold). The
 xgboost phase takes ~1 min at the defaults on one CPU, lambdarank ~30 s,
 glm ~10 s. ``--phases deeplearning,word2vec`` at the defaults takes
 ~2 min (the text8-sized corpus cut to ``--text8-tokens``; the profiled
-launch counts are the card's alone, zero here).
+launch counts are the card's alone, zero here). ``--phases frame``
+(the airlines CSV -> munging -> split -> GBM at ``--frame-rows``, which
+must exceed 81,920 so the 0.2 holdout's AUC takes B1's path) takes ~2
+min at 100,000 rows, most of it the pure-Python CSV writer and the
+export round trip.
 """
 
 from __future__ import annotations
@@ -64,13 +69,13 @@ def _install_fakes():
     torch.cuda._sleep = lambda *a: None
     import h2o_kubernetes_tpu_torch as port
     from h2o_kubernetes_tpu_torch import rest
-    from h2o_kubernetes_tpu_torch.frame import frame
+    from h2o_kubernetes_tpu_torch.frame import frame, parse
     from h2o_kubernetes_tpu_torch.operator import registry
     from h2o_kubernetes_tpu_torch.ops import histogram as H
     from h2o_kubernetes_tpu_torch.ops import shap_kernel as S
     from h2o_kubernetes_tpu_torch.runtime import backend
 
-    for mod in (frame, registry, rest, backend, port):
+    for mod in (frame, parse, registry, rest, backend, port):
         mod.resolve_device = lambda device=None: torch.device("cpu")
 
     def hist(binned, rel, vals, n_nodes, n_bins):
@@ -111,6 +116,7 @@ def main() -> int:
     ap.add_argument("--dl-rows", type=int, default=70_000)
     ap.add_argument("--w2v-tokens", type=int, default=50_000)
     ap.add_argument("--text8-tokens", type=int, default=300_000)
+    ap.add_argument("--frame-rows", type=int, default=100_000)
     ap.add_argument("--efb-hist-budget", type=int, default=None,
                     help="H2O_TPU_HIST_BYTES_BUDGET for the efb phase, so "
                          "that a small unbundled frame goes out of core "
@@ -135,6 +141,7 @@ def main() -> int:
     cs._GOSS_ROWS, cs._OOC_ROWS = args.goss_rows, args.ooc_rows
     cs._DL_ROWS, cs._W2V_TOKENS = args.dl_rows, args.w2v_tokens
     cs._TEXT8_TOKENS = args.text8_tokens
+    cs._FRAME_ROWS = args.frame_rows
     if not args.card:
         cs._upload_gbs = lambda torch, nbytes: {"pinned": 0.0,
                                                 "pageable": 0.0}
