@@ -4,8 +4,9 @@ scorer-replica serving path, binomial GBM training, DRF and multinomial
 GBM training, the other GBM distributions, checkpoint continuation, the
 train -> export -> registry -> replica loop, XGBoost-hist (pointwise and
 LambdaMART ranking), GLM, Exclusive Feature Bundling, GOSS,
-out-of-core boosting, DeepLearning, Word2Vec, and the Frame from a CSV
-file through munging to a GBM's holdout metrics on one CUDA card.
+out-of-core boosting, DeepLearning, Word2Vec, the Frame from a CSV
+file through munging to a GBM's holdout metrics, and cross-validated
+AutoML with stacked ensembles and grid search on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -66,8 +67,9 @@ Phases, in order; any failure exits non-zero:
    10 trees, streamed at the shallow levels, partitioned at the deep
    ones); a first train, five warm ones
    (median and spread, rows·trees/s), train AUC, launches by mode; the
-   forest grown on the CPU from the same frame must equal the card's
-   bitwise in structure (leaves ≤ 1e-6); it serves through score_numpy
+   forests grown on the card and on the CPU from the frame's first
+   250,000 rows must be equal bitwise in structure (leaves ≤ 1e-6); the
+   1,000,000-row forest serves through score_numpy
    and contrib_numpy, Σφ = p1 ≤ 1e-4, one shap_tab launch per group,
    and shap_tab is held and timed at its groups as in phase 4 (its
    depth-8 group reads ctab through the read-only path);
@@ -198,21 +200,48 @@ Phases, in order; any failure exits non-zero:
    within 1e-6 of each group's Σ|x|); GBM ntrees=10 max_depth=5 seed=1
    on the 0.8 split part, model_performance on the 0.2 part: warm train
    s, rows·trees/s, train and holdout AUC and logloss, B1's launches on
-   that path, card vs CPU on 200,000 of the train rows (the CPU's
-   histograms summed in float64: structure up to float64 near-ties,
-   holdout AUC within 1e-4; the CPU on float32 plain histograms
-   reported beside it), B1 held at the train's
+   that path, card vs CPU on 200,000 of the train rows (structure up to
+   float64 near-ties, holdout AUC within 1e-4), B1 held at the train's
    five levels and its two AUC inputs (train, holdout); save_frame -> load_frame bitwise, export_file ->
    import_file equal to the frame as %g text writes it, and a
    1,000,000-value time column's as_float and to_numpy card = CPU;
-27. report — one JSON line of kernel records (B4 with its variants,
+27. automl — cross-validation, stacked ensembles, AutoML on its
+   pipelined executor and grid search on airlines rows
+   (tools/datasets.airlines_arrays, response IsDepDelayed):
+   automl_wall_100k (tools/bench_suite.py:428-470: 100,000 rows,
+   nfolds=3, GLM and GBM, max_models=2) cold and warm, each step's
+   seconds, the scheduler's busy seconds and a profiled run's
+   device-busy share; BASELINE config #5 at 1,000,000 rows (cut from
+   10,000,000; nfolds 3, not 5; DeepLearning left out): the default
+   plan's eleven other steps and both ensembles, the leaderboard, the
+   wall, B1/B2/B3 launches by regime (each required), B1 held at
+   GBM_1's first fold train's levels and a 333,333-row holdout AUC, B2
+   at GBM_5's deepest partitioned level, B3 at DRF_1's levels; card vs
+   CPU on the whole default plan (max_models=12: DeepLearning_1 and
+   both ensembles included) at 5,000 rows (cut from 20,000: the CPU's
+   depth-12 forests take ~110 s a step at any row count), its CPU leg
+   a process of its own started before phase 3, whose saved steps the
+   phase resumes: fold ids bitwise, the same model ids, the resumed
+   CPU leaderboard equal to the leg's (its retrained ensembles within
+   1e-4), every GBM/XGBoost main and fold model walked card against
+   CPU up to its first tree with a float64 near-tie (every differing
+   decision a near-tie; compared leaves' gaps reported), every metric
+   of the GLM, DRF, XRT and tie-free boosted
+   rows within 1e-4 and their order the same (adjacent rows within
+   1e-4 may swap), each card ensemble restacked on the CPU from the
+   same base models' holdout predictions within 1e-4, DeepLearning_1's
+   gaps reported beside the CPU leg's own (its CV train again with the
+   column statistics summed in reverse row order), and a 2 x 2
+   Cartesian GBM grid (nfolds=3) in the same order on both;
+28. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
    row partition; the launches of phases 15-23 beside each, B1's levels
    including the xgboost_hist, lambdarank, bundled, compacted and chunk
    trains', DeepLearning's AUC and the airlines train's, B4's models
    the XGBoost and the bundled one), one JSON line of phases 24-25's
-   learner numbers and one of phase 26's (they add no kernel), the card
-   line, and as the last line {"ok": true, "device": {...}}.
+   learner numbers, one of phase 26's and one of phase 27's (they add
+   no kernel; phase 27's B1-B3 launches also stand in the records), the
+   card line, and as the last line {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
 contrib_numpy, GBM train, DRF train and multinomial train call, of one
@@ -224,15 +253,20 @@ of one deeplearning_mlp train.
 from __future__ import annotations
 
 import argparse
+import atexit
 import base64
 import io
 import json
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -257,6 +291,9 @@ _PARITY_ROWS = 65_536
 # depth 8; gbm_multinomial (tools/bench_suite.py:243-265): 500,000 rows,
 # 10 features, 4 classes, 5 rounds of depth 5
 _DRF_ROWS = 1_000_000
+# card vs CPU of the forest on the frame's first rows: the CPU's train
+# of all 1,000,000 takes ~110-140 s
+_DRF_PARITY_ROWS = 250_000
 _DRF_TREES = 10
 _DRF_DEPTH = 8
 _MN_ROWS = 500_000
@@ -328,6 +365,24 @@ _FRAME_WARM = 3
 _GROUP_SUM_LIMIT = 1e-6
 _HOLDOUT_AUC_LIMIT = 1e-4
 _FRAME_PARITY_ROWS = 200_000
+# phase 27: AutoML on airlines (tools/datasets.airlines_arrays, response
+# IsDepDelayed): automl_wall_100k's run (tools/bench_suite.py:428-470),
+# BASELINE config #5 cut from 10,000,000 rows and 5 folds, and card vs
+# CPU on the whole default plan at 5,000 rows (cut from 20,000: the
+# CPU's depth-12 forests cost ~110 s a step at any row count), the CPU
+# leg in a process of its own on _AML_CPU_THREADS threads, its steps
+# saved under _AML_LEG_DIR
+_AML_WALL_ROWS = 100_000
+_AML_ROWS = 1_000_000
+_AML_NFOLDS = 3
+_AML_PARITY_ROWS = 5_000
+_AML_LIMIT = 1e-4
+_AML_CPU_THREADS = 3
+_AML_LEG_DIR = Path(__file__).resolve().parent / "build" / "automl_cpu"
+_AML_LEG_TIMEOUT = 900
+
+
+_T0 = time.perf_counter()
 
 
 def _log(msg: str) -> None:
@@ -532,18 +587,20 @@ class _LaunchesByC:
         self.op._launch = self.launch
 
 
-def _near_ties(tm, other, frame, y, kw, n_old=0, lam=0.0, rel=1e-6):
+def _near_ties(tm, other, frame, y, kw, n_old=0, lam=0.0, rel=1e-6,
+               until_tie=False):
     """Walk ``tm``'s trees against ``other``'s (tools/torch_tree_parity:
     a differing decision must be a float64 near-tie within ``rel`` of
-    the node's G²/H, or this raises; ``lam`` the gain's reg_lambda);
-    returns (nodes compared, ties, the largest gap of a compared leaf
-    relative to its tree's largest |leaf|)."""
+    the node's G²/H, or this raises; ``lam`` the gain's reg_lambda;
+    ``until_tie`` stops after the first tree with a tie); returns
+    (nodes compared, ties, the largest gap of a compared leaf relative
+    to its tree's largest |leaf|)."""
     from tools.torch_tree_parity import round_stats, walk
 
     stats, binned = round_stats(tm, frame, y, kw, n_old=n_old)
     try:
         compared, ties, gaps = walk(tm, other, stats, binned, n_old=n_old,
-                                    lam=lam, rel=rel)
+                                    lam=lam, rel=rel, until_tie=until_tie)
     except AssertionError as e:
         raise RuntimeError(f"a split differs beyond a near-tie: {e}")
     return compared, ties, float(gaps.max()) if gaps.size else 0.0
@@ -2289,23 +2346,6 @@ def _frames_equal(torch, a, b) -> bool:
     return True
 
 
-class _Float64Plain:
-    """Within the block, the histogram's plain version (what a CPU
-    tensor takes) sums in float64 and rounds each cell to float32 once."""
-
-    def __init__(self, hist_op):
-        self.op, self.plain = hist_op, hist_op.histogram_plain
-
-    def __enter__(self):
-        plain = self.plain
-        self.op.histogram_plain = lambda b, r, v, n, B: plain(
-            b, r, v.double(), n, B).to(v.dtype)
-        return self
-
-    def __exit__(self, *exc):
-        self.op.histogram_plain = self.plain
-
-
 def _group_scale(src, keys, col, out) -> tuple[np.ndarray, np.ndarray]:
     """Per row of a group_by result ``out``: the group's Σ|x| of column
     ``col`` of the source frame ``src`` (float64, on the host) and its
@@ -2325,6 +2365,452 @@ def _group_scale(src, keys, col, out) -> tuple[np.ndarray, np.ndarray]:
     return scale[idx], cnt[idx]
 
 
+def _automl_cpu_leg(out: str, rows: int) -> int:
+    """Phase 27c's CPU leg (``chip_smoke.py --automl-cpu-leg DIR ROWS``,
+    a process of its own that main() starts before phase 3, so the
+    card's phases overlap the CPU's minutes): the whole default plan on
+    the CPU at ``rows`` airlines rows, every step saved under
+    ``DIR/steps`` (AutoML's checkpoint_dir, which phase 27 resumes), then
+    DeepLearning_1's CV train once more with every column's rollups
+    summed in reverse row order (another float32 summation order, as
+    the card's is), whose metric gaps to the leg's DeepLearning_1 row
+    are the train's own sensitivity. Writes ``DIR/leg.json``."""
+    import torch
+
+    torch.set_num_threads(_AML_CPU_THREADS)
+    from h2o_kubernetes_tpu_torch import AutoML, DeepLearning, Frame
+    from h2o_kubernetes_tpu_torch.automl import _default_plan
+    from h2o_kubernetes_tpu_torch.frame import frame as fmod
+    from tools.datasets import airlines_arrays
+
+    out = Path(out)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cols, dom = airlines_arrays(rows, seed=0)
+    t0 = time.perf_counter()
+    aml = AutoML(max_models=12, nfolds=_AML_NFOLDS, seed=1,
+                 project_name="parity", verbosity=None,
+                 checkpoint_dir=str(out / "steps")).train(
+        y="IsDepDelayed", training_frame=Frame.from_arrays(
+            cols, domains=dom, device="cpu"))
+    secs = time.perf_counter() - t0
+    dl = {n: p for _, n, p in _default_plan(1)}["DeepLearning_1"]
+    plain = fmod.Vec.rollups
+
+    def reversed_rollups(self):
+        if self._rollups is None and self.nrows > 1:
+            self._rollups = plain(self.select_rows(
+                np.arange(self.nrows - 1, -1, -1)))
+        return plain(self)
+
+    fmod.Vec.rollups = reversed_rollups
+    try:
+        t1 = time.perf_counter()
+        m = DeepLearning(**dl, seed=1, nfolds=_AML_NFOLDS,
+                         fold_assignment="modulo").train(
+            y="IsDepDelayed", training_frame=Frame.from_arrays(
+                cols, domains=dom, device="cpu"))
+        dl_s = time.perf_counter() - t1
+    finally:
+        fmod.Vec.rollups = plain
+    ref = aml.leaderboard.models["DeepLearning_1_AutoML_parity"].cv.metrics
+    (out / "leg.json").write_text(json.dumps({
+        "rows": rows, "threads": _AML_CPU_THREADS, "seconds": secs,
+        "leaderboard": aml.leaderboard.as_list(),
+        "dl_reversed_sums_s": dl_s,
+        "dl_reversed_sums_gaps": {k: abs(m.cv.metrics[k] - ref[k])
+                                  for k in ref}}))
+    return 0
+
+
+def _start_automl_cpu_leg():
+    """Start phase 27c's CPU leg (``_automl_cpu_leg``) with the card
+    hidden from it; the process is stopped at exit if still running.
+    Returns (process, its directory, its log)."""
+    _AML_LEG_DIR.parent.mkdir(parents=True, exist_ok=True)
+    log = _AML_LEG_DIR.parent / "automl_cpu_leg.log"
+    fh = open(log, "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--automl-cpu-leg",
+         str(_AML_LEG_DIR), str(_AML_PARITY_ROWS)],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        stdout=fh, stderr=subprocess.STDOUT)
+    fh.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    # a SIGTERM exits through atexit too, so the leg never outlives us
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    return proc, _AML_LEG_DIR, log
+
+
+def _lb_rows(aml) -> list[dict]:
+    return [{k: v for k, v in r.items() if k != "training_time_s"}
+            for r in aml.leaderboard.as_list()]
+
+
+def _same_leaderboard(got, want, metric: str) -> tuple[bool, dict]:
+    """(the same model ids with the same metric keys in the same order,
+    up to swaps of adjacent rows whose sort metrics lie within
+    _AML_LIMIT; per model, each metric's gap)."""
+    ids_g = [r["model_id"] for r in got]
+    ids_w = [r["model_id"] for r in want]
+    ok = sorted(ids_g) == sorted(ids_w)
+    gaps = {}
+    if ok:
+        for i, (a, b) in enumerate(zip(ids_g, ids_w)):
+            if a != b:
+                j = ids_w.index(a)
+                ok &= abs(j - i) == 1 and abs(
+                    want[i][metric] - want[j][metric]) <= _AML_LIMIT
+        by_id = {r["model_id"]: r for r in want}
+        for r in got:
+            w = by_id[r["model_id"]]
+            ok &= set(r) == set(w)
+            gaps[r["model_id"]] = {k: abs(r[k] - w[k]) for k in
+                                   set(r) & set(w) - {"model_id"}}
+    return ok, gaps
+
+
+def _phase_automl(c) -> dict:
+    """27. automl: cross-validation, stacked ensembles, AutoML, its
+    scheduler and grid search on airlines rows (tools/datasets.
+    airlines_arrays, response IsDepDelayed, as tools/automl_scale.py).
+    a. automl_wall_100k (tools/bench_suite.py:428-470): 100,000 rows,
+    nfolds=3, GLM and GBM, max_models=2: cold and warm wall seconds,
+    each step's training_time_s, the scheduler's device and host busy
+    seconds, the leaderboard, and the device-busy share of one more
+    warm run under torch.profiler. b. BASELINE config #5 at _AML_ROWS
+    rows: AutoML(max_models=11, nfolds=3, exclude_algos=["deeplearning"],
+    seed=1) trains the default plan's eleven other steps and both
+    ensembles (GLM metalearner, metalearner_nfolds=3): the leaderboard
+    with each step's seconds, the wall time, the histogram launches by
+    regime (B1, B2's partitioned, B3's batched; each counted from zero
+    around the run and required), B1 held at GBM_1's first fold train's
+    levels and at a holdout AUC's 4096 bins, B2 at GBM_5's deepest
+    partitioned level, B3 at DRF_1's levels (as phase 9 holds them).
+    c. card vs CPU at _AML_PARITY_ROWS rows: AutoML(max_models=12,
+    nfolds=3, seed=1), the whole default plan and both ensembles, on the
+    card here and on the CPU in the leg ``c.aml_cpu_leg`` started
+    (``_start_automl_cpu_leg``; started here when absent), whose saved
+    steps a CPU AutoML resumes (its base rows equal to the leg's, its
+    retrained ensembles within _AML_LIMIT).
+    Gated: fold ids bitwise and the same model ids; every GBM/XGBoost
+    main and fold model walked card against CPU up to its first tree
+    with a near-tie (_near_ties: every differing decision a float64
+    near-tie; the compared leaves' gaps reported); every metric within
+    _AML_LIMIT for GLM_1, DRF_1, XRT_1 and the boosted steps whose
+    walks met no tie, and those rows in the same order (adjacent rows
+    within _AML_LIMIT may swap); each card ensemble restacked on the
+    CPU from its base models' holdout predictions within _AML_LIMIT of
+    its row; a Cartesian GridSearch on GBM (max_depth 3 or 5 x
+    learn_rate 0.05 or 0.1, nfolds=3) gives the same four models in
+    the same order on both devices. Reported: the boosted rows past a
+    tie and DeepLearning_1, whose gaps stand beside the leg's
+    reversed-sum witness (PERF.md, ROADMAP C7)."""
+    torch, hist_op, card, book = c.torch, c.hist_op, c.card, c.book
+    from h2o_kubernetes_tpu_torch import (GBM, AutoML, Frame, GridSearch,
+                                          StackedEnsemble)
+    from tools.datasets import airlines_arrays
+
+    y = "IsDepDelayed"
+    u8, i16 = torch.uint8, torch.int16
+
+    # -- a. automl_wall_100k ---------------------------------------------
+    cols, dom = airlines_arrays(_AML_WALL_ROWS, seed=0)
+    fr = Frame.from_arrays(cols, domains=dom)
+
+    def wall_run(tag):
+        t0 = time.perf_counter()
+        a = AutoML(max_models=2, nfolds=3, include_algos=["glm", "gbm"],
+                   seed=1, project_name=tag, verbosity=None).train(
+            y=y, training_frame=fr)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, a
+    cold_s, _ = wall_run("wall_cold")
+    warm_s, aml = wall_run("wall_warm")
+    steps = {r["model_id"]: r["training_time_s"]
+             for r in aml.leaderboard.as_list()}
+    events, busy_us, wall_us = c.profile_counts(
+        torch, lambda: wall_run("wall_profiled"))
+    wall = {"rows": _AML_WALL_ROWS, "cold_s": cold_s, "warm_s": warm_s,
+            "step_training_time_s": steps,
+            "scheduler": aml.scheduler_stats,
+            "leaderboard": _lb_rows(aml),
+            "profiled": {"device_events": events,
+                         "device_busy_s": busy_us / 1e6,
+                         "wall_s": wall_us / 1e6,
+                         "device_busy_share": busy_us / wall_us}}
+    _log(f"[automl] automl_wall_100k ({_AML_WALL_ROWS} rows, nfolds=3, "
+         f"GLM + GBM, max_models=2): cold {cold_s:.3f}s, warm "
+         f"{warm_s:.3f}s; steps {steps}; scheduler {aml.scheduler_stats}; "
+         f"profiled warm run: {events} device events, busy "
+         f"{busy_us / 1e6:.3f}s of {wall_us / 1e6:.3f}s "
+         f"({100 * busy_us / wall_us:.1f}%); leader "
+         f"{aml.leaderboard.rows[0]['model_id']} auc "
+         f"{aml.leaderboard.rows[0]['auc']:.6f} [{card}]")
+    del fr, aml
+
+    # -- b. config #5 ----------------------------------------------------
+    cols, dom = airlines_arrays(_AML_ROWS, seed=0)
+    fr = Frame.from_arrays(cols, domains=dom)
+    del cols
+    hist_op.reset_launches()
+    with _HistRecorder(hist_op) as rec:
+        t0 = time.perf_counter()
+        aml = AutoML(max_models=11, nfolds=_AML_NFOLDS,
+                     exclude_algos=["deeplearning"], seed=1,
+                     project_name="config5", verbosity=None).train(
+            y=y, training_frame=fr)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = dict(hist_op.LAUNCHES)
+    batched = dict(hist_op.BATCHED_LAUNCHES)
+    parts = hist_op.PARTITION_LAUNCHES["row_partition"]
+    b3 = sum(batched.values())
+    b2 = launches["partitioned"] - batched["partitioned"]
+    b1 = sum(launches.values()) - b3 - b2
+    board = aml.leaderboard.as_list()
+    ids = [r["model_id"] for r in board]
+    want = {f"{n}_AutoML_config5" for n in (
+        "GLM_1", "DRF_1", "XRT_1", "GBM_1", "GBM_2", "GBM_3", "GBM_4",
+        "GBM_5", "XGBoost_1", "XGBoost_2", "XGBoost_3",
+        "StackedEnsemble_BestOfFamily", "StackedEnsemble_AllModels")}
+    _log(f"[automl] config #5: {_AML_ROWS} airlines rows, nfolds="
+         f"{_AML_NFOLDS}, {len(board)} models in {run_s:.3f}s; histogram "
+         f"launches {launches} (batched {batched}, row partitions {parts}): "
+         f"B1 {b1}, B2 {b2}, B3 {b3}; scheduler {aml.scheduler_stats} "
+         f"[{card}]")
+    for r in board:
+        _log(f"[automl]   {r['model_id']}: auc {r['auc']:.6f} logloss "
+             f"{r['logloss']:.6f} training_time_s "
+             f"{r.get('training_time_s', float('nan')):.3f}")
+    if set(ids) != want:
+        raise RuntimeError(f"config #5 leaderboard {ids}")
+    if min(b1, b2, b3) <= 0:
+        raise RuntimeError(f"config #5: B1 {b1}, B2 {b2}, B3 {b3} launches")
+    if not all(np.isfinite(r["auc"]) and 0.5 < r["auc"] <= 1.0
+               for r in board):
+        raise RuntimeError("config #5: a model's CV auc is not sane")
+    # B1 at GBM_1's first fold train (the run's first 256-bin single-tree
+    # levels) and a holdout AUC's score histogram; B2 at GBM_5's deepest
+    # partitioned level (its 64-bin levels); B3 at DRF_1's levels
+    # (a holdout past 65,536 rows takes the AUC's histogram path; a
+    # rehearsal at fewer rows has none)
+    auc = [_auc_case(rec, "automl holdout", i16)] \
+        if _AML_ROWS // _AML_NFOLDS > 65_536 else []
+    # GBM_1's depth-6 tree histograms levels 0-5 (the deeper 256-bin
+    # levels the recorder kept are GBM_2's and GBM_3's)
+    gbm1 = [(f"aml gbm1 d6 level {d}", inp, 256, calls)
+            for d, inp, calls in rec.levels(1, 256, 3, u8) if d < 6]
+    book.compare("automl config5 b1", None, 1, 256, 3, u8, "aml gbm1 d6",
+                 gbm1 + auc)
+    b2_levels = rec.levels(1, 64, 3, u8)
+    deep = []
+    for d, inp, calls in sorted(b2_levels, reverse=True):
+        if hist_op.hist_mode(1, inp[3], inp[0].shape[0], 64, 3, 1,
+                             inp[0].shape[1]) == "partitioned":
+            deep = [(f"aml gbm5 d10 level {d}", inp, 64, calls)]
+            break
+    if not deep:
+        raise RuntimeError("config #5: no partitioned 64-bin level")
+    book.compare("automl config5 b2", None, 1, 64, 3, u8, "aml gbm5 d10",
+                 deep)
+    if book.levels[deep[0][0]]["mode"] != "partitioned":
+        raise RuntimeError(f"config #5: {deep[0][0]} launched "
+                           f"{book.levels[deep[0][0]]['mode']}")
+    drf_k = sorted({k[0] for k in rec.seen if k[0] > 1 and k[1] == 64})
+    book.compare("automl config5 b3", rec, drf_k[0], 64, 2, u8,
+                 "aml drf d12")
+    _log_sums(book.sums, ("automl config5 b1", "automl config5 b2",
+                          "automl config5 b3"), card)
+    held = {k: v for k, v in book.levels.items() if k.startswith("aml ")}
+    config5 = {"rows": _AML_ROWS, "nfolds": _AML_NFOLDS, "wall_s": run_s,
+               "leaderboard": board, "launches": launches,
+               "batched_launches": batched, "row_partitions": parts,
+               "b1_launches": b1, "b2_launches": b2, "b3_launches": b3,
+               "scheduler": aml.scheduler_stats,
+               "held_max_rel_err": max(v["max_rel_err"]
+                                       for v in held.values())}
+    del fr, aml, rec
+
+    # -- c. card vs CPU --------------------------------------------------
+    if getattr(c, "aml_cpu_leg", None) is None:
+        c.aml_cpu_leg = _start_automl_cpu_leg()
+    leg, leg_dir, leg_log = c.aml_cpu_leg
+    cols, dom = airlines_arrays(_AML_PARITY_ROWS, seed=0)
+    f_card = Frame.from_arrays(cols, domains=dom)
+    f_cpu = Frame.from_arrays(cols, domains=dom, device="cpu")
+
+    def plan(**kw):
+        return AutoML(max_models=12, nfolds=_AML_NFOLDS, seed=1,
+                      project_name="parity", verbosity=None, **kw)
+    t0 = time.perf_counter()
+    card_aml = plan().train(y=y, training_frame=f_card)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    grids = {dev: GridSearch(
+        GBM(ntrees=20, seed=1, nfolds=_AML_NFOLDS, fold_assignment="modulo"),
+        {"max_depth": [3, 5], "learn_rate": [0.05, 0.1]},
+        grid_id="parity_grid").train(y=y, training_frame=f)
+        for dev, f in (("card", f_card), ("cpu", f_cpu))}
+    t0 = time.perf_counter()
+    try:
+        rc = leg.wait(timeout=_AML_LEG_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        leg.kill()
+        rc = "killed"
+    waited_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"automl: the CPU leg ended with {rc}: "
+                           + leg_log.read_text()[-3000:])
+    legj = json.loads((leg_dir / "leg.json").read_text())
+    cpu_aml = plan(checkpoint_dir=str(leg_dir / "steps")).train(
+        y=y, training_frame=f_cpu)
+    lb_card, lb_cpu = _lb_rows(card_aml), _lb_rows(cpu_aml)
+    # the resumed base rows are the leg's bitwise; its ensembles are
+    # retrained here, on this process's CPU threads
+    lb_leg = [{k: v for k, v in r.items() if k != "training_time_s"}
+              for r in legj["leaderboard"]]
+    resumed, resume_gap = _same_leaderboard(lb_cpu, lb_leg, "auc")
+    resumed &= all(not g or (max(g.values()) <= _AML_LIMIT if
+                             m.startswith("StackedEnsemble") else
+                             max(g.values()) == 0.0)
+                   for m, g in resume_gap.items())
+    models = {"card": card_aml.leaderboard.models,
+              "cpu": cpu_aml.leaderboard.models}
+    ids = [r["model_id"] for r in lb_card]
+    ids_same = sorted(ids) == sorted(r["model_id"] for r in lb_cpu) \
+        and len(ids) == 14
+    fails = [] if ids_same else [f"model ids {ids} / "
+                                 f"{[r['model_id'] for r in lb_cpu]}"]
+    if not resumed:
+        fails.append("the resumed CPU leaderboard is not the leg's")
+    folds_equal = ids_same and all(np.array_equal(
+        models["card"][m].cv.fold_ids, models["cpu"][m].cv.fold_ids)
+        for m in ids)
+    if not folds_equal:
+        fails.append("fold ids")
+    gaps = {}
+    if ids_same:
+        by_id = {r["model_id"]: r for r in lb_cpu}
+        gaps = {r["model_id"]: {k: abs(r[k] - by_id[r["model_id"]][k])
+                                for k in r if k != "model_id"}
+                for r in lb_card}
+    # the boosted steps: main and fold models walked up to the first tie
+    walks, exact = {}, set()
+    for mid in ids if ids_same else []:
+        fam = mid.split("_")[0]
+        if fam in ("GLM", "DRF", "XRT"):
+            exact.add(mid)
+        if fam not in ("GBM", "XGBoost"):
+            continue
+        mc, mp = models["card"][mid], models["cpu"][mid]
+        lam = mc.params.reg_lambda      # 0 for GBM
+        pairs = [("main", mc, mp, f_card)] + [
+            (f"fold {k}", a, b, f_card.select_rows(mc.cv.fold_ids != k))
+            for k, (a, b) in enumerate(zip(mc.cv.models, mp.cv.models))]
+        w = {}
+        for tag, a, b, fr in pairs:
+            compared, ties, leaf_gap = _near_ties(a, b, fr, y, {}, lam=lam,
+                                                  until_tie=True)
+            # the compared leaves' gaps are reported, as phases 9-26 do:
+            # a one-row leaf (min_rows=1) carries the f32 rounding of
+            # the sibling subtractions from its 3,333-row root
+            w[tag] = {"compared": compared, "ties": ties,
+                      "leaf_gap": leaf_gap}
+        walks[mid] = w
+        if not any(v["ties"] for v in w.values()):
+            exact.add(mid)
+    for mid in sorted(exact):
+        if max(gaps[mid].values()) > _AML_LIMIT:
+            fails.append(f"{mid}: metrics {gaps[mid]}")
+    order_same, _ = _same_leaderboard(
+        [r for r in lb_card if r["model_id"] in exact],
+        [r for r in lb_cpu if r["model_id"] in exact], "auc")
+    if not order_same:
+        fails.append("the order of the gated rows")
+    # each card ensemble restacked on the CPU from the same base models'
+    # holdout predictions (StackedEnsemble moves them to the frame)
+    restack = {}
+    for mid in ids if ids_same else []:
+        if mid.startswith("StackedEnsemble"):
+            se = StackedEnsemble(
+                models["card"][mid].base_models,
+                metalearner_nfolds=_AML_NFOLDS).train(y=y,
+                                                      training_frame=f_cpu)
+            row = next(r for r in lb_card if r["model_id"] == mid)
+            restack[mid] = max(abs(se.cv.metrics[k] - row[k])
+                               for k in se.cv.metrics)
+            if restack[mid] > _AML_LIMIT:
+                fails.append(f"{mid} restacked on the CPU "
+                             f"{restack[mid]:.3e} apart")
+    g_rows = {d: [(r["model_id"], r["max_depth"], r["learn_rate"])
+                  for r in g.get_grid()] for d, g in grids.items()}
+    if g_rows["card"] != g_rows["cpu"] or len(g_rows["card"]) != 4:
+        fails.append(f"grid {g_rows}")
+    step_s = {d: {r["model_id"]: r.get("training_time_s") for r in lb}
+              for d, lb in (("card", card_aml.leaderboard.as_list()),
+                            ("cpu", legj["leaderboard"]))}
+    for mid in ids:
+        tag = "gated" if mid in exact else "restacked" \
+            if mid in restack else "reported"
+        ties = {t: v["ties"] for t, v in walks.get(mid, {}).items()
+                if v["ties"]}
+        _log(f"[automl]   card vs CPU {mid} ({tag}; {step_s['card'][mid]}"
+             f" s / {step_s['cpu'].get(mid)} s): largest metric gap "
+             f"{max(gaps[mid].values()):.2e}" + (
+                 f", walked {sum(v['compared'] for v in walks[mid].values())}"
+                 f" nodes, ties {ties}, largest compared leaf gap "
+                 f"{max(v['leaf_gap'] for v in walks[mid].values()):.2e}"
+                 if mid in walks else "") + (
+                 f", restacked on the CPU {restack[mid]:.2e}"
+                 if mid in restack else ""))
+    dl_id = "DeepLearning_1_AutoML_parity"
+    witness = legj["dl_reversed_sums_gaps"]
+    resume_se = max((max(g.values()) for m, g in resume_gap.items()
+                     if g and m.startswith("StackedEnsemble")), default=0.0)
+    same_all, _ = _same_leaderboard(lb_card, lb_cpu, "auc")
+    _log(f"[automl] card vs CPU at {_AML_PARITY_ROWS} rows, the whole plan "
+         f"({len(lb_card)} models; card {card_s:.1f}s, CPU leg "
+         f"{legj['seconds']:.1f}s on {legj['threads']} threads, waited "
+         f"{waited_s:.1f}s): ids {ids} / {[r['model_id'] for r in lb_cpu]}"
+         f"; fold ids bitwise {folds_equal}; resumed = leg {resumed} "
+         f"(ensembles within {resume_se:.2e}); gated "
+         f"rows {sorted(exact)} in the same order {order_same}; the whole "
+         f"order the same {same_all}; {dl_id} gaps "
+         f"{ {k: f'{v:.2e}' for k, v in gaps.get(dl_id, {}).items()} }, "
+         f"the CPU's own with reversed column sums "
+         f"{ {k: f'{v:.2e}' for k, v in witness.items()} }; grid "
+         f"{g_rows['card']} / {g_rows['cpu']} [{card}]")
+    if fails:
+        raise RuntimeError("automl: card and CPU disagree: "
+                           + "; ".join(fails))
+    return {"wall_100k": wall, "config5": config5,
+            "parity": {"rows": _AML_PARITY_ROWS, "card_s": card_s,
+                       "cpu_leg_s": legj["seconds"],
+                       "cpu_leg_threads": legj["threads"],
+                       "cpu_leg_waited_s": waited_s,
+                       "fold_ids_bitwise": folds_equal,
+                       "resumed_equal": resumed,
+                       "resumed_ensemble_gap": resume_se,
+                       "gated": sorted(exact),
+                       "gated_order_same": order_same,
+                       "whole_order_same": same_all, "metric_gaps": gaps,
+                       "walks": {m: {t: {**v, "ties": [list(x) for x in
+                                                       v["ties"]]}
+                                     for t, v in w.items()}
+                                 for m, w in walks.items()},
+                       "restacked_gaps": restack,
+                       "dl_reversed_sums_gaps": witness,
+                       "grid": g_rows["card"],
+                       "leaderboard_card": lb_card,
+                       "leaderboard_cpu": lb_cpu}}
+
+
 def _phase_frame(c) -> dict:
     """26. frame: BASELINE config #1 from the file. ``import_file`` of a
     1,000,000-row airlines CSV (tools/datasets.airlines_csv, 27 columns,
@@ -2336,9 +2822,8 @@ def _phase_frame(c) -> dict:
     ``split_frame([0.8], seed=42)`` -> GBM(ntrees=10, max_depth=5,
     seed=1) on the 0.8 part -> ``model_performance`` on the 0.2 part:
     warm train s, rows·trees/s, train and holdout AUC and logloss, B1's
-    launches on that path, card vs CPU on 200,000 train rows (the CPU's
-    histograms summed in float64; structure up to float64 near-ties,
-    holdout AUC within 1e-4), B1 held at the
+    launches on that path, card vs CPU on 200,000 train rows (structure
+    up to float64 near-ties, holdout AUC within 1e-4), B1 held at the
     train's levels and its two AUC inputs; ``save_frame``/``load_frame`` and
     ``export_file``/``import_file`` round trips; a 1,000,000-value time
     column's ``as_float`` and ``to_numpy`` card = CPU."""
@@ -2502,26 +2987,16 @@ def _frame_body(c, work: str) -> dict:
     hist = model.scoring_history[-1]
     # card vs CPU: each device trains on the first _FRAME_PARITY_ROWS
     # rows of its 0.8 part (a CPU train of all 800,000 takes ~50 s) and
-    # scores the whole 0.2 part. The CPU's histograms are its plain
-    # version summed in float64 and rounded once: the plain float32
-    # index_add_ adds a bin's rows one after another, and on
-    # CancellationCode's NA bin (98.5% of the rows) that running sum
-    # drifts enough to make a split no float64 gain supports (ROADMAP
-    # Queue 3, C6); the plain float32 train is reported beside it.
+    # scores the whole 0.2 part; the CPU's plain histograms sum in
+    # float64 and round each cell once, so CancellationCode's NA bin
+    # (98.5% of the rows) does not drift
     sub = np.arange(min(_FRAME_PARITY_ROWS, train.nrows))
     s_card, s_cpu = train.select_rows(sub), cparts[0].select_rows(sub)
     m_card = GBM(**kw).train(y=y, training_frame=s_card)
-    with _Float64Plain(hist_op):
-        m_cpu = GBM(**kw).train(y=y, training_frame=s_cpu)
-    m_f32 = GBM(**kw).train(y=y, training_frame=s_cpu)
+    m_cpu = GBM(**kw).train(y=y, training_frame=s_cpu)
     auc_card = m_card.model_performance(test, y)["auc"]
     auc_cpu = m_cpu.model_performance(cparts[1], y)["auc"]
-    auc_f32 = m_f32.model_performance(cparts[1], y)["auc"]
     compared, ties, leaf_gap = _near_ties(m_card, m_cpu, s_card, y, {})
-    try:
-        f32_walk = _near_ties(m_card, m_f32, s_card, y, {})[:2]
-    except RuntimeError as e:
-        f32_walk = str(e)
     auc_gap = abs(auc_card - auc_cpu)
     n_launch = sum(launches.values())
     _log(f"[frame] GBM ntrees={_FRAME_TREES} max_depth={_FRAME_DEPTH} on "
@@ -2536,9 +3011,7 @@ def _frame_body(c, work: str) -> dict:
          f"{len(sub)} rows: {compared} nodes compared, near-ties {ties}, "
          f"largest leaf gap {leaf_gap:.3e}, holdout auc {auc_card:.6f} / "
          f"{auc_cpu:.6f} (gap {auc_gap:.3e}, limit "
-         f"{_HOLDOUT_AUC_LIMIT:.0e}); the CPU train on float32 plain "
-         f"histograms: holdout auc {auc_f32:.6f}, against the card "
-         f"{f32_walk} [{card}]")
+         f"{_HOLDOUT_AUC_LIMIT:.0e}) [{card}]")
     if n_launch != _FRAME_TREES * _FRAME_DEPTH + 2:
         raise RuntimeError(f"frame: {n_launch} B1 launches, not "
                            f"{_FRAME_TREES * _FRAME_DEPTH} levels + 2 AUCs")
@@ -2626,8 +3099,6 @@ def _frame_body(c, work: str) -> dict:
                 "holdout_logloss": perf["logloss"],
                 "parity_rows": len(sub), "parity_holdout_auc": [
                     auc_card, auc_cpu], "auc_gap": auc_gap,
-                "f32_plain_holdout_auc": auc_f32,
-                "f32_plain_walk": str(f32_walk),
                 "nodes_compared": compared, "near_ties": len(ties),
                 "leaf_gap": leaf_gap, "b1_launches": launches},
             "frame_file_s": frame_file_s, "export_s": export_s}
@@ -2640,7 +3111,13 @@ def main() -> int:
                     help="also trace one warm score_numpy, contrib_numpy "
                          "and train call of each kind with torch.profiler "
                          "and print where the device time goes")
+    ap.add_argument("--automl-cpu-leg", nargs=2, metavar=("DIR", "ROWS"),
+                    help="run phase 27c's CPU leg alone (main() starts it "
+                         "in a process of its own)")
     args = ap.parse_args()
+    if args.automl_cpu_leg:
+        return _automl_cpu_leg(args.automl_cpu_leg[0],
+                               int(args.automl_cpu_leg[1]))
 
     import torch
 
@@ -2666,6 +3143,10 @@ def main() -> int:
         random_rows, random_tree_artifact)
     from h2o_kubernetes_tpu_torch.ops import shap_kernel
 
+    # phase 27c's CPU leg runs beside phases 2-27 (minutes of CPU trains)
+    aml_cpu_leg = _start_automl_cpu_leg()
+
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 2 starts")
     # -- 2. build ------------------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2683,6 +3164,7 @@ def main() -> int:
                     or "spill" in line:
                 _log(f"[build] {lib.source.name} ptxas: {line.strip()}")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 3 starts")
     # -- 3. model ------------------------------------------------------------
     F, NTREES, DEPTH = 28, 20, 5
     # p_leaf=0: every branch grows to depth 5, as a GBM trained on
@@ -2706,6 +3188,7 @@ def main() -> int:
             and err <= 1e-4):
         raise RuntimeError("device margins disagree with the reference")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 4 starts")
     # -- 4. kernels vs plain -------------------------------------------------
     kern = shap_kernel.flat_shap_tab_kernel
     shap = {"serving": _shap_compare(torch, shap_kernel, model, X,
@@ -2713,6 +3196,7 @@ def main() -> int:
     rows = X.shape[0]
     n_groups = len(shap["serving"]["groups"])
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 5 starts")
     # -- 5. main path through REST -------------------------------------------
     shap_kernel.reset_launches()
     srv = start_server(port=0)
@@ -2771,6 +3255,7 @@ def main() -> int:
                            f"{launches_contrib} shap_tab launches, not one "
                            f"per group ({n_groups}) each")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 6 starts")
     # -- 6. full width, direct -----------------------------------------------
     score_s = _host_s(lambda: model.score_numpy(X), _REPEATS)
     before = kern.launches
@@ -2792,6 +3277,7 @@ def main() -> int:
         _profile(torch, "contrib_numpy", lambda: model.contrib_numpy(X))
     rest.BATCHER.stop(timeout=5.0)
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 7 starts")
     # -- 7. train: the training main path ------------------------------------
     from h2o_kubernetes_tpu_torch import GBM, Frame
     from h2o_kubernetes_tpu_torch.models.tree import core as tree_core
@@ -2834,6 +3320,7 @@ def main() -> int:
                            f"train, got {train_launches} over "
                            f"{_WARM_TRAINS} trains")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 8 starts")
     # -- 8. deep: B2's levels on the same path -------------------------------
     hist_op.reset_launches()
     with _HistRecorder(hist_op) as rec10:
@@ -2852,6 +3339,7 @@ def main() -> int:
                            f" with partitioned ones among them: "
                            f"{deep_launches}, {deep_parts} partitions")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 9 starts")
     # -- 9. hist: kernel vs plain vs index_add_ at the path's inputs ---------
     u8, i16 = torch.uint8, torch.int16
     book = _LevelBook(torch, hist_op, card, _REPEATS * 2)
@@ -2871,6 +3359,7 @@ def main() -> int:
     parts = {"gbm d10 level 9": _partition_compare(
         torch, hist_op, b, r, v, n, _REPEATS * 2, "gbm d10 level 9", card)}
     _log_sums(sums, ("gbm depth 5", "gbm depth 10"), card)
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 10 starts")
     # -- 10. parity: the card against the CPU --------------------------------
     binned = frame.binned(gbm.bin_spec)
     yv = frame.vec("y").as_float()
@@ -2896,6 +3385,7 @@ def main() -> int:
     if max(gaps.values()) > 1e-4:
         raise RuntimeError("card and CPU training disagree")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 11 starts")
     # -- 11. serve the trained model -----------------------------------------
     Xt = gbm._design_matrix(frame)[:_ROWS].cpu().numpy()
     shap_kernel.reset_launches()
@@ -2933,6 +3423,7 @@ def main() -> int:
     if args.profile:
         _profile(torch, "train", lambda: train(frame), top=12)
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 12 starts")
     # -- 12. drf: a random forest at drf_higgs's shape ------------------------
     from h2o_kubernetes_tpu_torch import DRF
 
@@ -2984,15 +3475,18 @@ def main() -> int:
             or sum(drf_launches.values()) != 9 * _WARM_TRAINS:
         raise RuntimeError(f"unexpected DRF histogram launches "
                            f"{drf_launches} / batched {drf_batched}")
+    sub = {k: v[:_DRF_PARITY_ROWS] for k, v in hcols.items()}
+    drf_card = fit_drf(Frame.from_arrays(sub, domains=hdom))
     t0 = time.perf_counter()
-    drf_cpu = fit_drf(Frame.from_arrays(hcols, domains=hdom, device="cpu"))
+    drf_cpu = fit_drf(Frame.from_arrays(sub, domains=hdom, device="cpu"))
     cpu_s = time.perf_counter() - t0
-    struct = all(torch.equal(getattr(drf.trees, f).cpu(),
+    struct = all(torch.equal(getattr(drf_card.trees, f).cpu(),
                              getattr(drf_cpu.trees, f))
                  for f in ("split_feat", "split_bin", "na_left", "is_split"))
-    leaf_gap = float((drf.trees.value.cpu() - drf_cpu.trees.value).abs()
-                     .max())
-    _log(f"[drf] card vs CPU at {_DRF_ROWS} rows: split structure bitwise "
+    leaf_gap = float((drf_card.trees.value.cpu() - drf_cpu.trees.value)
+                     .abs().max())
+    _log(f"[drf] card vs CPU at {_DRF_PARITY_ROWS} rows: split structure "
+         f"bitwise "
          f"{struct} ({int(drf_cpu.trees.is_split.sum())} splits), max leaf "
          f"gap {leaf_gap:.3e} (CPU train {cpu_s:.1f}s)")
     if not struct or leaf_gap > 1e-6:
@@ -3019,6 +3513,7 @@ def main() -> int:
         raise RuntimeError(f"shap_tab was held in variants {held}: both "
                            "ctab variants must run")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 13 starts")
     # -- 13. multinomial: GBM at gbm_multinomial's shape --------------------
     mcols = _multinomial_cols(_MN_ROWS, args.seed)
     mframe = Frame.from_arrays(mcols)
@@ -3074,6 +3569,7 @@ def main() -> int:
     if gap > 1e-4:
         raise RuntimeError("card and CPU multinomial training disagree")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 14 starts")
     # -- 14. B3: the batched launches at the two trains' inputs --------------
     compare("drf", rec_drf, _DRF_TREES, 64, 2, u8, "drf",
             [auc(rec_drf, "drf")])
@@ -3091,6 +3587,7 @@ def main() -> int:
         raise RuntimeError("B3 was not compared at every level, in both "
                            f"regime families and widths: {b3_modes}")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 15 starts")
     # -- 15. distributions: the other GBM families at bench.py's shape ------
     from h2o_kubernetes_tpu_torch.models.tree.core import huber_delta
 
@@ -3208,6 +3705,7 @@ def main() -> int:
         raise RuntimeError("huber's delta differs from jnp.nanquantile's "
                            "arithmetic")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 16 starts")
     # -- 16. checkpoint: continue a GBM and a forest on the card ------------
     def fit_ck(fr, n, ck=None):
         return GBM(ntrees=n, max_depth=5, learn_rate=0.2, seed=1,
@@ -3267,6 +3765,7 @@ def main() -> int:
                            "or grow its 5 new trees in one batched launch "
                            "per level")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 17 starts")
     # -- 17. registry: train -> export -> registry -> replica ----------------
     import hashlib
     import os
@@ -3357,33 +3856,43 @@ def main() -> int:
             and max(mojo_err.values()) <= 1e-6):
         raise RuntimeError("the registry loop served wrong results")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 18-20 starts")
     # -- 18-20. xgboost, lambdarank, glm -------------------------------------
     from types import SimpleNamespace
 
     ctx = SimpleNamespace(
         torch=torch, hist_op=hist_op, shap_kernel=shap_kernel, rest=rest,
         start_server=start_server, card=card, profile=args.profile,
-        hframe=hframe, hcols=hcols, hdom=hdom, mframe=mframe, book=book)
+        hframe=hframe, hcols=hcols, hdom=hdom, mframe=mframe, book=book,
+        aml_cpu_leg=aml_cpu_leg)
     xgb_res = _phase_xgboost(ctx)
     rank_res = _phase_lambdarank(ctx)
     glm_res = _phase_glm(ctx)
     shap["xgboost"] = xgb_res.pop("shap")
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 21-23 starts")
     # -- 21-23. efb, goss, out-of-core ---------------------------------------
     efb_res = _phase_efb(ctx)
     shap["efb gbm"] = efb_res.pop("shap")
     goss_res = _phase_goss(ctx)
     ooc_res = _phase_ooc(ctx)
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 24-25 starts")
     # -- 24-25. deeplearning, word2vec ----------------------------------------
     ctx.profile_counts = _profile_counts
     dl_res = _phase_deeplearning(ctx)
     w2v_res = _phase_word2vec(ctx)
 
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 26 starts")
     # -- 26. frame: airlines.csv -> split -> GBM -> holdout metrics -----------
     frame_res = _phase_frame(ctx)
 
-    # -- 27. report ----------------------------------------------------------
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 27 starts")
+    # -- 27. automl: CV, ensembles, AutoML, scheduler, grid ------------------
+    aml_res = _phase_automl(ctx)
+
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 28 starts")
+    # -- 28. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -3428,22 +3937,26 @@ def main() -> int:
              "h2o_kubernetes_tpu/ops/histogram.py:141 (_hist_fact_kernel)",
              ("gbm depth 5", "huber depth 5", "xgboost_hist",
               "lambdarank", "efb gbm", "wide gbm root", "goss gbm",
-              "ooc rule", "ooc 1M", "deeplearning_mlp", "airlines gbm"),
+              "ooc rule", "ooc 1M", "deeplearning_mlp", "airlines gbm",
+              "automl config5 b1"),
              lambda k, v: k.startswith(("gbm d5", "huber d5", "auc",
                                         "xgb d6", "rank d6", "efb d5",
                                         "wide d5", "goss d5", "ooc rule d6",
-                                        "ooc 1M d6", "air d5"))),
+                                        "ooc 1M d6", "air d5",
+                                        "aml gbm1 d6"))),
             ("histogram_deep", "gbm d10 level 9",
              deep_launches["partitioned"],
              {"partitioned": deep_launches["partitioned"]},
              "h2o_kubernetes_tpu/ops/histogram.py:300 (_hist_kernel)",
-             ("gbm depth 10", "ooc deep"),
-             lambda k, v: k in deep_levels or k == "ooc d10 level 9"),
+             ("gbm depth 10", "ooc deep", "automl config5 b2"),
+             lambda k, v: k in deep_levels or k == "ooc d10 level 9"
+             or k.startswith("aml gbm5 d10")),
             ("histogram_batched", "drf level 7",
              sum(drf_batched.values()) + sum(mn_batched.values()),
              {r: drf_batched[r] + mn_batched[r] for r in drf_batched},
              "h2o_kubernetes_tpu/ops/histogram.py:399 (_hist_vmappable)",
-             ("drf", "multinomial", "efb drf", "goss softprob"),
+             ("drf", "multinomial", "efb drf", "goss softprob",
+              "automl config5 b3"),
              lambda k, v: v["K"] > 1)):
         res = levels[level]
         held = {k: v for k, v in levels.items() if keep(k, v)}
@@ -3519,6 +4032,11 @@ def main() -> int:
     # phase 26 adds no kernel; its path's B1 launches (a train and the
     # holdout metrics, counted from zero) are in its own line
     _log(json.dumps({"frame": frame_res}))
+    # phase 27's config #5 run, its launches counted from zero around it
+    for i, k in ((1, "b1_launches"), (2, "b2_launches"),
+                 (3, "b3_launches")):
+        records[i]["automl_config5_launches"] = aml_res["config5"][k]
+    _log(json.dumps({"automl": aml_res}))
     _log(json.dumps({"kernels": records}))
     _log(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,12 @@ steps an ``nn.Module`` MLP with autograd and ``torch.optim`` over
 minibatches, and ``Word2Vec(...).train(frame)`` descends the
 negative-sampling loss with scattered gradients, both on the frame's
 device with the JAX package's random draws (``runtime/prng.py``, a
-bitwise twin of ``jax.random``). Serving: a scorer
+bitwise twin of ``jax.random``). Every supervised estimator
+cross-validates with ``nfolds=``/``fold_column=`` (``models/cv.py``);
+``StackedEnsemble`` stacks cross-validated models, ``GridSearch``
+walks a hyper-parameter grid, and ``AutoML`` runs the JAX package's
+model plan and two ensembles into a leaderboard on the pipelined
+executor (``runtime/scheduler.py``). Serving: a scorer
 replica loads a MOJO-v2 tree artifact (as written by the JAX package's
 ``export_mojo``) or serves a trained model directly, scores rows with
 ``flat_margin`` and serves per-row TreeSHAP contributions through a
@@ -40,11 +45,14 @@ the caller passes ``device="cpu"``.
 This package imports torch and never jax or h2o_kubernetes_tpu.
 """
 
+from .automl import AutoML, Job, Leaderboard, jobs
 from .frame import Frame, Vec, import_file, parse_setup
+from .grid import GridSearch, H2OGridSearch
 from .models.deeplearning import DeepLearning, DeepLearningModel
 from .models.drf import DRF, DRFModel
 from .models.gbm import GBM, GBMModel
 from .models.glm import GLM, GLMModel
+from .models.stackedensemble import StackedEnsemble, StackedEnsembleModel
 from .models.word2vec import Word2Vec, Word2VecModel
 from .models.xgboost import XGBoost, XGBoostModel
 from .mojo import MOJO_FORMAT, MojoModel, export_mojo, import_mojo, \
@@ -64,4 +72,6 @@ __all__ = ["GBM", "GBMModel", "DRF", "DRFModel", "XGBoost", "XGBoostModel",
            "read_mojo_parts", "MOJO_FORMAT", "export_mojo", "import_mojo",
            "MojoModel", "ModelRegistry", "save_model", "load_model", "Vec",
            "import_file", "parse_setup", "export_file", "save_frame",
-           "load_frame"]
+           "load_frame", "AutoML", "Job", "Leaderboard", "jobs",
+           "GridSearch", "H2OGridSearch", "StackedEnsemble",
+           "StackedEnsembleModel"]

@@ -1,6 +1,9 @@
 """Model plumbing: training inputs resolved from a Frame
 (``TrainData``, ``resolve_xy``), and the surface every model shares —
-``predict``/``model_performance`` on a Frame, and the serving entries
+``predict``/``model_performance``/``confusion_matrix``/``partial_plot``
+on a Frame (the metrics through ``score_predictions``, which
+cross-validation shares), the ``cross_validation_*`` accessors, and the
+serving entries
 ``score_numpy``, ``contrib_numpy`` and ``warm_up`` over a per-model
 cache of device tensors.
 
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["Model", "TrainData", "resolve_xy", "scorer_cache_stats",
-           "model_scorer_counters", "contrib_dispatch"]
+           "model_scorer_counters", "contrib_dispatch",
+           "score_predictions"]
 
 _SCORE_MIN_BATCH = 128          # smallest padded-batch bucket
 _CONTRIB_CHUNK = 16384          # default rows per chunk of the JAX rule
@@ -190,6 +194,26 @@ class Model:
     algo = "base"
     # the attribute whose presence marks the scoring device state built
     _score_state = "_flat_trees"
+    # models/cv.CVResult when trained with nfolds (models/cv.py)
+    cv = None
+
+    # -- cross-validation accessors (h2o-py's cross_validation_*) -----------
+
+    def cross_validation_models(self):
+        return self.cv.models if self.cv else None
+
+    def cross_validation_holdout_predictions(self) -> "np.ndarray | None":
+        """The holdout predictions as numpy (they live on the frame's
+        device)."""
+        if self.cv is None or self.cv.holdout_predictions is None:
+            return None
+        return self.cv.holdout_predictions.cpu().numpy()
+
+    def cross_validation_metrics(self) -> "dict[str, float] | None":
+        return self.cv.metrics if self.cv else None
+
+    def cross_validation_metrics_summary(self):
+        return self.cv.metrics_summary if self.cv else None
 
     # -- device-state cache -------------------------------------------------
 
@@ -498,16 +522,8 @@ class Model:
     def _predict_device(self, frame) -> torch.Tensor:
         """[n, K] class probabilities, or [n] regression predictions, on
         the model's device."""
-        X = self._design_matrix(frame)
-        off = None
-        if getattr(self, "offset_column", None):
-            if self.offset_column not in frame:
-                raise ValueError(
-                    f"this model was trained with offset_column="
-                    f"'{self.offset_column}' which is missing from the "
-                    "scoring frame")
-            off = frame.vec(self.offset_column).as_float().to(self.device)
-        return self._score_matrix(X, off)
+        return self._score_matrix(self._design_matrix(frame),
+                                  self._offset_of(frame))
 
     def predict_raw(self, frame) -> np.ndarray:
         """[n, K] class probabilities, or [n] regression predictions."""
@@ -530,54 +546,160 @@ class Model:
             pf[f"p{name}"] = Vec.from_numpy(out[:, k], device="cpu")
         return pf
 
-    def model_performance(self, frame, y: str) -> dict[str, float]:
-        """Metrics of this model on ``frame``'s response ``y`` (rows with
-        an NA response dropped): binomial auc/logloss/rmse and the
-        threshold table's pr_auc/gini/f1/max_f1_threshold/
-        mean_per_class_error (a single-class holdout keeps the first
-        three); multinomial logloss/accuracy/mean_per_class_error and
-        the macro one-vs-rest auc; regression rmse/mae/r2/
-        mean_residual_deviance (poisson's deviance for poisson). Scores,
-        response and metrics stay on the model's device (on a card each
-        score histogram is the CUDA kernel's; a binomial AUC and its
-        threshold table share one)."""
+    def _offset_of(self, frame) -> "torch.Tensor | None":
+        """The frame's offset column on the model's device, or None when
+        the model has no offset."""
+        if not getattr(self, "offset_column", None):
+            return None
+        if self.offset_column not in frame:
+            raise ValueError(
+                f"this model was trained with offset_column="
+                f"'{self.offset_column}' which is missing from the "
+                "scoring frame")
+        return frame.vec(self.offset_column).as_float().to(self.device)
+
+    def partial_plot(self, frame, cols: Sequence[str], nbins: int = 20,
+                     plot: bool = False) -> list:
+        """Partial dependence: per column, set it to each value of a
+        grid for every row and record the mean, standard deviation and
+        standard error of the model's response (the positive-class
+        probability, or the prediction). Enum columns sweep their
+        training levels, numeric ones ``nbins`` quantiles. One CPU
+        Frame per column; ``plot`` is accepted and ignored."""
+        from ..frame import Frame, Vec
+
+        if self.nclasses > 2:
+            raise ValueError("partial_plot supports binomial and "
+                             "regression models only")
+        del plot
+        n = frame.nrows
+        X = self._design_matrix(frame)
+        off = self._offset_of(frame)
+        out_frames = []
+        for col in cols:
+            if col not in self.feature_names:
+                raise ValueError(
+                    f"partial_plot: '{col}' is not a model feature")
+            j = self.feature_names.index(col)
+            tdom = self.feature_domains.get(col)
+            if tdom is not None:
+                grid, labels = list(range(len(tdom))), list(tdom)
+            else:
+                x = frame.vec(col).to_numpy()
+                finite = x[~np.isnan(x)]
+                if finite.size == 0:
+                    raise ValueError(f"partial_plot: '{col}' is all-NA")
+                grid = list(np.unique(np.quantile(
+                    finite, np.linspace(0, 1, nbins))))
+                labels = None
+            means, sds, sems = [], [], []
+            for gv in grid:
+                Xg = X.clone()
+                Xg[:, j] = float(gv)
+                pred = self._score_matrix(Xg, off).cpu().numpy()
+                resp = pred[:, 1] if self.nclasses == 2 else pred
+                means.append(float(np.mean(resp)))
+                sds.append(float(np.std(resp, ddof=1)) if n > 1 else 0.0)
+                sems.append(sds[-1] / np.sqrt(n))
+            pd_out = Frame()
+            if labels is not None:
+                pd_out[col] = Vec.from_numpy(
+                    np.arange(len(grid), dtype=np.int32), col,
+                    domain=labels, device="cpu")
+            else:
+                pd_out[col] = Vec.from_numpy(
+                    np.asarray(grid, dtype=np.float32), col, device="cpu")
+            for name, vals in (("mean_response", means),
+                               ("stddev_response", sds),
+                               ("std_error_mean_response", sems)):
+                pd_out[name] = Vec.from_numpy(
+                    np.asarray(vals, dtype=np.float32), name, device="cpu")
+            out_frames.append(pd_out)
+        return out_frames
+
+    def confusion_matrix(self, frame, y: str,
+                         threshold: float | None = None) -> np.ndarray:
+        """Confusion matrix, rows actual and columns predicted: binomial
+        2x2 at ``threshold`` (the F1-optimal one when None), multinomial
+        KxK argmax counts."""
         from .. import metrics as M
 
+        yv = frame.vec(y)
+        preds = self.predict_raw(frame)
+        codes = yv.to_numpy()
+        if self.nclasses == 2:
+            ok = codes >= 0 if yv.is_enum() else ~np.isnan(codes)
+            return M.confusion_matrix(codes[ok], preds[ok][:, 1],
+                                      threshold=threshold)
+        if self.nclasses > 2:
+            ok = codes >= 0
+            lab = preds[ok].argmax(axis=1)
+            K = self.nclasses
+            cm = np.zeros((K, K))
+            np.add.at(cm, (codes[ok].astype(int), lab), 1.0)
+            return cm
+        raise ValueError("confusion_matrix needs a classification model")
+
+    def model_performance(self, frame, y: str) -> dict[str, float]:
+        """Metrics of this model on ``frame``'s response ``y`` (rows with
+        an NA response dropped), from ``score_predictions``: scores,
+        response and metrics stay on the model's device."""
         out = self._predict_device(frame)
         yt = frame.vec(y).as_float().to(self.device)   # enum NA -> NaN
         ok = ~torch.isnan(yt)
-        if not bool(ok.any()):
-            raise ValueError("cannot score an empty holdout "
-                             "(no rows with a valid response)")
-        yt, out = yt[ok], out[ok]
-        if self.nclasses == 2:
-            p1 = out[:, 1]
-            auc, stats = M.binomial_auc_and_stats(yt, p1)
-            res = {"auc": auc, "logloss": M.logloss(yt, p1),
-                   "rmse": M.rmse(yt, p1)}
-            if stats is None:               # one class in the holdout
-                return res
-            return res | {k: stats[k] for k in
-                          ("pr_auc", "gini", "f1", "max_f1_threshold",
-                           "mean_per_class_error")}
-        if self.nclasses > 2:
-            lab = out.argmax(dim=1)
-            yc = yt.long()
-            present = [k for k in range(self.nclasses)
-                       if bool((yc == k).any())]
-            # mean per-class error: the mean of 1 - recall over the
-            # classes present; auc: the macro one-vs-rest mean
-            errs = [float((lab[yc == k] != k).double().mean())
-                    for k in present]
-            aucs = [M.roc_auc((yc == k).float(), out[:, k])
-                    for k in present]
-            return {"logloss": M.multinomial_logloss(yt, out),
-                    "accuracy": M.accuracy(yt, lab),
-                    "mean_per_class_error": float(np.mean(errs)),
-                    "auc": float(np.mean(aucs))}
-        dist = "poisson" if getattr(self, "distribution", None) == \
-            "poisson" else "gaussian"
-        return {"rmse": M.rmse(yt, out), "mae": M.mae(yt, out),
-                "r2": M.r2(yt, out),
-                "mean_residual_deviance": M.mean_residual_deviance(
-                    yt, out, dist)}
+        return score_predictions(self.nclasses,
+                                 getattr(self, "distribution", None),
+                                 yt[ok], out[ok])
+
+
+def score_predictions(nclasses: int, distribution: str | None,
+                      y_true, preds: torch.Tensor) -> dict[str, float]:
+    """The metric dispatch that ``model_performance`` and
+    cross-validation share, on the predictions' device (on a card each
+    score histogram is the CUDA kernel's; a binomial AUC and its
+    threshold table share one). ``y_true``: class ids or the numeric
+    response, NA rows already dropped; ``preds``: [n, K] probabilities
+    or [n] predictions. Binomial: auc/logloss/rmse and the threshold
+    table's pr_auc/gini/f1/max_f1_threshold/mean_per_class_error (a
+    single-class holdout keeps the first three); multinomial logloss/
+    accuracy/mean_per_class_error and the macro one-vs-rest auc;
+    regression rmse/mae/r2/mean_residual_deviance (poisson's deviance
+    for poisson)."""
+    from .. import metrics as M
+
+    yt = y_true if isinstance(y_true, torch.Tensor) else \
+        torch.as_tensor(np.asarray(y_true, dtype=np.float32))
+    yt = yt.to(device=preds.device, dtype=torch.float32)
+    if yt.shape[0] == 0:
+        raise ValueError("cannot score an empty holdout "
+                         "(no rows with a valid response)")
+    if nclasses == 2:
+        p1 = preds[:, 1]
+        auc, stats = M.binomial_auc_and_stats(yt, p1)
+        res = {"auc": auc, "logloss": M.logloss(yt, p1),
+               "rmse": M.rmse(yt, p1)}
+        if stats is None:                   # one class in the holdout
+            return res
+        return res | {k: stats[k] for k in
+                      ("pr_auc", "gini", "f1", "max_f1_threshold",
+                       "mean_per_class_error")}
+    if nclasses > 2:
+        lab = preds.argmax(dim=1)
+        yc = yt.long()
+        present = [k for k in range(nclasses) if bool((yc == k).any())]
+        # mean per-class error: the mean of 1 - recall over the classes
+        # present; auc: the macro one-vs-rest mean
+        errs = [float((lab[yc == k] != k).double().mean())
+                for k in present]
+        aucs = [M.roc_auc((yc == k).float(), preds[:, k])
+                for k in present]
+        return {"logloss": M.multinomial_logloss(yt, preds),
+                "accuracy": M.accuracy(yt, lab),
+                "mean_per_class_error": float(np.mean(errs)) if errs
+                else float("nan"),
+                "auc": float(np.mean(aucs)) if aucs else float("nan")}
+    dist = "poisson" if distribution == "poisson" else "gaussian"
+    return {"rmse": M.rmse(yt, preds), "mae": M.mae(yt, preds),
+            "r2": M.r2(yt, preds),
+            "mean_residual_deviance": M.mean_residual_deviance(
+                yt, preds, dist)}

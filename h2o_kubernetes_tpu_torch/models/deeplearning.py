@@ -25,7 +25,8 @@ host sync.
 The reference averages the shards' weights after each iteration (its
 model-averaging allreduce); on one card that average is the identity,
 so there is none here, and multi-shard averaging is not ported.
-Cross-validation raises ``NotImplementedError`` naming its ROADMAP item.
+``nfolds``/``fold_column`` cross-validate (``models/cv.py``); an
+autoencoder or a checkpoint continuation refuses them.
 """
 
 from __future__ import annotations
@@ -44,9 +45,6 @@ from .datainfo import DataInfo, build_datainfo, design, expand
 __all__ = ["DeepLearning", "DeepLearningModel", "DeepLearningParams",
            "carry_net", "deeplearning_model_from_arrays"]
 
-_CV_KEYS = ("nfolds", "fold_assignment", "fold_column",
-            "keep_cross_validation_predictions",
-            "keep_cross_validation_models")
 # the most elements an iteration's draw tensors hold at once: the
 # twin's int64 words of one chunk of steps stay near 256 MB
 _DRAW_ELEMS = 1 << 25
@@ -334,20 +332,16 @@ class DeepLearning:
     """H2ODeepLearningEstimator analog."""
 
     def __init__(self, **kw):
-        cv = {k: kw.pop(k) for k in _CV_KEYS if k in kw}
+        from .cv import CVArgs
+
+        self.cv_args = CVArgs.pop(kw)
         self.params = DeepLearningParams(**kw)
-        if cv:
-            enabled = (cv.get("nfolds") or 0) >= 2 or \
-                cv.get("fold_column") is not None
-            if enabled and self.params.autoencoder:
-                raise ValueError(
-                    "cross-validation is not supported for autoencoders")
-            if enabled and self.params.checkpoint is not None:
-                raise ValueError(
-                    "checkpoint cannot be combined with cross-validation")
-            raise NotImplementedError(
-                f"cross-validation ({', '.join(cv)}) is not ported "
-                "(ROADMAP Queue 1 item 11)")
+        if self.cv_args.enabled and self.params.autoencoder:
+            raise ValueError(
+                "cross-validation is not supported for autoencoders")
+        if self.cv_args.enabled and self.params.checkpoint is not None:
+            raise ValueError(
+                "checkpoint cannot be combined with cross-validation")
 
     def train(self, y: str | None = None, training_frame=None,
               x: Sequence[str] | None = None,
@@ -360,6 +354,9 @@ class DeepLearning:
         if offset_column and p.autoencoder:
             raise ValueError(
                 "offset_column is not supported for autoencoders")
+        if self.cv_args.fold_column:
+            ignored_columns = list(ignored_columns or []) + \
+                [self.cv_args.fold_column]
         if p.autoencoder:
             if y is None:
                 # unsupervised: a constant response for resolve_xy
@@ -488,10 +485,14 @@ class DeepLearning:
             model.scoring_history = [{
                 "epochs": p.epochs,
                 **{f"train_{k}": v for k, v in perf.items()}}]
-        if validation_frame is not None:
-            model.validation_metrics = model.model_performance(
-                validation_frame, y)
-        return model
+        from .cv import finalize_train
+
+        return finalize_train(
+            self, model, y, training_frame,
+            {"x": x, "ignored_columns": ignored_columns,
+             "weights_column": weights_column,
+             "offset_column": offset_column},
+            validation_frame)
 
 
 def _offset_has_na(frame, offset_column) -> bool:

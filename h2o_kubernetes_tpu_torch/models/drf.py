@@ -57,6 +57,8 @@ class DRF(GBM):
         classification, F/3 for regression (at least 1); -2 -> every
         feature; > 0 -> that many."""
         ignored = set(ignored_columns or []) | {y}
+        if self.cv_args.fold_column:
+            ignored.add(self.cv_args.fold_column)
         if weights_column:
             ignored.add(weights_column)
         names = list(x) if x else [n for n in training_frame.names

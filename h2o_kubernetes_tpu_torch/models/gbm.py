@@ -24,8 +24,9 @@ The JAX package's training knobs, read at train time: GOSS
 (``H2O_TPU_EFB``, ``tree/efb.py``; ``auto`` bundles frames of 64
 features or more where it shrinks them) and out-of-core boosting
 (``H2O_TPU_OOC``, ``_ooc_chunk_rows``, ``tree/ooc.py``). ``score_every``
-and cross-validation raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+records the training metrics every that many rounds (the boosting
+keys' chunks stop at its boundaries, as the JAX package's dispatches
+do), and ``nfolds``/``fold_column`` cross-validate (``models/cv.py``).
 """
 
 from __future__ import annotations
@@ -57,9 +58,6 @@ _DISTRIBUTIONS = ("bernoulli", "gaussian", "multinomial", "poisson",
 # h ≡ 1 losses: two-channel histograms
 _UNIT_HESS_DISTS = ("gaussian", "laplace", "quantile", "huber")
 _LOG_LINK_DISTS = ("poisson", "gamma", "tweedie")
-_CV_KEYS = ("nfolds", "fold_assignment", "fold_column",
-            "keep_cross_validation_predictions",
-            "keep_cross_validation_models")
 
 
 @dataclass
@@ -129,18 +127,29 @@ def _make_boost_params(p: GBMParams, distribution: str) -> BoostParams:
                        drf_mode=p._drf_mode, goss_a=goss_a, goss_b=goss_b)
 
 
+def _score_cadence(p: GBMParams) -> int:
+    """Rounds between scoring-history rows (0: only at the end); DRF
+    scores once."""
+    return p.score_every if (p.score_every and not p._drf_mode) else 0
+
+
 def _chunk_sizes(p: GBMParams, rows: int, F: int, K: int,
                  start_t: int = 0) -> list[int]:
     """Tree counts of the dispatches the JAX package's in-HBM loop
     makes for this shape (its ``_chunk_sizes`` on one row shard), from
-    round ``start_t`` (a checkpoint's rounds) to ``ntrees``: each chunk
-    draws its own key, so the port walks the same schedule."""
+    round ``start_t`` (a checkpoint's rounds) to ``ntrees``, stopping
+    at ``score_every``'s boundaries: each chunk draws its own key, so
+    the port walks the same schedule."""
     per_round = rows * max(F, 1) * p.nbins * (2 ** p.max_depth) * K
     budget_chunk = max(1, int(_DISPATCH_BUDGET // per_round))
+    score = _score_cadence(p)
     out, t = [], start_t
     while t < p.ntrees:
-        out.append(min(budget_chunk, p.ntrees - t))
-        t += out[-1]
+        n = min(budget_chunk, p.ntrees - t)
+        if score:
+            n = min(n, score - (t - start_t) % score)
+        out.append(n)
+        t += n
     return out
 
 
@@ -155,13 +164,6 @@ def _round_keys(p: GBMParams, rows: int, F: int, K: int, device,
         key, kc = prng.split(key, 2)
         out.append(prng.split(kc, n))
     return torch.cat(out)
-
-
-def _unported(p: GBMParams) -> str | None:
-    """The first option this port does not train, with its ROADMAP item."""
-    if p.score_every:
-        return "score_every (ROADMAP Queue 1 item 11)"
-    return None
 
 
 def _ooc_chunk_rows(p: GBMParams, data: TrainData, K: int, F: int,
@@ -468,11 +470,9 @@ class GBM:
     model_cls = GBMModel
 
     def __init__(self, **kw):
-        cv = [k for k in _CV_KEYS if k in kw]
-        if cv:
-            raise NotImplementedError(
-                f"cross-validation ({', '.join(cv)}) is not ported "
-                "(ROADMAP Queue 1 item 11)")
+        from .cv import CVArgs
+
+        self.cv_args = CVArgs.pop(kw)
         kw.setdefault("nbins", default_nbins())
         self.params = GBMParams(**kw)
 
@@ -488,11 +488,15 @@ class GBM:
         if not 4 <= p.nbins <= 256:
             raise ValueError(f"n_bins must be in [4, 256] (uint8 bin "
                              f"codes), got {p.nbins}")
-        why = _unported(p)
-        if why:
-            raise NotImplementedError(f"{why} is not ported")
         if offset_column and p._drf_mode:
             raise ValueError("offset_column is not supported for DRF")
+        if p.checkpoint is not None and self.cv_args.enabled:
+            # fold models would inherit trees that saw their holdout rows
+            raise ValueError(
+                "checkpoint cannot be combined with cross-validation")
+        if self.cv_args.fold_column:
+            ignored_columns = list(ignored_columns or []) + \
+                [self.cv_args.fold_column]
         data = resolve_xy(training_frame, y, x, ignored_columns,
                           weights_column, p.distribution, offset_column)
         dist = data.distribution
@@ -607,6 +611,7 @@ class GBM:
                 margin = torch.zeros_like(data.y)
             else:
                 init, margin = _init_margin(data.y, data.w, off, dist, K)
+            history = []
             if ooc_chunk is not None:
                 from .tree.ooc import boost_trees_chunked, make_chunks
 
@@ -614,14 +619,10 @@ class GBM:
                                   margin, ooc_chunk, plan=efb_plan)
                 margin, trees, dropped, ooc_stats = boost_trees_chunked(
                     cks, n_new, tp, bp, efb, goss_keys)
-            elif K == 1:
-                margin, trees, dropped = boost_trees(
-                    binned, data.y, data.w, margin, n_new, tp, bp, keys,
-                    efb, goss_keys)
             else:
-                margin, trees, dropped = boost_trees_multi(
-                    binned, data.y, data.w, margin, n_new, K, tp, bp, G,
-                    keys, efb, goss_keys)
+                margin, trees, dropped, history = _boost_in_memory(
+                    p, binned, data, margin, n_new, K, tp, bp, G, keys,
+                    efb, goss_keys, start_t)
             if dropped is not None:
                 dropped = int(dropped)
                 _warn_goss_overflow(dropped)
@@ -640,18 +641,24 @@ class GBM:
             model.goss_dropped = dropped
         if p._drf_mode:
             perf = model.model_performance(training_frame, y)
-            model.scoring_history = [{"ntrees": p.ntrees, **{
+            history = [{"ntrees": p.ntrees, **{
                 f"train_{k}": v for k, v in perf.items()}}]
-        else:
-            hist = {"ntrees": p.ntrees, **_margin_metrics(
-                dist, margin, data.y, data.w)}
-            if "train_rmse" in hist:        # in original units
-                hist["train_rmse"] *= margin_scale
-            model.scoring_history = [hist]
-        if validation_frame is not None:
-            model.validation_metrics = model.model_performance(
-                validation_frame, y)
-        return model
+        elif not (history and history[-1]["ntrees"] == p.ntrees):
+            # a cadence dividing ntrees has scored the last round already
+            history.append({"ntrees": p.ntrees, **_margin_metrics(
+                dist, margin, data.y, data.w)})
+        for hrow in history:
+            if "train_rmse" in hrow:        # in original units
+                hrow["train_rmse"] *= margin_scale
+        model.scoring_history = history
+        from .cv import finalize_train
+
+        return finalize_train(
+            self, model, y, training_frame,
+            {"x": x, "ignored_columns": ignored_columns,
+             "weights_column": weights_column,
+             "offset_column": offset_column},
+            validation_frame)
 
     @staticmethod
     def _checkpoint_margin(ckpt, old: Tree, binned, off, K: int,
@@ -669,6 +676,39 @@ class GBM:
                                            binned, d, B)
             for k in range(K)], dim=1)
         return init, margin
+
+
+def _boost_in_memory(p: GBMParams, binned, data: TrainData, margin,
+                     n_new: int, K: int, tp: TreeParams, bp, G: int, keys,
+                     efb, goss_keys, start_t: int):
+    """The boosting rounds on a device-resident binned matrix, in
+    segments of ``score_every`` rounds (one segment without a cadence),
+    a scoring-history row of the training metrics after each full
+    segment. Returns (margin, trees, GOSS rows dropped or None,
+    history)."""
+    score = _score_cadence(p)
+    step = score or n_new
+    parts, dropped, history = [], None, []
+    for s in range(0, n_new, step):
+        e = min(s + step, n_new)
+        ks = None if keys is None else keys[s:e]
+        gk = None if goss_keys is None else goss_keys[s:e]
+        if K == 1:
+            margin, t, dr = boost_trees(binned, data.y, data.w, margin,
+                                        e - s, tp, bp, ks, efb, gk)
+        else:
+            margin, t, dr = boost_trees_multi(binned, data.y, data.w,
+                                              margin, e - s, K, tp, bp, G,
+                                              ks, efb, gk)
+        parts.append(t)
+        if dr is not None:
+            dropped = dr if dropped is None else dropped + dr
+        if score and e % score == 0:
+            history.append({"ntrees": start_t + e, **_margin_metrics(
+                data.distribution, margin, data.y, data.w)})
+    trees = parts[0] if len(parts) == 1 else \
+        Tree(*(torch.cat(a) for a in zip(*parts)))
+    return margin, trees, dropped, history
 
 
 def gbm_model_from_arrays(trees: dict, edges, is_enum, init_score,

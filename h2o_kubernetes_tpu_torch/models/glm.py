@@ -22,8 +22,8 @@ the strong Wolfe conditions, gradients from ``torch.autograd``); the JAX
 package uses optax's, so the two meet at the optimum, not along the
 way. ``lambda_search`` fits a warm-started descending λ path;
 ``compute_p_values`` gives standard errors, z and p values from the
-inverse Fisher information (λ = 0, IRLSM only). Cross-validation raises
-``NotImplementedError`` naming its ROADMAP item.
+inverse Fisher information (λ = 0, IRLSM only). ``nfolds``/
+``fold_column`` cross-validate (``models/cv.py``).
 """
 
 from __future__ import annotations
@@ -46,9 +46,6 @@ _SOLVERS = ("IRLSM", "L_BFGS", "COORDINATE_DESCENT")
 _DEFAULT_LINK = {"gaussian": "identity", "binomial": "logit",
                  "poisson": "log", "gamma": "inverse", "tweedie": "log",
                  "negativebinomial": "log", "multinomial": "multinomial"}
-_CV_KEYS = ("nfolds", "fold_assignment", "fold_column",
-            "keep_cross_validation_predictions",
-            "keep_cross_validation_models")
 # the distribution a family's response resolves as (and its model
 # reports), the JAX package's mapping
 _FAMILY_DIST = {"binomial": "bernoulli", "gamma": "gaussian",
@@ -605,11 +602,9 @@ class GLM:
     """H2OGeneralizedLinearEstimator analog."""
 
     def __init__(self, **kw):
-        cv = [k for k in _CV_KEYS if k in kw]
-        if cv:
-            raise NotImplementedError(
-                f"cross-validation ({', '.join(cv)}) is not ported "
-                "(ROADMAP Queue 1 item 11)")
+        from .cv import CVArgs
+
+        self.cv_args = CVArgs.pop(kw)
         self.params = GLMParams(**kw)
 
     def _fit_beta(self, Xe, data: TrainData, lam: float, beta0,
@@ -684,6 +679,9 @@ class GLM:
             # softmax-invariant: it would train the same model
             raise ValueError(
                 "offset_column is not supported for multinomial")
+        if self.cv_args.fold_column:
+            ignored_columns = list(ignored_columns or []) + \
+                [self.cv_args.fold_column]
         if p.family not in _FAMILIES:
             raise ValueError(f"unknown family '{p.family}' (supported: "
                              f"{', '.join(_FAMILIES)})")
@@ -719,10 +717,14 @@ class GLM:
         else:
             model = self._train_single(data, dinfo, Xe, fam)
             model.offset_column = offset_column
-        if validation_frame is not None:
-            model.validation_metrics = model.model_performance(
-                validation_frame, y)
-        return model
+        from .cv import finalize_train
+
+        return finalize_train(
+            self, model, y, training_frame,
+            {"x": x, "ignored_columns": ignored_columns,
+             "weights_column": weights_column,
+             "offset_column": offset_column},
+            validation_frame)
 
     def _train_single(self, data: TrainData, dinfo: DataInfo, Xe,
                       fam: FamSpec) -> GLMModel:

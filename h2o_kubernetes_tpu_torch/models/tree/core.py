@@ -102,6 +102,10 @@ class Tree(NamedTuple):
 
 
 def _soft_thresh(g, alpha):
+    # with alpha 0 the threshold is g + 0 bit for bit (sign(g)·|g|, with
+    # -0 made +0): one elementwise pass over every candidate, not four
+    if alpha == 0:
+        return g + 0.0
     return torch.sign(g) * torch.clamp(torch.abs(g) - alpha, min=0.0)
 
 

@@ -307,6 +307,10 @@ class XGBoost(GBM):
         if self.params.distribution.startswith("rank:"):
             if group_column is None:
                 raise ValueError("ranking objectives need group_column")
+            if self.cv_args.enabled:
+                raise ValueError(
+                    "cross-validation with rank:* objectives needs "
+                    "group-aware folds; not supported yet")
             return self._train_rank(y, training_frame, x, group_column, **kw)
         ignored = list(kw.pop("ignored_columns", None) or [])
         if group_column:

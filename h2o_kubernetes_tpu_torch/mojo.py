@@ -11,12 +11,15 @@ meta's ``numeric_idx``, ``enum_specs`` and ``drop_first``), family and
 link. A DeepLearning model carries the same design layout and its
 layers (``net_{i}_w`` [in, out], ``net_{i}_b``; the meta's activation,
 loss and ``autoencoder``); a Word2Vec model its ``embeddings`` and the
-meta's ``vocab``. ``export_mojo`` writes a port GBM/DRF/XGBoost/GLM/
-DeepLearning/Word2Vec model (or a loaded tree scorer) as one;
-``read_mojo_parts`` reads any; ``import_mojo``/``MojoModel`` score a
-tree, GLM or DeepLearning artifact and look up a Word2Vec artifact's
-vectors with numpy only, on any host. The JAX package's other algos
-raise, naming the ROADMAP item that ports them.
+meta's ``vocab``. A stacked ensemble nests every base model's artifact
+(``base_{i}.mojo``) and the metalearner's (``metalearner.mojo``) in its
+zip, with the meta's ``base_tags``. ``export_mojo`` writes a port GBM/
+DRF/XGBoost/GLM/DeepLearning/Word2Vec model, a stacked ensemble of
+them (or a loaded tree scorer) as one; ``read_mojo_parts`` reads any;
+``import_mojo``/``MojoModel`` score a tree, GLM, DeepLearning or
+stacked-ensemble artifact and look up a Word2Vec artifact's vectors
+with numpy only, on any host. The JAX package's other algos raise,
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -40,14 +43,14 @@ MOJO_FORMAT = _FORMAT
 
 TREE_ALGOS = ("gbm", "drf", "xgboost")
 # the algos whose artifacts this module writes and reads
-SCORED_ALGOS = TREE_ALGOS + ("glm", "deeplearning", "word2vec")
+SCORED_ALGOS = TREE_ALGOS + ("glm", "deeplearning", "word2vec",
+                             "stackedensemble")
 # the JAX package's other artifact algos, by the ROADMAP item (Queue 1's
 # label) that ports them
 _UNPORTED_ALGOS = {
     "kmeans": "item 12", "pca": "item 12", "glrm": "item 12",
     "naivebayes": "item 12", "isolationforest": "item 12",
-    "coxph": "item 12", "targetencoder": "item 12",
-    "stackedensemble": "item 11"}
+    "coxph": "item 12", "targetencoder": "item 12"}
 
 
 def _unported(algo) -> str:
@@ -75,15 +78,19 @@ def read_mojo_parts(path, want_nested: bool = False
     return meta, arrays, nested
 
 
-def write_mojo_parts(meta: dict, arrays: dict, path) -> None:
-    """Write ``meta`` (as ``model.json``, with this format's tag) and
-    ``arrays`` (as a compressed ``arrays.npz``) to ``path``, a
-    filesystem path or a binary file-like object."""
+def write_mojo_parts(meta: dict, arrays: dict, path,
+                     nested: dict | None = None) -> None:
+    """Write ``meta`` (as ``model.json``, with this format's tag),
+    ``arrays`` (as a compressed ``arrays.npz``) and the ``nested``
+    ``{name: artifact bytes}`` to ``path``, a filesystem path or a
+    binary file-like object."""
     npz = io.BytesIO()
     np.savez_compressed(npz, **arrays)
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr("model.json", json.dumps(dict(meta, format=_FORMAT)))
         z.writestr("arrays.npz", npz.getvalue())
+        for name, blob in (nested or {}).items():
+            z.writestr(name, blob)
 
 
 def export_mojo(model, path):
@@ -97,7 +104,16 @@ def export_mojo(model, path):
     algo = getattr(model, "algo", None)
     if algo not in SCORED_ALGOS or not hasattr(model, "_artifact_arrays"):
         raise ValueError(f"mojo export: {_unported(algo)}")
-    write_mojo_parts(model._artifact_meta, model._artifact_arrays, path)
+    nested = {}
+    if algo == "stackedensemble":
+        for name, m in [(f"base_{i}.mojo", bm) for i, bm in
+                        enumerate(model.base_models)] + \
+                [("metalearner.mojo", model.metalearner)]:
+            buf = io.BytesIO()
+            export_mojo(m, buf)
+            nested[name] = buf.getvalue()
+    write_mojo_parts(model._artifact_meta, model._artifact_arrays, path,
+                     nested)
     return path
 
 
@@ -111,10 +127,16 @@ class MojoModel:
     device)."""
 
     def __init__(self, path):
-        self.meta, self.arrays, _ = read_mojo_parts(path)
+        self.meta, self.arrays, nested = read_mojo_parts(path,
+                                                         want_nested=True)
         self.algo = self.meta["algo"]
         if self.algo not in SCORED_ALGOS:
             raise NotImplementedError(_unported(self.algo))
+        if self.algo == "stackedensemble":
+            self._base = [MojoModel(io.BytesIO(nested[f"base_{i}.mojo"]))
+                          for i in range(self.meta["base_count"])]
+            self._metalearner = MojoModel(
+                io.BytesIO(nested["metalearner.mojo"]))
         if self.algo in TREE_ALGOS and "flat_split_feat" not in self.arrays:
             raise ValueError("format-v1 tree artifacts (heap trees + bin "
                              "edges) are not read by the port — re-export "
@@ -188,6 +210,8 @@ class MojoModel:
 
     def predict(self, data) -> np.ndarray:
         """[n, K] probabilities or [n] predictions."""
+        if self.algo == "stackedensemble":
+            return self._predict_se(data)
         off = self._offset(data)
         X = data.astype(np.float32) if isinstance(data, np.ndarray) \
             else self._matrix(data)
@@ -199,6 +223,22 @@ class MojoModel:
             raise ValueError("word2vec artifacts score no rows: use "
                              "word_vector() or find_synonyms()")
         return self._combine(self._totals(X), off)
+
+    def _predict_se(self, data) -> np.ndarray:
+        """Every base artifact on the raw columns, their level-one
+        columns as ``models/stackedensemble._level_one_columns`` makes
+        them, then the metalearner artifact on those."""
+        cols: dict[str, np.ndarray] = {}
+        for bm, tag in zip(self._base, self.meta["base_tags"]):
+            preds = bm.predict(data)
+            if bm.nclasses == 2:
+                cols[tag] = preds[:, 1]
+            elif bm.nclasses > 2:
+                for k in range(bm.nclasses):
+                    cols[f"{tag}_p{k}"] = preds[:, k]
+            else:
+                cols[tag] = preds
+        return self._metalearner.predict(cols)
 
     def _expand(self, X) -> np.ndarray:
         """The design expansion of GLM and DeepLearning

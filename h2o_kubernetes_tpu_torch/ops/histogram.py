@@ -10,8 +10,9 @@ n_nodes, n_bins) -> [K, n_nodes, F, B, C]``. The single-tree
 tensors' device:
 
 - CPU tensors take the plain torch version (``histogram_plain``: one
-  ``index_add_`` per feature over ``rel·B + bin``, dead rows sent to a
-  junk segment — the JAX package's ``_hist_segment``; batched, tree k's
+  float64 ``index_add_`` per feature over ``rel·B + bin``, each cell
+  rounded to float32 once, dead rows sent to a junk segment — the JAX
+  package's ``_hist_segment``; batched, tree k's
   live rows are relabelled to nodes ``k·n_nodes + rel`` and the K row
   streams are concatenated against the binned matrix repeated K times,
   the JAX package's vmap rule);
@@ -132,16 +133,21 @@ def histogram_plain(binned: torch.Tensor, rel: torch.Tensor,
                     ) -> torch.Tensor:
     """[F, rows] codes + [rows] rel (-1 dead) + [rows, C] vals ->
     [n_nodes, F, B, C] in vals' dtype: one ``index_add_`` per feature
-    into [(n_nodes + 1)·B, C], dead rows into the junk node n_nodes."""
+    into [(n_nodes + 1)·B, C], dead rows into the junk node n_nodes.
+    Each feature accumulates in float64 and each cell is rounded to
+    vals' dtype once: a float32 running sum over a hot bin (most rows
+    in one bin) drifts far enough to pick a split no exact gain
+    supports."""
     F = binned.shape[0]
     C = vals.shape[1]
     seg_node = torch.where(rel >= 0, rel, n_nodes).long() * n_bins
     out = torch.empty((F, n_nodes * n_bins, C), dtype=vals.dtype,
                       device=vals.device)
+    vals64 = vals.double()
     for f in range(F):
-        acc = torch.zeros(((n_nodes + 1) * n_bins, C), dtype=vals.dtype,
+        acc = torch.zeros(((n_nodes + 1) * n_bins, C), dtype=torch.float64,
                           device=vals.device)
-        acc.index_add_(0, seg_node + binned[f].long(), vals)
+        acc.index_add_(0, seg_node + binned[f].long(), vals64)
         out[f] = acc[: n_nodes * n_bins]
     return out.reshape(F, n_nodes, n_bins, C).permute(1, 0, 2, 3) \
         .contiguous()

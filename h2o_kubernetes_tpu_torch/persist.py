@@ -1,5 +1,6 @@
-"""Persistence: raw bytes over pluggable backends, GBM/DRF model save
-and load, and frame files (``export_file`` CSV, ``save_frame`` /
+"""Persistence: raw bytes over pluggable backends, model save and load
+(GBM, DRF, XGBoost, GLM, DeepLearning and stacked ensembles, with their
+cross-validation), and frame files (``export_file`` CSV, ``save_frame`` /
 ``load_frame`` npz + JSON metadata, both the JAX package's formats).
 
 Backends (the JAX package's ``PERSIST_SCHEMES`` registry): bare paths
@@ -180,41 +181,101 @@ def _np(a) -> np.ndarray:
     return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
 
 
+_TREE_ALGOS = ("gbm", "drf", "xgboost")
+_FILE_ALGOS = _TREE_ALGOS + ("glm", "deeplearning", "stackedensemble")
+
+
+def _meta_state(model) -> dict:
+    return {"feature_names": list(model.feature_names),
+            "feature_domains": dict(model.feature_domains),
+            "nclasses": int(model.nclasses),
+            "response_domain": model.response_domain,
+            "distribution": model.distribution,
+            "offset_column": getattr(model, "offset_column", None)}
+
+
+def _dinfo_state(d) -> dict:
+    return {"coef_names": list(d.coef_names),
+            "numeric_idx": [int(i) for i in d.numeric_idx],
+            "enum_specs": [[int(i), int(L), bool(na), int(m)]
+                           for i, L, na, m in d.enum_specs],
+            "means": np.asarray(d.means), "stds": np.asarray(d.stds),
+            "n_expanded": int(d.n_expanded),
+            "drop_first": bool(d.drop_first)}
+
+
+def _cv_state(cv) -> dict | None:
+    if cv is None:
+        return None
+    hp = cv.holdout_predictions
+    return {"fold_ids": np.asarray(cv.fold_ids),
+            "models": None if cv.models is None else
+            [_model_state(m) for m in cv.models],
+            "holdout_predictions": None if hp is None else _np(hp),
+            "metrics": dict(cv.metrics),
+            "metrics_summary": {k: dict(v) for k, v in
+                                cv.metrics_summary.items()},
+            "fold_metrics": [dict(f) for f in cv.fold_metrics]}
+
+
+def _model_state(model) -> dict:
+    """A model as plain data (its cross-validation included)."""
+    algo = getattr(model, "algo", None)
+    if algo not in _FILE_ALGOS:
+        raise ValueError(f"save_model: algo '{algo or '?'}' is not ported "
+                         "(GBM, DRF, XGBoost, GLM, DeepLearning and "
+                         "stacked-ensemble models are)")
+    st = {"algo": algo, "meta": _meta_state(model),
+          "scoring_history": [dict(h) for h in model.scoring_history],
+          "validation_metrics": model.validation_metrics,
+          "cv": _cv_state(model.cv)}
+    if algo in _TREE_ALGOS:
+        spec = model.bin_spec
+        st["meta"]["margin_scale"] = model._artifact_meta.get(
+            "margin_scale")
+        st.update(
+            params=dataclasses.asdict(dataclasses.replace(
+                model.params, checkpoint=None)),
+            bin_spec={"names": list(spec.names),
+                      "is_enum": [bool(e) for e in spec.is_enum],
+                      "n_bins": int(spec.n_bins),
+                      "edges": _np(spec.edges_matrix())},
+            trees={f: _np(getattr(model.trees, f))
+                   for f in model.trees._fields},
+            init_score=np.asarray(model.init_score, dtype=np.float32),
+            group_column=getattr(model, "_group_column", None))
+    elif algo == "glm":
+        st.update(params=dataclasses.asdict(model.params),
+                  dinfo=_dinfo_state(model.dinfo), beta=_np(model.beta),
+                  fit=[float(model.lambda_used),
+                       float(model.null_deviance),
+                       float(model.residual_deviance),
+                       int(model.n_iterations)],
+                  inference={a: dict(getattr(model, a)) for a in (
+                      "_std_errs", "_z_values", "_p_values")
+                      if hasattr(model, a)})
+    elif algo == "deeplearning":
+        st.update(params=dataclasses.asdict(dataclasses.replace(
+            model.params, checkpoint=None)),
+            dinfo=_dinfo_state(model.dinfo), net=model.net_numpy(),
+            loss_kind=model.loss_kind)
+    else:
+        st.update(base=[_model_state(m) for m in model.base_models],
+                  metalearner=_model_state(model.metalearner),
+                  base_tags=list(model.base_tags))
+    return st
+
+
 def save_model(model, path: str, force: bool = True) -> str:
-    """Save a port GBM/DRF/XGBoost model at ``path`` (a path without an
+    """Save a port GBM/DRF/XGBoost/GLM/DeepLearning or stacked-ensemble
+    model, with its cross-validation, at ``path`` (a path without an
     extension is a directory: the file is ``<algo>.model`` in it);
     returns the file's path."""
-    from .models.gbm import GBMModel
-
-    if not isinstance(model, GBMModel):
-        raise ValueError(f"save_model: algo '{getattr(model, 'algo', '?')}'"
-                         " is not ported (GBM, DRF and XGBoost models "
-                         "are)")
+    state = _model_state(model)
     if not force and not is_remote(path) and os.path.exists(path):
         raise FileExistsError(path)
     if not is_remote(path) and not os.path.splitext(path)[1]:
         path = os.path.join(path, f"{model.algo}.model")
-    params = dataclasses.asdict(dataclasses.replace(model.params,
-                                                    checkpoint=None))
-    spec = model.bin_spec
-    state = {
-        "algo": model.algo,
-        "meta": {k: model._artifact_meta.get(k) for k in (
-            "feature_names", "feature_domains", "nclasses",
-            "response_domain", "distribution", "offset_column",
-            "margin_scale")},
-        "params": params,
-        "bin_spec": {"names": list(spec.names),
-                     "is_enum": [bool(e) for e in spec.is_enum],
-                     "n_bins": int(spec.n_bins),
-                     "edges": _np(spec.edges_matrix())},
-        "trees": {f: _np(getattr(model.trees, f))
-                  for f in model.trees._fields},
-        "init_score": np.asarray(model.init_score, dtype=np.float32),
-        "scoring_history": [dict(h) for h in model.scoring_history],
-        "validation_metrics": model.validation_metrics,
-        "group_column": getattr(model, "_group_column", None),
-    }
     buf = io.BytesIO()
     buf.write(_MAGIC)
     pickle.dump(state, buf, protocol=pickle.HIGHEST_PROTOCOL)
@@ -222,46 +283,94 @@ def save_model(model, path: str, force: bool = True) -> str:
     return path
 
 
-def load_model(path: str, device=None):
-    """Load a model ``save_model`` wrote onto ``device`` (None = the
-    CUDA card; raises without one unless ``device="cpu"``)."""
+def _model_from_state(st: dict, dev):
     import torch
 
     from .models.base import TrainData
-    from .models.drf import DRFModel
-    from .models.gbm import GBMModel, GBMParams
-    from .models.xgboost import XGBoostModel
-    from .models.tree.binning import BinSpec
-    from .models.tree.core import Tree
+    from .models.cv import CVResult
+    from .models.datainfo import DataInfo
+
+    m = st["meta"]
+    td = TrainData(list(m["feature_names"]), torch.zeros(0), torch.zeros(0),
+                   0, int(m["nclasses"]), m["response_domain"],
+                   m["distribution"], dict(m["feature_domains"] or {}))
+    algo = st["algo"]
+    if algo in ("glm", "deeplearning"):
+        d = st["dinfo"]
+        dinfo = DataInfo(list(d["coef_names"]), list(d["numeric_idx"]),
+                         [tuple(e) for e in d["enum_specs"]], d["means"],
+                         d["stds"], d["n_expanded"], d["drop_first"])
+    if algo in _TREE_ALGOS:
+        from .models.drf import DRFModel
+        from .models.gbm import GBMModel, GBMParams
+        from .models.tree.binning import BinSpec
+        from .models.tree.core import Tree
+        from .models.xgboost import XGBoostModel
+
+        bs = st["bin_spec"]
+        spec = BinSpec(bs["names"], bs["is_enum"], bs["n_bins"],
+                       torch.as_tensor(bs["edges"], device=dev))
+        trees = Tree(*(torch.as_tensor(st["trees"][f], device=dev)
+                       for f in Tree._fields))
+        init = st["init_score"]
+        K = td.nclasses if td.nclasses > 2 else 1
+        cls = {"drf": DRFModel, "xgboost": XGBoostModel}.get(algo,
+                                                            GBMModel)
+        model = cls(td, GBMParams(**st["params"]), spec, trees,
+                    init if K > 1 else float(init.reshape(-1)[0]),
+                    m["offset_column"], device=dev,
+                    margin_scale=float(m["margin_scale"]))
+        if st.get("group_column"):
+            model._group_column = st["group_column"]
+    elif algo == "glm":
+        from .models.glm import GLMModel, GLMParams
+
+        model = GLMModel(td, GLMParams(**st["params"]), dinfo,
+                         torch.as_tensor(st["beta"], device=dev),
+                         *st["fit"])
+        model.offset_column = m["offset_column"]
+        for a, v in st["inference"].items():
+            setattr(model, a, v)
+    elif algo == "deeplearning":
+        from .models.deeplearning import (DeepLearningModel,
+                                          DeepLearningParams, carry_net)
+
+        p = DeepLearningParams(**st["params"])
+        model = DeepLearningModel(td, p, dinfo,
+                                  carry_net(st["net"], dev, p.activation),
+                                  st["loss_kind"])
+        model.offset_column = m["offset_column"]
+    else:
+        from .models.stackedensemble import StackedEnsembleModel
+
+        model = StackedEnsembleModel(
+            td, [_model_from_state(b, dev) for b in st["base"]],
+            _model_from_state(st["metalearner"], dev), st["base_tags"])
+    model.scoring_history = st["scoring_history"]
+    model.validation_metrics = st["validation_metrics"]
+    cv = st["cv"]
+    if cv is not None:
+        hp = cv["holdout_predictions"]
+        model.cv = CVResult(
+            cv["fold_ids"],
+            None if cv["models"] is None else
+            [_model_from_state(s, dev) for s in cv["models"]],
+            None if hp is None else torch.as_tensor(hp, device=dev),
+            cv["metrics"], cv["metrics_summary"], cv["fold_metrics"])
+    return model
+
+
+def load_model(path: str, device=None):
+    """Load a model ``save_model`` wrote onto ``device`` (None = the
+    CUDA card; raises without one unless ``device="cpu"``)."""
     from .runtime.backend import resolve_device
 
     dev = resolve_device(device)
     data = read_bytes(path)
     if not data.startswith(_MAGIC):
         raise ValueError(f"{path} is not a model file of this package")
-    st = _DataUnpickler(io.BytesIO(data[len(_MAGIC):])).load()
-    m = st["meta"]
-    td = TrainData(list(m["feature_names"]), torch.zeros(0), torch.zeros(0),
-                   0, int(m["nclasses"]), m["response_domain"],
-                   m["distribution"], dict(m["feature_domains"] or {}))
-    bs = st["bin_spec"]
-    spec = BinSpec(bs["names"], bs["is_enum"], bs["n_bins"],
-                   torch.as_tensor(bs["edges"], device=dev))
-    trees = Tree(*(torch.as_tensor(st["trees"][f], device=dev)
-                   for f in Tree._fields))
-    init = st["init_score"]
-    K = td.nclasses if td.nclasses > 2 else 1
-    cls = {"drf": DRFModel, "xgboost": XGBoostModel}.get(st["algo"],
-                                                        GBMModel)
-    model = cls(td, GBMParams(**st["params"]), spec, trees,
-                init if K > 1 else float(init.reshape(-1)[0]),
-                m["offset_column"], device=dev,
-                margin_scale=float(m["margin_scale"]))
-    model.scoring_history = st["scoring_history"]
-    model.validation_metrics = st["validation_metrics"]
-    if st.get("group_column"):
-        model._group_column = st["group_column"]
-    return model
+    return _model_from_state(
+        _DataUnpickler(io.BytesIO(data[len(_MAGIC):])).load(), dev)
 
 
 # -- frame files ---------------------------------------------------------------

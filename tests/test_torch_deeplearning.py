@@ -357,7 +357,6 @@ def test_reference_errors(trained):
         DeepLearning(hidden=(8, 8), epochs=3, checkpoint=tb).train(
             y="yr", training_frame=tf, offset_column="off",
             ignored_columns=["y", "ym", "w"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DeepLearning(nfolds=3)
+    assert DeepLearning(nfolds=3).cv_args.nfolds == 3   # item 11: ported
     with pytest.raises(ValueError, match="not supported for autoencoders"):
         DeepLearning(nfolds=3, autoencoder=True)

@@ -9,7 +9,10 @@ data). Held here:
 - the split structure (split_feat, split_bin, na_left, is_split) is
   equal. Where a split_bin differs, the test shows that the two
   thresholds are a near-tie: their float64 gains on the node's rows
-  differ by under 1e-6 relative;
+  differ by under 1e-6 relative. Where a node's two splits part its
+  rows into the same two sets with left and right swapped (NA against
+  the rest, the NA side flipped: an exact tie, decided by f32
+  rounding), the node's subtrees are compared crosswise;
 - leaf values within rtol 1e-5, with an absolute floor of 1e-5 × the
   tree's largest |leaf| (a leaf whose gradient sum nearly cancels has
   no relative accuracy in f32 under another summation order);
@@ -110,32 +113,80 @@ def _split_gap(tm, tf, t, node, b_port, b_ref):
     return abs(a - r) / abs(r)
 
 
+def _mirror_map(tm, jm, tf):
+    """([T, N] the port's heap position of each of the reference's
+    nodes, the (tree, node)s mirrored): the identity, except below a
+    node where the two trees part the node's rows into the same two
+    sets with left and right swapped, whose children map crosswise."""
+    binned = tf.binned(tm.bin_spec).numpy()
+    T = {f: getattr(tm.trees, f).numpy() for f in STRUCT}
+    J = {f: np.asarray(getattr(jm.trees, f)) for f in STRUCT}
+    n_trees, N = J["is_split"].shape
+    pmap = np.tile(np.arange(N), (n_trees, 1))
+    mirrored = set()
+
+    def left(D, t, i):
+        bf = binned[max(int(D["split_feat"][t, i]), 0)]
+        return np.where(bf == 255, D["na_left"][t, i],
+                        bf <= D["split_bin"][t, i])
+
+    for t in range(n_trees):
+        rows = {0: np.ones(binned.shape[1], dtype=bool)}
+        for n in range(N):
+            m, r = pmap[t, n], rows.pop(n, None)
+            if 2 * n + 2 >= N:
+                continue
+            kids = (2 * m + 1, 2 * m + 2)
+            if r is not None and J["is_split"][t, n]:
+                lj = r & left(J, t, n)
+                rows[2 * n + 1], rows[2 * n + 2] = lj, r & ~lj
+                if T["is_split"][t, m] and r.any() and (
+                        r & left(T, t, m) == r & ~lj).all():
+                    kids = kids[::-1]
+                    mirrored.add((t, n))
+            pmap[t, 2 * n + 1], pmap[t, 2 * n + 2] = kids
+    return pmap, mirrored
+
+
+def _mapped(tm, f, pmap):
+    a = getattr(tm.trees, f).numpy()
+    return np.take_along_axis(a, pmap, axis=1)
+
+
 @pytest.mark.parametrize("dist", list(_CASES))
 def test_split_structure_equal(trained, dist):
     jm, tm, tf, _, _ = trained[dist]
-    for f in ("split_feat", "na_left", "is_split"):
-        np.testing.assert_array_equal(getattr(tm.trees, f).numpy(),
+    pmap, mirrored = _mirror_map(tm, jm, tf)
+    for f in ("split_feat", "is_split"):
+        np.testing.assert_array_equal(_mapped(tm, f, pmap),
                                       np.asarray(getattr(jm.trees, f)),
                                       err_msg=f)
-    sb_t = tm.trees.split_bin.numpy()
+    nl_t = _mapped(tm, "na_left", pmap)
+    nl_j = np.asarray(jm.trees.na_left)
+    for t, node in np.argwhere(nl_t != nl_j):
+        assert (t, node) in mirrored, ("na_left", t, node)
+    sb_t = _mapped(tm, "split_bin", pmap)
     sb_j = np.asarray(jm.trees.split_bin)
     isp = np.asarray(jm.trees.is_split)
     for t, node in np.argwhere((sb_t != sb_j) & isp):
-        gap = _split_gap(tm, tf, int(t), int(node), int(sb_t[t, node]),
-                         int(sb_j[t, node]))
+        if (t, node) in mirrored:
+            continue
+        gap = _split_gap(tm, tf, int(t), int(pmap[t, node]),
+                         int(sb_t[t, node]), int(sb_j[t, node]))
         assert gap < 1e-6, (t, node, gap)
 
 
 @pytest.mark.parametrize("dist", list(_CASES))
 def test_leaf_values_close(trained, dist):
-    jm, tm, _, _, _ = trained[dist]
+    jm, tm, tf, _, _ = trained[dist]
+    pmap, _ = _mirror_map(tm, jm, tf)
     want = np.asarray(jm.trees.value)
-    got = tm.trees.value.numpy()
+    got = _mapped(tm, "value", pmap)
     leaf = ~np.asarray(jm.trees.is_split)
     scale = np.abs(want).max(axis=1, keepdims=True)
     err = np.abs(got - want)
     assert (err[leaf] <= (TOL * np.abs(want) + TOL * scale)[leaf]).all()
-    np.testing.assert_allclose(tm.trees.cover.numpy(),
+    np.testing.assert_allclose(_mapped(tm, "cover", pmap),
                                np.asarray(jm.trees.cover), rtol=0, atol=0)
 
 
@@ -211,20 +262,27 @@ def test_carried_across_model_scores_bitwise(trained):
     ({"env": "H2O_TPU_OOC"}, "item 9"),
 ])
 def test_unported_options_raise(kw, item, monkeypatch):
-    """Options still unported (item 11) raise naming their ROADMAP item;
-    item 9's knobs (GOSS, out-of-core) are ported and now train, engaged
-    (the compaction ran, the chunks streamed)."""
+    """The options that once raised, naming their ROADMAP item, are
+    ported and train, engaged: item 11's cross-validation (fold models
+    and holdout predictions) and ``score_every`` (a history row every
+    2 trees), item 9's knobs (the GOSS compaction ran, the out-of-core
+    chunks streamed)."""
     cols = bench_cols(200)
     fr = Frame.from_arrays(cols, device="cpu")
+    kw = dict(kw)
     env = kw.pop("env", None)
     if env:
         monkeypatch.setenv(env, "1")
-        model = GBM(ntrees=2, min_rows=1.0, **kw).train(y="y",
-                                                        training_frame=fr)
-        if env == "H2O_TPU_GOSS":
-            assert model.goss_dropped == 0
-        else:
-            assert model.ooc_stats["streamed"]
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        GBM(ntrees=2, **kw).train(y="y", training_frame=fr)
+    model = GBM(ntrees=2, min_rows=1.0, **kw).train(y="y",
+                                                    training_frame=fr)
+    if env == "H2O_TPU_GOSS":
+        assert model.goss_dropped == 0
+    elif env == "H2O_TPU_OOC":
+        assert model.ooc_stats["streamed"]
+    elif "nfolds" in kw:
+        assert item == "item 11" and len(model.cv.models) == 3
+        assert model.cross_validation_holdout_predictions().shape == \
+            (200, 2)
+    else:
+        assert item == "item 11"
+        assert [h["ntrees"] for h in model.scoring_history] == [2]

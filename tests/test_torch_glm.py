@@ -333,8 +333,7 @@ def test_validation_errors_match_the_reference(trained):
             with pytest.raises(ValueError, match=msg), use_mesh(_MESH1):
                 cls(**kw).train(y=y, training_frame=fr, ignored_columns=ign,
                                 **tkw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GLM(nfolds=3)
+    assert GLM(nfolds=3).cv_args.nfolds == 3   # item 11: ported
 
 
 def _carry(jm):

@@ -128,3 +128,32 @@ def test_cpu_tensors_take_the_plain_version():
     assert thist.hist_mode(1, 1, 1, 4096, 3, code_bytes=2) == "grouped"
     assert thist.hist_mode(1, 128, 10, 256, 3) == "partitioned"
     assert thist.hist_mode(1, 256, 10, 256, 2) == "partitioned"
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_plain_sums_in_float64_and_rounds_once(batched):
+    """A hot bin (most rows in one bin, as CancellationCode's NA bin
+    holds 98.5% of the airlines rows): every cell equals its float64
+    sum rounded to float32 once, where a float32 running sum drifts by
+    many ulps; the dead rows' junk node stays out."""
+    rng = np.random.default_rng(6)
+    rows, n_bins = 200_000, 16
+    codes = np.where(rng.random(rows) < 0.985, n_bins - 1,
+                     rng.integers(0, n_bins - 1, rows)).astype(np.uint8)
+    rel = rng.integers(-1, 2, rows).astype(np.int32)
+    vals = rng.normal(size=(rows, 3)).astype(np.float32)
+    vals[:, 2] = 1.0 + rng.random(rows).astype(np.float32)
+    want = np.zeros((2, n_bins, 3))
+    live = rel >= 0
+    np.add.at(want, (rel[live], codes[live].astype(np.int64)),
+              vals[live].astype(np.float64))
+    want = want.astype(np.float32)[:, None]
+    ct, rt, vt = (torch.as_tensor(a) for a in (codes[None], rel, vals))
+    got = thist.histogram_batched_plain(ct, rt[None], vt[None], 2,
+                                        n_bins)[0] if batched else \
+        thist.histogram_plain(ct, rt, vt, 2, n_bins)
+    np.testing.assert_array_equal(got.numpy(), want)
+    f32 = torch.zeros((3 * n_bins, 3)).index_add_(
+        0, (torch.where(rt >= 0, rt, 2) * n_bins + ct[0].long()).long(),
+        vt)[: 2 * n_bins].reshape(2, 1, n_bins, 3).numpy()
+    assert (f32 != want).any()      # the float32 running sum drifts here

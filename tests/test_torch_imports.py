@@ -47,7 +47,9 @@ def test_imports_without_jax():
         "models.glm", "models.datainfo", "models.tree.efb",
         "models.tree.ooc", "models.deeplearning",
         "models.word2vec", "frame.parse", "frame.munge",
-        "runtime.quantile")} <= names
+        "runtime.quantile", "diagnostics", "runtime.faults",
+        "runtime.scheduler", "models.cv", "models.stackedensemble",
+        "automl", "grid", "estimators")} <= names
 
 
 def test_no_source_imports_jax_or_reference():

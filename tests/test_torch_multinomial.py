@@ -21,6 +21,15 @@ carry one gradient (round 1, before the margins differ). Held here:
   (same keys) within 1e-5;
 - a model trained by the JAX package and carried across as numpy
   arrays scores with BITWISE margins through ``flat_margin``.
+
+The JAX package's CPU histogram adds a bin's rows one after another in
+float32; the port's plain version sums them in float64 and rounds each
+cell once (``ops/histogram.histogram_plain``, held to float64 sums in
+tests/test_torch_histogram.py). The limits above hold the port's own
+train. Two more tests hold the same limits on a port train fed the
+reference's accumulation (``_f32_running_histogram``, the plain
+version's float32 twin), which isolates the grower, split finder,
+leaves and boosting loop from the histogram sums.
 """
 
 import numpy as np
@@ -54,6 +63,21 @@ def multinomial_cols(rows, seed=3):
     return cols
 
 
+def _f32_running_histogram(binned, rel, vals, n_nodes, n_bins):
+    """``histogram_plain`` with the JAX package's CPU accumulation: one
+    float32 ``index_add_`` per feature, a bin's rows added one after
+    another."""
+    F, C = binned.shape[0], vals.shape[1]
+    seg_node = torch.where(rel >= 0, rel, n_nodes).long() * n_bins
+    out = torch.empty((F, n_nodes * n_bins, C), dtype=vals.dtype)
+    for f in range(F):
+        acc = torch.zeros(((n_nodes + 1) * n_bins, C), dtype=vals.dtype)
+        acc.index_add_(0, seg_node + binned[f].long(), vals)
+        out[f] = acc[: n_nodes * n_bins]
+    return out.reshape(F, n_nodes, n_bins, C).permute(1, 0, 2, 3) \
+        .contiguous()
+
+
 @pytest.fixture(scope="module")
 def trained():
     cols = multinomial_cols(4096)
@@ -64,6 +88,20 @@ def trained():
     tm = GBM(**_KW).train(y="y", training_frame=tf)
     hold = multinomial_cols(1000, seed=9)
     return jm, tm, _walk(tm, jm, *_round_grads(tm, tf)), cols, hold
+
+
+@pytest.fixture(scope="module")
+def trained_f32(trained):
+    """The port trained on the reference's float32 accumulation, and its
+    walk against the reference."""
+    from h2o_kubernetes_tpu_torch.ops import histogram as hist_op
+
+    jm, _, _, cols, _ = trained
+    tf = Frame.from_arrays(cols, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(hist_op, "histogram_plain", _f32_running_histogram)
+        tm = GBM(**_KW).train(y="y", training_frame=tf)
+    return tm, _walk(tm, jm, *_round_grads(tm, tf))
 
 
 def _round_grads(tm, tf):
@@ -143,16 +181,28 @@ def _walk(tm, jm, grads, binned):
     return compared, ties, np.asarray(leaf_gaps), tied_rows
 
 
-def test_split_structure_equal(trained):
-    """Every split equal, or a tie at f32 resolution (see _walk); the
-    ties are few and the compared leaves agree within 1e-5."""
-    jm, tm, walk, _, _ = trained
+def _assert_structure(jm, tm, walk):
     assert tm.trees.split_feat.shape == (_KW["ntrees"] * K, 31)
     compared, ties, leaf_gaps, _ = walk
     n_ref = int(np.asarray(jm.trees.is_split).sum()) + len(leaf_gaps)
     assert len(ties) <= 3 and compared >= 0.9 * n_ref, (ties, compared,
                                                         n_ref)
     assert leaf_gaps.max() <= TOL
+
+
+def test_split_structure_equal(trained):
+    """Every split equal, or a tie at f32 resolution (see _walk); the
+    ties are few and the compared leaves agree within 1e-5."""
+    jm, tm, walk, _, _ = trained
+    _assert_structure(jm, tm, walk)
+
+
+def test_split_structure_equal_on_the_reference_accumulation(trained,
+                                                             trained_f32):
+    """The same limits on the train fed the reference's float32
+    histogram sums."""
+    jm = trained[0]
+    _assert_structure(jm, *trained_f32)
 
 
 def test_train_logloss_and_priors_close(trained):
@@ -169,6 +219,19 @@ def test_probabilities_and_model_performance_close(trained):
     """Probabilities within 1e-5 on every row no tie routed differently;
     the holdout metrics (the same keys) within 1e-5."""
     jm, tm, walk, cols, hold = trained
+    _assert_probabilities(jm, tm, walk, cols, hold)
+
+
+def test_probabilities_close_on_the_reference_accumulation(trained,
+                                                           trained_f32):
+    """The same limits on the train fed the reference's float32
+    histogram sums."""
+    jm, _, _, cols, hold = trained
+    tm, walk = trained_f32
+    _assert_probabilities(jm, tm, walk, cols, hold)
+
+
+def _assert_probabilities(jm, tm, walk, cols, hold):
     fr = h2o.Frame.from_arrays(cols)
     X = np.asarray(jm._design_matrix(fr))[: fr.nrows]
     tp = tm.score_numpy(X)

@@ -287,3 +287,43 @@ def test_import_file_and_group_by_on_the_card(tmp_path):
     gap = np.abs(go[0]["sum_x"].to_numpy().astype(np.float64)
                  - go[1]["sum_x"].to_numpy())
     assert (gap <= 1e-6 * scale).all(), gap
+
+
+@pytest.mark.cuda
+def test_cross_validation_and_automl_on_the_card():
+    """A cross-validated GBM and a small AutoML on the card against the
+    same runs on the CPU: fold ids bitwise, the holdout predictions stay
+    on the card (70,000 rows: their AUC histograms launch the kernel)
+    and agree with the CPU's within 1e-4; the leaderboards hold the
+    same ids and GLM_1's AUC within 1e-4 (GBM_1's 50 rounds at
+    ``min_rows=1`` on 2,000-row folds pass f32 near-ties that the two
+    devices decide apart, as chip_smoke.py phase 27 reports)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from h2o_kubernetes_tpu_torch import AutoML
+
+    cols = _cols(70_000, seed=3)
+    card = Frame.from_arrays(cols)
+    cpu = Frame.from_arrays(cols, device="cpu")
+    kw = dict(_KW, nfolds=3, fold_assignment="modulo")
+    before = sum(H.LAUNCHES.values())
+    mc = GBM(**kw).train(y="y", training_frame=card)
+    assert sum(H.LAUNCHES.values()) > before
+    mh = GBM(**kw).train(y="y", training_frame=cpu)
+    assert mc.cv.holdout_predictions.device.type == "cuda"
+    np.testing.assert_array_equal(mc.cv.fold_ids, mh.cv.fold_ids)
+    np.testing.assert_allclose(mc.cross_validation_holdout_predictions(),
+                               mh.cross_validation_holdout_predictions(),
+                               rtol=0, atol=1e-4)
+    for k, v in mh.cv.metrics.items():
+        assert abs(mc.cv.metrics[k] - v) <= 1e-4, k
+    small = _cols(3000, seed=4)
+    runs = [AutoML(max_models=2, nfolds=3, seed=1, verbosity=None,
+                   include_algos=["glm", "gbm", "stackedensemble"]).train(
+        y="y", training_frame=Frame.from_arrays(small, device=d))
+        for d in ("cuda", "cpu")]
+    rows = [{r["model_id"]: r["auc"] for r in a.leaderboard.as_list()}
+            for a in runs]
+    assert set(rows[0]) == set(rows[1]) and len(rows[0]) == 4
+    glm = "GLM_1_AutoML_automl"
+    assert abs(rows[0][glm] - rows[1][glm]) <= 1e-4

@@ -131,8 +131,7 @@ def test_params_match_the_reference_field_by_field(mesh8):
         for cls in (JXGBoost, XGBoost):
             with pytest.raises(ValueError, match=msg):
                 cls(**kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        XGBoost(nfolds=3)
+    assert XGBoost(nfolds=3).cv_args.nfolds == 3   # item 11: ported
 
 
 def _multi_stats(tm, tf, y):

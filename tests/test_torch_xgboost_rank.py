@@ -238,5 +238,7 @@ def test_rank_refusals():
         XGBoost(objective="rank:pairwise", ntrees=1).train(
             y="rel", training_frame=fr, group_column="qid",
             offset_column="off")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        XGBoost(objective="rank:ndcg", nfolds=2)
+    # the JAX package's refusal: folds would split query groups
+    with pytest.raises(ValueError, match="group-aware folds"):
+        XGBoost(objective="rank:ndcg", ntrees=1, nfolds=2).train(
+            y="rel", training_frame=fr, group_column="qid")

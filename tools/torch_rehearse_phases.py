@@ -1,5 +1,5 @@
-"""Rehearse chip_smoke.py's phases 18-26 (xgboost, lambdarank, glm,
-efb, goss, ooc, deeplearning, word2vec, frame) on the CPU, without a
+"""Rehearse chip_smoke.py's phases 18-27 (xgboost, lambdarank, glm,
+efb, goss, ooc, deeplearning, word2vec, frame, automl) on the CPU, without a
 card, at small sizes: the entry
 points' default device resolves to
 the CPU, the histogram and TreeSHAP kernels are replaced by counting
@@ -15,6 +15,7 @@ are the CPU's and say nothing of the card.
         [--goss-rows 200000] [--ooc-rows 300000]
         [--dl-rows 70000] [--w2v-tokens 50000] [--text8-tokens 300000]
         [--frame-rows 100000]
+        [--aml-wall-rows 20000 --aml-rows 30000 --aml-parity-rows 1500]
 
 With ``--card`` it installs no fakes and runs the phases on the card at
 the given sizes (kernels built on first use): a short check of new
@@ -30,7 +31,11 @@ launch counts are the card's alone, zero here). ``--phases frame``
 (the airlines CSV -> munging -> split -> GBM at ``--frame-rows``, which
 must exceed 81,920 so the 0.2 holdout's AUC takes B1's path) takes ~2
 min at 100,000 rows, most of it the pure-Python CSV writer and the
-export round trip.
+export round trip. ``--phases automl`` runs phase 27's three parts at
+the ``--aml-*`` rows (below 196,608 config #5's holdouts are too small
+for the AUC's histogram path, and its hold is left out); its CPU leg
+(the whole default plan on the CPU, in a process of its own) starts
+first and takes ~4-8 min at any row count (the depth-12 forests).
 """
 
 from __future__ import annotations
@@ -79,8 +84,7 @@ def _install_fakes():
         mod.resolve_device = lambda device=None: torch.device("cpu")
 
     def hist(binned, rel, vals, n_nodes, n_bins):
-        out = H.histogram_batched_plain(binned, rel, vals.double(),
-                                        n_nodes, n_bins).float()
+        out = H.histogram_batched_plain(binned, rel, vals, n_nodes, n_bins)
         regime = H.hist_mode(rel.shape[0], n_nodes, binned.shape[0], n_bins,
                              vals.shape[2], binned.element_size(),
                              binned.shape[1])
@@ -117,6 +121,9 @@ def main() -> int:
     ap.add_argument("--w2v-tokens", type=int, default=50_000)
     ap.add_argument("--text8-tokens", type=int, default=300_000)
     ap.add_argument("--frame-rows", type=int, default=100_000)
+    ap.add_argument("--aml-wall-rows", type=int, default=20_000)
+    ap.add_argument("--aml-rows", type=int, default=30_000)
+    ap.add_argument("--aml-parity-rows", type=int, default=1_500)
     ap.add_argument("--efb-hist-budget", type=int, default=None,
                     help="H2O_TPU_HIST_BYTES_BUDGET for the efb phase, so "
                          "that a small unbundled frame goes out of core "
@@ -142,6 +149,8 @@ def main() -> int:
     cs._DL_ROWS, cs._W2V_TOKENS = args.dl_rows, args.w2v_tokens
     cs._TEXT8_TOKENS = args.text8_tokens
     cs._FRAME_ROWS = args.frame_rows
+    cs._AML_WALL_ROWS, cs._AML_ROWS = args.aml_wall_rows, args.aml_rows
+    cs._AML_PARITY_ROWS = args.aml_parity_rows
     if not args.card:
         cs._upload_gbs = lambda torch, nbytes: {"pinned": 0.0,
                                                 "pageable": 0.0}
@@ -157,6 +166,9 @@ def main() -> int:
         book=cs._LevelBook(torch, H, "rehearsal", 2),
         profile_counts=cs._profile_counts if args.card else
         (lambda torch, fn: (fn(), (0, 0.0, 1.0))[1]))
+    if "automl" in args.phases.split(","):
+        # phase 27c's CPU leg, started first as chip_smoke.py starts it
+        ctx.aml_cpu_leg = cs._start_automl_cpu_leg()
     for phase in args.phases.split(","):
         t0 = time.perf_counter()
         budget = args.efb_hist_budget if phase == "efb" else None

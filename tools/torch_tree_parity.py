@@ -10,7 +10,8 @@ never jax.
 - ``walk``: walk every tree of two models from the root while their
   decisions agree; where they differ, the two decisions' float64 gains
   on the node's rows must be within 1e-6 of the node's G²/H (f32 cannot
-  order them finer), and the node's subtree is not compared;
+  order them finer), and the node's subtree is not compared (or, with
+  ``until_tie``, no tree after the first one that holds a tie);
 - ``routed_apart``: the rows whose leaf differs between two models in
   some tree.
 """
@@ -141,13 +142,17 @@ def round_stats(tm, tf, y, kw, n_old=0, goss=None):
     return out, binned.numpy()
 
 
-def walk(tm, jm, stats, binned, n_old=0, lam=0.0, alpha=0.0, rel=1e-6):
+def walk(tm, jm, stats, binned, n_old=0, lam=0.0, alpha=0.0, rel=1e-6,
+         until_tie=False):
     """Walk every new tree from the root while the two packages'
     decisions agree. A node where they differ must be a float64
     near-tie: the two decisions' float64 gains on the node's rows differ
     by at most ``rel`` (1e-6) of the node's G²/H (f32 cannot order them
-    finer); its subtree is not compared. Returns (nodes compared, ties, compared
-    leaf gaps over the tree's largest |leaf|, per tree)."""
+    finer); its subtree is not compared. ``until_tie``: stop after the
+    first tree that holds a tie (the later trees grow from margins the
+    tie moved, so their decisions are not the same problem). Returns
+    (nodes compared, ties, compared leaf gaps over the tree's largest
+    |leaf|, per tree)."""
     B = tm.params.nbins
     tt = {f: _np(getattr(tm.trees, f)) for f in FIELDS + ("value",)}
     jt = {f: _np(getattr(jm.trees, f)) for f in FIELDS + ("value",)}
@@ -182,6 +187,8 @@ def walk(tm, jm, stats, binned, n_old=0, lam=0.0, alpha=0.0, rel=1e-6):
             left = rows & np.where(bf == B - 1, dec_t[3], bf <= dec_t[2])
             rows_at[2 * node + 1] = left
             rows_at[2 * node + 2] = rows & ~left
+        if until_tie and ties:
+            break
     return compared, ties, np.asarray(gaps)
 
 
