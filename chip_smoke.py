@@ -5,8 +5,10 @@ GBM training, the other GBM distributions, checkpoint continuation, the
 train -> export -> registry -> replica loop, XGBoost-hist (pointwise and
 LambdaMART ranking), GLM, Exclusive Feature Bundling, GOSS,
 out-of-core boosting, DeepLearning, Word2Vec, the Frame from a CSV
-file through munging to a GBM's holdout metrics, and cross-validated
-AutoML with stacked ensembles and grid search on one CUDA card.
+file through munging to a GBM's holdout metrics, cross-validated
+AutoML with stacked ensembles and grid search, and KMeans, PCA, GLRM,
+naive Bayes, isolation forest, CoxPH, the aggregator and target
+encoding on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -68,7 +70,7 @@ Phases, in order; any failure exits non-zero:
    ones); a first train, five warm ones
    (median and spread, rows·trees/s), train AUC, launches by mode; the
    forests grown on the card and on the CPU from the frame's first
-   250,000 rows must be equal bitwise in structure (leaves ≤ 1e-6); the
+   25,000 rows must be equal bitwise in structure (leaves ≤ 1e-6); the
    1,000,000-row forest serves through score_numpy
    and contrib_numpy, Σφ = p1 ≤ 1e-4, one shap_tab launch per group,
    and shap_tab is held and timed at its groups as in phase 4 (its
@@ -176,7 +178,7 @@ Phases, in order; any failure exits non-zero:
    device events of one step and the device-busy share, from two short
    trains (200 and 400 steps) under torch.profiler; the estimator's
    default width (200, 200) once; an autoencoder (16,): anomaly and
-   deepfeatures shapes, reconstruction MSE; card vs CPU on 20,000 rows,
+   deepfeatures shapes, reconstruction MSE; card vs CPU on 5,000 rows,
    each trained on its own device: train AUC and logloss within 1e-5,
    predictions within 1e-5; the artifact in MojoModel within 1e-5 of
    predict;
@@ -200,7 +202,7 @@ Phases, in order; any failure exits non-zero:
    within 1e-6 of each group's Σ|x|); GBM ntrees=10 max_depth=5 seed=1
    on the 0.8 split part, model_performance on the 0.2 part: warm train
    s, rows·trees/s, train and holdout AUC and logloss, B1's launches on
-   that path, card vs CPU on 200,000 of the train rows (structure up to
+   that path, card vs CPU on 25,000 of the train rows (structure up to
    float64 near-ties, holdout AUC within 1e-4), B1 held at the train's
    five levels and its two AUC inputs (train, holdout); save_frame -> load_frame bitwise, export_file ->
    import_file equal to the frame as %g text writes it, and a
@@ -230,18 +232,30 @@ Phases, in order; any failure exits non-zero:
    rows within 1e-4 and their order the same (adjacent rows within
    1e-4 may swap), each card ensemble restacked on the CPU from the
    same base models' holdout predictions within 1e-4, DeepLearning_1's
-   gaps reported beside the CPU leg's own (its CV train again with the
-   column statistics summed in reverse row order), and a 2 x 2
+   gaps reported, and a 2 x 2
    Cartesian GBM grid (nfolds=3) in the same order on both;
-28. report — one JSON line of kernel records (B4 with its variants,
+28. learners — the eight other learners at tools/torch_learners.py's
+   shapes (1,000,000 rows: KMeans k=8, isolation forest 50 trees,
+   GLRM k=2 with 5% NaN cells and the aggregator on HIGGS-shaped rows;
+   PCA k=3 over every airlines predictor, naive Bayes and target
+   encoding of Origin and Dest (k_fold, blending) on airlines rows;
+   CoxPH Efron on a seeded survival table of 10 covariates): first and
+   warm train s (synchronized median of 3), rows/s (CoxPH: Newton
+   iterations/s), each artifact in MojoModel against predict on
+   20,000 rows within 1e-6, card vs CPU on each at 100,000 rows at the
+   parity tests' tolerances, B1-B4 launches on these paths (none), and
+   the airlines columns' rollups card = CPU bitwise in float32 (mean,
+   sigma);
+29. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
    row partition; the launches of phases 15-23 beside each, B1's levels
    including the xgboost_hist, lambdarank, bundled, compacted and chunk
    trains', DeepLearning's AUC and the airlines train's, B4's models
    the XGBoost and the bundled one), one JSON line of phases 24-25's
-   learner numbers, one of phase 26's and one of phase 27's (they add
-   no kernel; phase 27's B1-B3 launches also stand in the records), the
-   card line, and as the last line {"ok": true, "device": {...}}.
+   learner numbers, one of phase 26's, one of phase 27's and one of
+   phase 28's (they add no kernel; phase 27's B1-B3 launches also stand
+   in the records), the card line, and as the last line
+   {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
 contrib_numpy, GBM train, DRF train and multinomial train call, of one
@@ -293,7 +307,7 @@ _PARITY_ROWS = 65_536
 _DRF_ROWS = 1_000_000
 # card vs CPU of the forest on the frame's first rows: the CPU's train
 # of all 1,000,000 takes ~110-140 s
-_DRF_PARITY_ROWS = 250_000
+_DRF_PARITY_ROWS = 25_000
 _DRF_TREES = 10
 _DRF_DEPTH = 8
 _MN_ROWS = 500_000
@@ -336,7 +350,7 @@ _OOC_DEEP = 10
 _DL_ROWS = 200_000
 _DL_HIDDEN = [64, 64]
 _DL_WARM = 3
-_DL_PARITY_ROWS = 20_000
+_DL_PARITY_ROWS = 5_000
 _DL_PROBE_STEPS = (200, 400)
 # card vs CPU at _DL_PARITY_ROWS: train AUC and logloss, predictions
 _DL_METRIC_LIMIT = 1e-5
@@ -364,7 +378,7 @@ _FRAME_DEPTH = 5
 _FRAME_WARM = 3
 _GROUP_SUM_LIMIT = 1e-6
 _HOLDOUT_AUC_LIMIT = 1e-4
-_FRAME_PARITY_ROWS = 200_000
+_FRAME_PARITY_ROWS = 25_000
 # phase 27: AutoML on airlines (tools/datasets.airlines_arrays, response
 # IsDepDelayed): automl_wall_100k's run (tools/bench_suite.py:428-470),
 # BASELINE config #5 cut from 10,000,000 rows and 5 folds, and card vs
@@ -381,6 +395,14 @@ _AML_CPU_THREADS = 3
 _AML_LEG_DIR = Path(__file__).resolve().parent / "build" / "automl_cpu"
 _AML_LEG_TIMEOUT = 900
 
+
+# phase 28: the eight other learners (tools/torch_learners.py); card vs
+# CPU on the first _LEARNER_PARITY_ROWS rows of each table
+_LEARNER_ROWS = 1_000_000
+_LEARNER_PARITY_ROWS = 100_000
+_LEARNER_WARM = 3
+_LEARNER_MOJO_ROWS = 20_000
+_LEARNER_MOJO_LIMIT = 1e-6
 
 _T0 = time.perf_counter()
 
@@ -2063,7 +2085,7 @@ def _phase_deeplearning(c) -> dict:
     launches of one step and the device-busy share from two short
     trains (200 and 400 steps) under torch.profiler; the estimator's
     default width (200, 200) once; an autoencoder (16,); card vs CPU on
-    20,000 rows; the artifact in MojoModel; B1 held at the train AUC's
+    5,000 rows; the artifact in MojoModel; B1 held at the train AUC's
     score histogram, its launches counted around that call."""
     from tools.datasets import higgs_arrays
 
@@ -2370,17 +2392,14 @@ def _automl_cpu_leg(out: str, rows: int) -> int:
     a process of its own that main() starts before phase 3, so the
     card's phases overlap the CPU's minutes): the whole default plan on
     the CPU at ``rows`` airlines rows, every step saved under
-    ``DIR/steps`` (AutoML's checkpoint_dir, which phase 27 resumes), then
-    DeepLearning_1's CV train once more with every column's rollups
-    summed in reverse row order (another float32 summation order, as
-    the card's is), whose metric gaps to the leg's DeepLearning_1 row
-    are the train's own sensitivity. Writes ``DIR/leg.json``."""
+    ``DIR/steps`` (AutoML's checkpoint_dir, which phase 27 resumes).
+    Writes ``DIR/leg.json``. (DeepLearning_1's own sensitivity to a
+    one-ulp change of its column statistics is measured in both
+    packages by tools/dl_sigma_ulp.py: C7.)"""
     import torch
 
     torch.set_num_threads(_AML_CPU_THREADS)
-    from h2o_kubernetes_tpu_torch import AutoML, DeepLearning, Frame
-    from h2o_kubernetes_tpu_torch.automl import _default_plan
-    from h2o_kubernetes_tpu_torch.frame import frame as fmod
+    from h2o_kubernetes_tpu_torch import AutoML, Frame
     from tools.datasets import airlines_arrays
 
     out = Path(out)
@@ -2394,32 +2413,9 @@ def _automl_cpu_leg(out: str, rows: int) -> int:
         y="IsDepDelayed", training_frame=Frame.from_arrays(
             cols, domains=dom, device="cpu"))
     secs = time.perf_counter() - t0
-    dl = {n: p for _, n, p in _default_plan(1)}["DeepLearning_1"]
-    plain = fmod.Vec.rollups
-
-    def reversed_rollups(self):
-        if self._rollups is None and self.nrows > 1:
-            self._rollups = plain(self.select_rows(
-                np.arange(self.nrows - 1, -1, -1)))
-        return plain(self)
-
-    fmod.Vec.rollups = reversed_rollups
-    try:
-        t1 = time.perf_counter()
-        m = DeepLearning(**dl, seed=1, nfolds=_AML_NFOLDS,
-                         fold_assignment="modulo").train(
-            y="IsDepDelayed", training_frame=Frame.from_arrays(
-                cols, domains=dom, device="cpu"))
-        dl_s = time.perf_counter() - t1
-    finally:
-        fmod.Vec.rollups = plain
-    ref = aml.leaderboard.models["DeepLearning_1_AutoML_parity"].cv.metrics
     (out / "leg.json").write_text(json.dumps({
         "rows": rows, "threads": _AML_CPU_THREADS, "seconds": secs,
-        "leaderboard": aml.leaderboard.as_list(),
-        "dl_reversed_sums_s": dl_s,
-        "dl_reversed_sums_gaps": {k: abs(m.cv.metrics[k] - ref[k])
-                                  for k in ref}}))
+        "leaderboard": aml.leaderboard.as_list()}))
     return 0
 
 
@@ -2509,8 +2505,8 @@ def _phase_automl(c) -> dict:
     its row; a Cartesian GridSearch on GBM (max_depth 3 or 5 x
     learn_rate 0.05 or 0.1, nfolds=3) gives the same four models in
     the same order on both devices. Reported: the boosted rows past a
-    tie and DeepLearning_1, whose gaps stand beside the leg's
-    reversed-sum witness (PERF.md, ROADMAP C7)."""
+    tie and DeepLearning_1 (a chaotic train in both packages: PERF.md,
+    ROADMAP C7)."""
     torch, hist_op, card, book = c.torch, c.hist_op, c.card, c.book
     from h2o_kubernetes_tpu_torch import (GBM, AutoML, Frame, GridSearch,
                                           StackedEnsemble)
@@ -2770,7 +2766,6 @@ def _phase_automl(c) -> dict:
                  f", restacked on the CPU {restack[mid]:.2e}"
                  if mid in restack else ""))
     dl_id = "DeepLearning_1_AutoML_parity"
-    witness = legj["dl_reversed_sums_gaps"]
     resume_se = max((max(g.values()) for m, g in resume_gap.items()
                      if g and m.startswith("StackedEnsemble")), default=0.0)
     same_all, _ = _same_leaderboard(lb_card, lb_cpu, "auc")
@@ -2782,9 +2777,8 @@ def _phase_automl(c) -> dict:
          f"(ensembles within {resume_se:.2e}); gated "
          f"rows {sorted(exact)} in the same order {order_same}; the whole "
          f"order the same {same_all}; {dl_id} gaps "
-         f"{ {k: f'{v:.2e}' for k, v in gaps.get(dl_id, {}).items()} }, "
-         f"the CPU's own with reversed column sums "
-         f"{ {k: f'{v:.2e}' for k, v in witness.items()} }; grid "
+         f"{ {k: f'{v:.2e}' for k, v in gaps.get(dl_id, {}).items()} }; "
+         f"grid "
          f"{g_rows['card']} / {g_rows['cpu']} [{card}]")
     if fails:
         raise RuntimeError("automl: card and CPU disagree: "
@@ -2805,7 +2799,6 @@ def _phase_automl(c) -> dict:
                                      for t, v in w.items()}
                                  for m, w in walks.items()},
                        "restacked_gaps": restack,
-                       "dl_reversed_sums_gaps": witness,
                        "grid": g_rows["card"],
                        "leaderboard_card": lb_card,
                        "leaderboard_cpu": lb_cpu}}
@@ -3102,6 +3095,134 @@ def _frame_body(c, work: str) -> dict:
                 "nodes_compared": compared, "near_ties": len(ties),
                 "leaf_gap": leaf_gap, "b1_launches": launches},
             "frame_file_s": frame_file_s, "export_s": export_s}
+
+
+def _learner_sane(name: str, model, out, fr) -> bool:
+    """What a train at phase 28's shapes must give, whatever the
+    device."""
+    if name == "kmeans":
+        return int(model.size.sum()) == fr["higgs"].nrows and \
+            np.isfinite(model.tot_withinss)
+    if name == "pca":
+        ev = model.eigenvalues.cpu().numpy()
+        return bool((ev > 0).all() and (np.diff(ev) <= 0).all())
+    if name == "glrm":
+        return 0 < model.objective < 1
+    if name == "naivebayes":
+        return bool(np.isfinite(model.priors.cpu().numpy()).all()
+                    and np.isfinite(model.num_sd.cpu().numpy()).all())
+    if name == "isolationforest":
+        return bool(model.trees.is_split[:, 0].all())
+    if name == "coxph":
+        return model.loglik > model.loglik_null
+    if name == "aggregator":
+        return 50 <= model.num_exemplars() <= 150 and \
+            int(model._counts.sum()) == fr["higgs"].nrows
+    te = np.stack([out[f"{c}_te"].to_numpy() for c in model.columns])
+    return bool(np.isfinite(te).all())
+
+
+def _phase_learners(c) -> dict:
+    """28. KMeans, PCA, GLRM, naive Bayes, isolation forest, CoxPH, the
+    aggregator and target encoding at tools/torch_learners.py's shapes on
+    the card, their artifacts, card vs CPU, and the column statistics
+    card = CPU. Their hot ops are matmuls, segment sums and torch.linalg
+    (none reaches pl.pallas_call in the JAX package), so no kernel of the
+    port runs on these paths: B1-B4's counts are set to 0 before and
+    read after, and must stay 0."""
+    torch = c.torch
+    from h2o_kubernetes_tpu_torch import Frame
+    from tools import torch_learners as L
+
+    t0 = time.perf_counter()
+    tables = L.arrays(_LEARNER_ROWS)
+    fc = L.frames(tables, "cuda")
+    make_s = time.perf_counter() - t0
+    ties = L.max_tied_events(tables["surv"][0])
+    _log(f"[learners] tables at {_LEARNER_ROWS} rows made and on the card "
+         f"in {make_s:.2f}s; survival times on a grid of {L.SURV_GRID}: "
+         f"at most {ties} events share a time (Efron's cap 32), "
+         f"{1 - tables['surv'][0]['e'].mean():.3f} censored")
+    if ties > 32:
+        raise RuntimeError("learners: the survival grid ties too many")
+    # C8: the column statistics are float64 two-pass sums rounded once,
+    # so the card and the CPU give the same float32 mean and sigma
+    air_cpu = Frame.from_arrays(tables["airlines"][0],
+                                domains=tables["airlines"][1],
+                                device="cpu")
+    stats_apart = []
+    n_stats = 0
+    for n in air_cpu.names:
+        if air_cpu.vec(n).is_enum():
+            continue
+        rc, rh = fc["airlines"].vec(n).rollups(), air_cpu.vec(n).rollups()
+        n_stats += 1
+        for k in ("mean", "sigma"):
+            if np.float32(rc[k]).tobytes() != np.float32(rh[k]).tobytes():
+                stats_apart.append((n, k, rc[k], rh[k]))
+    _log(f"[learners] rollups of {n_stats} numeric airlines columns at "
+         f"{_LEARNER_ROWS} rows, card vs CPU: float32 mean and sigma "
+         f"bitwise {not stats_apart} {stats_apart[:3]}")
+    if stats_apart:
+        raise RuntimeError("learners: column statistics differ between "
+                           "card and CPU")
+    c.hist_op.reset_launches()
+    c.shap_kernel.reset_launches()
+    out = {"rows": _LEARNER_ROWS, "parity_rows": _LEARNER_PARITY_ROWS,
+           "tables_s": make_s, "max_tied_events": ties,
+           "rollups_bitwise_columns": n_stats}
+    for name in L.NAMES:
+        t = time.perf_counter()
+        model, tr = L.train(name, fc)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        times = []
+        for _ in range(_LEARNER_WARM):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model, tr = L.train(name, fc)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        med = statistics.median(times)
+        work, unit = L.units(name, model, _LEARNER_ROWS)
+        mojo = None if name == "aggregator" else \
+            L.artifact_gap(name, model, fc, _LEARNER_MOJO_ROWS)
+        sane = _learner_sane(name, model, tr, fc)
+        _log(f"[learners] {name}: first {first_s:.3f}s, warm "
+             f"{[round(x, 4) for x in times]} s, median {med:.4f}s = "
+             f"{work / med:.1f} {unit}/s; artifact vs predict "
+             f"{'-' if mojo is None else f'{mojo:.3e}'} (limit "
+             f"{_LEARNER_MOJO_LIMIT:.0e}); outputs sane {sane} [{c.card}]")
+        if not sane or (mojo is not None and mojo > _LEARNER_MOJO_LIMIT):
+            raise RuntimeError(f"learners: {name} gave wrong outputs")
+        out[name] = {"first_s": first_s, "train_s": times,
+                     "median_s": med, "per_s": work / med, "unit": unit,
+                     "mojo_gap": mojo}
+    hist_n = sum(c.hist_op.LAUNCHES.values())
+    shap_n = c.shap_kernel.flat_shap_tab_kernel.launches
+    _log(f"[learners] B1-B3 launches on these paths {hist_n}, B4 {shap_n} "
+         "(no kernel of the port runs here)")
+    if hist_n or shap_n:
+        raise RuntimeError("learners: a kernel ran on a learner's path")
+    # card vs CPU, each device training on the first rows of each table
+    small = L.head(tables, _LEARNER_PARITY_ROWS)
+    sc, sh = L.frames(small, "cuda"), L.frames(small, "cpu")
+    for name in L.NAMES:
+        mc, tc = L.train(name, sc)
+        t = time.perf_counter()
+        mh, th = L.train(name, sh)
+        cpu_s = time.perf_counter() - t
+        res = L.compare(name, mc, mh, sc, sh, tc, th)
+        gaps = {k: f"{v['gap']:.3e} (limit {v['limit']:.0e})"
+                for k, v in res["gaps"].items()}
+        _log(f"[learners] {name} card vs CPU at {_LEARNER_PARITY_ROWS} "
+             f"rows (CPU train {cpu_s:.2f}s): bitwise {res['exact']}, "
+             f"gaps {gaps}, ok {res['ok']}")
+        if not res["ok"]:
+            raise RuntimeError(f"learners: {name} differs between card "
+                               "and CPU")
+        out[name]["parity"] = dict(res, cpu_s=cpu_s)
+    return out
 
 
 def main() -> int:
@@ -3892,7 +4013,11 @@ def main() -> int:
     aml_res = _phase_automl(ctx)
 
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 28 starts")
-    # -- 28. report ----------------------------------------------------------
+    # -- 28. the other learners ----------------------------------------------
+    learn_res = _phase_learners(ctx)
+
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 29 starts")
+    # -- 29. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -4037,7 +4162,10 @@ def main() -> int:
                  (3, "b3_launches")):
         records[i]["automl_config5_launches"] = aml_res["config5"][k]
     _log(json.dumps({"automl": aml_res}))
+    # phase 28 adds no kernel (B1-B4 launch 0 times on its paths)
+    _log(json.dumps({"other_learners": learn_res}))
     _log(json.dumps({"kernels": records}))
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: the whole run")
     _log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,9 +2,10 @@
 the JAX package, checkpoint continuation), DRF and XGBoost-hist
 (pointwise and LambdaMART ranking) training, GLM (IRLSM, L-BFGS,
 coordinate descent; seven families), DeepLearning (MLP classifier and
-regressor, autoencoder, checkpoint continuation) and Word2Vec
-(skip-gram with negative sampling), MOJO-v2 export, the model registry
-and the scorer-replica serving path.
+regressor, autoencoder, checkpoint continuation), Word2Vec
+(skip-gram with negative sampling), KMeans, PCA, GLRM, naive Bayes,
+isolation forest, CoxPH, the aggregator and target encoding, MOJO-v2
+export, the model registry and the scorer-replica serving path.
 
 Data: ``import_file(path)`` parses CSV (pyarrow's streamed reader or
 the pure-Python one), Parquet, ORC, Avro, SVMLight and ARFF into a
@@ -25,12 +26,15 @@ steps an ``nn.Module`` MLP with autograd and ``torch.optim`` over
 minibatches, and ``Word2Vec(...).train(frame)`` descends the
 negative-sampling loss with scattered gradients, both on the frame's
 device with the JAX package's random draws (``runtime/prng.py``, a
-bitwise twin of ``jax.random``). Every supervised estimator
-cross-validates with ``nfolds=``/``fold_column=`` (``models/cv.py``);
-``StackedEnsemble`` stacks cross-validated models, ``GridSearch``
-walks a hyper-parameter grid, and ``AutoML`` runs the JAX package's
-model plan and two ensembles into a leaderboard on the pipelined
-executor (``runtime/scheduler.py``). Serving: a scorer
+bitwise twin of ``jax.random``). ``KMeans``, ``PCA``, ``GLRM``,
+``NaiveBayes``, ``IsolationForest``, ``CoxPH``, ``Aggregator`` and
+``TargetEncoder`` train on the frame's device with matmuls, segment
+sums and ``torch.linalg`` (none has a kernel of its own). Every
+supervised estimator cross-validates with ``nfolds=``/``fold_column=``
+(``models/cv.py``); ``StackedEnsemble`` stacks cross-validated models,
+``GridSearch`` walks a hyper-parameter grid, and ``AutoML`` runs the
+JAX package's model plan and two ensembles into a leaderboard on the
+pipelined executor (``runtime/scheduler.py``). Serving: a scorer
 replica loads a MOJO-v2 tree artifact (as written by the JAX package's
 ``export_mojo``) or serves a trained model directly, scores rows with
 ``flat_margin`` and serves per-row TreeSHAP contributions through a
@@ -51,7 +55,15 @@ from .grid import GridSearch, H2OGridSearch
 from .models.deeplearning import DeepLearning, DeepLearningModel
 from .models.drf import DRF, DRFModel
 from .models.gbm import GBM, GBMModel
+from .models.aggregator import Aggregator, AggregatorModel
+from .models.coxph import CoxPH, CoxPHModel
 from .models.glm import GLM, GLMModel
+from .models.glrm import GLRM, GLRMModel
+from .models.isolationforest import IsolationForest, IsolationForestModel
+from .models.kmeans import KMeans, KMeansModel
+from .models.naivebayes import NaiveBayes, NaiveBayesModel
+from .models.pca import PCA, PCAModel
+from .models.targetencoder import TargetEncoder, TargetEncoderModel
 from .models.stackedensemble import StackedEnsemble, StackedEnsembleModel
 from .models.word2vec import Word2Vec, Word2VecModel
 from .models.xgboost import XGBoost, XGBoostModel
@@ -74,4 +86,8 @@ __all__ = ["GBM", "GBMModel", "DRF", "DRFModel", "XGBoost", "XGBoostModel",
            "import_file", "parse_setup", "export_file", "save_frame",
            "load_frame", "AutoML", "Job", "Leaderboard", "jobs",
            "GridSearch", "H2OGridSearch", "StackedEnsemble",
-           "StackedEnsembleModel"]
+           "StackedEnsembleModel", "KMeans", "KMeansModel", "PCA",
+           "PCAModel", "GLRM", "GLRMModel", "NaiveBayes", "NaiveBayesModel",
+           "IsolationForest", "IsolationForestModel", "CoxPH", "CoxPHModel",
+           "Aggregator", "AggregatorModel", "TargetEncoder",
+           "TargetEncoderModel"]

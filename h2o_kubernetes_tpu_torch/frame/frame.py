@@ -172,10 +172,14 @@ class Vec:
     # -- rollups --------------------------------------------------------------
 
     def rollups(self) -> dict[str, float]:
-        """min/max/mean/sigma/nacnt/zeros/rows over the non-NA values
-        (the JAX package's ``_rollup_map`` reductions, float32 sums),
-        cached; time columns are reduced origin-relative and shifted
-        back (sigma does not move)."""
+        """min/max/mean/sigma/nacnt/zeros/rows over the non-NA values,
+        cached. The count, the mean and Σ(x − mean)² are float64 sums
+        in two passes on the column's device (``DataInfo`` rounds the
+        mean and sigma to float32 once), so the card and the CPU give
+        the same float32 statistics; min, max and the counts are the
+        JAX package's ``_rollup_map`` reductions. Time columns are
+        reduced origin-relative and shifted back (sigma does not
+        move)."""
         if self._rollups is not None:
             return self._rollups
         if self.nrows == 0:
@@ -185,22 +189,22 @@ class Vec:
             return self._rollups
         x = self.data if self.kind == "time" else self.as_float()
         ok = ~torch.isnan(x)
-        xz = torch.where(ok, x, torch.zeros_like(x))
+        xd = torch.where(ok, x.double(), 0.0)
+        cnt = ok.sum(dtype=torch.float64)
+        mean = xd.sum() / cnt
+        ss = torch.where(ok, (xd - mean) ** 2, 0.0).sum()
         stats = torch.stack([
-            ok.sum(dtype=torch.float32), xz.sum(), (xz * xz).sum(),
-            torch.where(ok, x, float("inf")).min(),
-            torch.where(ok, x, float("-inf")).max(),
-            (ok & (x == 0.0)).sum(dtype=torch.float32)]).cpu().tolist()
-        n, s, ss, lo, hi, zeros = stats
-        mean = s / n if n > 0 else float("nan")
-        var = ss / n - mean * mean if n > 1 else 0.0
+            cnt, mean, ss,
+            torch.where(ok, x, float("inf")).min().double(),
+            torch.where(ok, x, float("-inf")).max().double(),
+            (ok & (x == 0.0)).sum(dtype=torch.float64)]).cpu().tolist()
+        n, mean, ss, lo, hi, zeros = stats
         shift = self.origin if (self.kind == "time" and n) else 0.0
         self._rollups = dict(
             min=(lo + shift) if n else float("nan"),
             max=(hi + shift) if n else float("nan"),
-            mean=mean + shift,
-            sigma=float(np.sqrt(max(var * n / (n - 1), 0.0)))
-            if n > 1 else 0.0,
+            mean=(mean + shift) if n else float("nan"),
+            sigma=float(np.sqrt(ss / (n - 1))) if n > 1 else 0.0,
             nacnt=int(self.nrows - n), zeros=int(zeros), rows=int(n))
         return self._rollups
 

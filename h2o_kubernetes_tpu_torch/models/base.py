@@ -30,9 +30,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["Model", "TrainData", "resolve_xy", "scorer_cache_stats",
-           "model_scorer_counters", "contrib_dispatch",
-           "score_predictions"]
+__all__ = ["Model", "TrainData", "resolve_xy", "resolve_x", "LearnerModel",
+           "scorer_cache_stats", "model_scorer_counters",
+           "contrib_dispatch", "score_predictions"]
 
 _SCORE_MIN_BATCH = 128          # smallest padded-batch bucket
 _CONTRIB_CHUNK = 16384          # default rows per chunk of the JAX rule
@@ -99,15 +99,7 @@ def resolve_xy(frame, y: str, x: Sequence[str] | None = None,
             if frame.vec(col).is_enum():
                 raise ValueError(f"{what} column '{col}' must be numeric")
             ignored.add(col)
-    names = list(x) if x else [n for n in frame.names if n not in ignored]
-    if x and ignored.intersection(names):
-        raise ValueError(
-            f"column(s) {sorted(ignored.intersection(names))} are the "
-            "response/weights/offset or ignored_columns and cannot also "
-            "be features (remove them from x)")
-    for n in names:
-        if n not in frame:
-            raise ValueError(f"feature column '{n}' not in frame")
+    names = _feature_names(frame, x, ignored)
     yv = frame.vec(y)
     nclasses, domain = 1, None
     if yv.is_enum():
@@ -135,6 +127,33 @@ def resolve_xy(frame, y: str, x: Sequence[str] | None = None,
              if frame.vec(n).is_enum()}
     return TrainData(names, torch.nan_to_num(y_arr), w, frame.nrows,
                      nclasses, domain, distribution, fdoms, off)
+
+
+def _feature_names(frame, x, ignored: set) -> list[str]:
+    """The feature columns: ``x``, or every column not ``ignored``; an
+    explicit ``x`` may not name an ignored column."""
+    names = list(x) if x else [n for n in frame.names if n not in ignored]
+    if x and ignored.intersection(names):
+        raise ValueError(
+            f"column(s) {sorted(ignored.intersection(names))} are the "
+            "response/weights/offset or ignored_columns and cannot also "
+            "be features (remove them from x)")
+    for n in names:
+        if n not in frame:
+            raise ValueError(f"feature column '{n}' not in frame")
+    return names
+
+
+def resolve_x(frame, x: Sequence[str] | None = None,
+              ignored: Sequence[str] | None = None) -> TrainData:
+    """The unsupervised resolve (the JAX package's ``resolve_x``): the
+    features only; ``y`` is zeros, every row has weight 1, one class."""
+    names = _feature_names(frame, x, set(ignored or []))
+    fdoms = {n: list(frame.vec(n).domain) for n in names
+             if frame.vec(n).is_enum()}
+    z = torch.zeros(frame.nrows, dtype=torch.float32, device=frame.device)
+    return TrainData(names, z, torch.ones_like(z), frame.nrows, 1, None,
+                     "gaussian", fdoms)
 
 
 def _batch_bucket(n: int) -> int:
@@ -650,6 +669,54 @@ class Model:
         return score_predictions(self.nclasses,
                                  getattr(self, "distribution", None),
                                  yt[ok], out[ok])
+
+
+class LearnerModel(Model):
+    """What KMeans, PCA, GLRM, naive Bayes, isolation forest and CoxPH
+    models share: the training layout, the device their tensors live on
+    (so scoring has no state to build), and their artifact's common
+    meta, with the ``DataInfo`` layout of the expanded-design ones."""
+
+    _score_state = "_device_ready"
+
+    def _init_layout(self, data: TrainData, device) -> None:
+        self.feature_names = list(data.feature_names)
+        self.feature_domains = dict(data.feature_domains)
+        self.nclasses = data.nclasses
+        self.response_domain = data.response_domain
+        self.distribution = data.distribution
+        self.offset_column: str | None = None
+        self.device = torch.device(device)
+        self.scoring_history: list[dict] = []
+        self.validation_metrics: dict | None = None
+        self._device_ready = True
+
+    def _serving_prepare(self):
+        return None
+
+    def _meta_common(self) -> dict:
+        meta = {"algo": self.algo, "feature_names": self.feature_names,
+                "feature_domains": self.feature_domains,
+                "nclasses": self.nclasses,
+                "response_domain": self.response_domain,
+                "distribution": self.distribution,
+                "offset_column": self.offset_column}
+        d = getattr(self, "dinfo", None)
+        if d is not None:
+            meta.update(numeric_idx=[int(i) for i in d.numeric_idx],
+                        enum_specs=[[int(i), int(L), bool(na), int(m)]
+                                    for i, L, na, m in d.enum_specs],
+                        drop_first=bool(d.drop_first))
+        return meta
+
+    def _arrays_common(self) -> dict:
+        d = getattr(self, "dinfo", None)
+        return {} if d is None else {"means": np.asarray(d.means),
+                                     "stds": np.asarray(d.stds)}
+
+    def _expand(self, X: torch.Tensor) -> torch.Tensor:
+        """[n, F] raw -> [n, P] expanded, without the intercept."""
+        return self.dinfo.expand(X)[:, :-1]
 
 
 def score_predictions(nclasses: int, distribution: str | None,

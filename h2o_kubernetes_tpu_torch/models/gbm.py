@@ -222,7 +222,9 @@ def _init_margin(y, w, off, dist: str, K: int):
         cls = torch.where(w > 0, y, K).long()
         cls_w = torch.zeros(K + 1, dtype=w.dtype, device=w.device
                             ).index_add_(0, cls, w)[:K]
-        init = torch.log(torch.clamp(cls_w / w_sum, min=1e-8))
+        # XLA's CPU log: the priors' last bit decides f32 near-ties of
+        # round 0's zero-information nodes (every row one gradient)
+        init = prng.xla_log(torch.clamp(cls_w / w_sum, min=1e-8))
         return init, init[None, :].expand(y.shape[0], K)
     if dist == "bernoulli":
         p1 = torch.clamp(torch.sum(y * w) / w_sum, 1e-6, 1 - 1e-6)

@@ -132,6 +132,52 @@ def _split_gains(left, tot4, p: TreeParams):
     return torch.where(ok, raw, float("-inf"))
 
 
+def cumsum_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.cumsum(x, axis=dim)`` of float32 values as XLA's CPU
+    backend computes it, bit for bit: its reduce-window rewrite cuts the
+    axis into blocks of 16 (zero-padded), scans each block left to
+    right, scans the block totals the same way (recursively) and adds
+    each block's exclusive prefix. Split gains on plateaus are tied at
+    f32 resolution, so the order of these sums decides splits. The
+    blocks are scanned in place, one vectorized add per position."""
+    dim %= x.dim()
+    n = x.shape[dim]
+    if n <= 16:
+        y = x.clone()
+        for k in range(1, n):
+            y.select(dim, k).add_(y.select(dim, k - 1))
+        return y
+    nb = -(-n // 16)
+    shape = list(x.shape)
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, nb * 16 - n]
+    blocks = torch.nn.functional.pad(x, pad).reshape(
+        shape[:dim] + [nb, 16] + shape[dim + 1:])
+    for k in range(1, 16):
+        blocks.select(dim + 1, k).add_(blocks.select(dim + 1, k - 1))
+    tot = cumsum_xla(blocks.select(dim + 1, 15), dim)   # [..., nb, ...]
+    blocks.narrow(dim, 1, nb - 1).add_(
+        tot.narrow(dim, 0, nb - 1).unsqueeze(dim + 1))
+    return blocks.reshape(shape[:dim] + [nb * 16] + shape[dim + 1:]) \
+        .narrow(dim, 0, n)
+
+
+# the largest level histogram (cells) the CPU scans in XLA's order
+_XLA_SCAN_CELLS = 1 << 24
+
+
+def _bin_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The split finder's prefix sums over bins. On the CPU, up to
+    ``_XLA_SCAN_CELLS`` cells, XLA's CPU order (``cumsum_xla``), so a CPU
+    train takes the JAX package's decisions at f32 ties; past it (a deep
+    forest's last levels) one scan, as the blocked order's extra passes
+    over the histogram would slow those levels by ~20%. On the card one
+    scan (the blocked order would add ~35 launches to every level of a
+    host-bound train)."""
+    if x.device.type == "cpu" and x.numel() <= _XLA_SCAN_CELLS:
+        return cumsum_xla(x, dim)
+    return torch.cumsum(x, dim)
+
+
 def _find_splits(hist, p: TreeParams, feat_ok=None, efb=None):
     """Best split per node from a [n_nodes, F, B, 3] histogram (with
     ``efb``, a bundled [n_nodes, Fb, B, 3] one: ``_find_splits_efb``).
@@ -147,7 +193,7 @@ def _find_splits(hist, p: TreeParams, feat_ok=None, efb=None):
         return _find_splits_efb(hist, p, efb, feat_ok)
     nb = hist.shape[2]
     na = hist[:, :, nb - 1, :]                          # [n, F, 3]
-    cum = torch.cumsum(hist[:, :, : nb - 1, :], dim=2)  # left, NA excluded
+    cum = _bin_cumsum(hist[:, :, : nb - 1, :], 2)      # left, NA excluded
     totn = (cum[:, :, -1, :] + na)[:, 0:1, :]           # [n, 1, 3]
     tot4 = totn[:, :, None, :]                          # [n, 1, 1, 3]
     cum_na = cum + na[:, :, None, :]
@@ -197,7 +243,7 @@ def _find_splits_efb(hist, p: TreeParams, efb, feat_ok):
     body_mask = (efb.slot_feat >= 0) & (efb.slot_bin < nb - 1)  # [Fb, nb]
     bm = body_mask.to(hist.dtype)
     body = hist[:, :, :S, :] * bm[None, :, :S, None]
-    cum = torch.cumsum(body, dim=2)                      # [n, Fb, S, 3]
+    cum = _bin_cumsum(body, 2)                           # [n, Fb, S, 3]
     # node totals from column 0: its body cumsum tail plus its non-body
     # mass (the default slot and the members' NA slots; for a
     # passthrough column only its NA bin)
@@ -696,7 +742,9 @@ def boost_trees_multi(binned, y, w, margin, n_trees: int, K: int,
         if bp.drf_mode:
             g, h = -yk, torch.ones_like(yk)
         else:
-            probs = torch.softmax(margin, dim=1).T             # [K, rows]
+            # XLA's CPU softmax, bitwise: its last bits decide f32
+            # near-ties
+            probs = prng.xla_softmax(margin).T                 # [K, rows]
             g, h = probs - yk, probs * (1.0 - probs)
         bG, wG = binned, w_t
         if goss:

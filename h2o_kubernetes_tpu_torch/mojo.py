@@ -13,13 +13,18 @@ layers (``net_{i}_w`` [in, out], ``net_{i}_b``; the meta's activation,
 loss and ``autoencoder``); a Word2Vec model its ``embeddings`` and the
 meta's ``vocab``. A stacked ensemble nests every base model's artifact
 (``base_{i}.mojo``) and the metalearner's (``metalearner.mojo``) in its
-zip, with the meta's ``base_tags``. ``export_mojo`` writes a port GBM/
-DRF/XGBoost/GLM/DeepLearning/Word2Vec model, a stacked ensemble of
-them (or a loaded tree scorer) as one; ``read_mojo_parts`` reads any;
-``import_mojo``/``MojoModel`` score a tree, GLM, DeepLearning or
-stacked-ensemble artifact and look up a Word2Vec artifact's vectors
-with numpy only, on any host. The JAX package's other algos raise,
-naming the ROADMAP item that ports them.
+zip, with the meta's ``base_tags``. The other learners carry what they
+score from: naive Bayes its priors, Gaussian tables (``num_mean``,
+``num_sd``) and level tables (``nbtab_{i}``); PCA, KMeans, CoxPH and
+GLRM the design layout and their ``eigenvectors``/``eigenvalues``,
+``centers``, ``beta`` or archetypes ``V``; an isolation forest its heap
+trees (``iso_*``); a target encoder its full-data tables
+(``te_sum_{i}``, ``te_cnt_{i}``). ``export_mojo`` writes any port model
+(or a loaded tree scorer); ``read_mojo_parts`` reads any;
+``import_mojo``/``MojoModel`` score every algo but Word2Vec (whose
+vectors it looks up) and the target encoder (``transform``), and
+reconstruct through a GLRM artifact (``reconstruct``), with numpy only,
+on any host.
 """
 
 from __future__ import annotations
@@ -42,21 +47,16 @@ _READABLE_FORMATS = ("h2o_kubernetes_tpu/mojo/1", _FORMAT)
 MOJO_FORMAT = _FORMAT
 
 TREE_ALGOS = ("gbm", "drf", "xgboost")
-# the algos whose artifacts this module writes and reads
+# the algos whose artifacts this module writes and reads (every artifact
+# algo of the JAX package)
 SCORED_ALGOS = TREE_ALGOS + ("glm", "deeplearning", "word2vec",
-                             "stackedensemble")
-# the JAX package's other artifact algos, by the ROADMAP item (Queue 1's
-# label) that ports them
-_UNPORTED_ALGOS = {
-    "kmeans": "item 12", "pca": "item 12", "glrm": "item 12",
-    "naivebayes": "item 12", "isolationforest": "item 12",
-    "coxph": "item 12", "targetencoder": "item 12"}
+                             "stackedensemble", "naivebayes", "pca",
+                             "kmeans", "isolationforest", "coxph", "glrm",
+                             "targetencoder")
 
 
 def _unported(algo) -> str:
-    item = _UNPORTED_ALGOS.get(algo)
-    where = f"ROADMAP Queue 1 {item}" if item else "not a JAX package algo"
-    return f"algo '{algo}' artifacts are not ported ({where})"
+    return f"algo '{algo}' has no MOJO artifact"
 
 
 def read_mojo_parts(path, want_nested: bool = False
@@ -122,9 +122,9 @@ def import_mojo(path) -> "MojoModel":
 
 
 class MojoModel:
-    """A tree, GLM or DeepLearning artifact scored, or a Word2Vec
-    artifact's vectors looked up, with numpy only (no torch, no
-    device)."""
+    """An artifact scored (``predict``), a Word2Vec artifact's vectors
+    looked up, a target encoder's ``transform`` or a GLRM's
+    ``reconstruct``, with numpy only (no torch, no device)."""
 
     def __init__(self, path):
         self.meta, self.arrays, nested = read_mojo_parts(path,
@@ -209,9 +209,17 @@ class MojoModel:
         return np.asarray(data[oc], dtype=np.float64)
 
     def predict(self, data) -> np.ndarray:
-        """[n, K] probabilities or [n] predictions."""
+        """[n, K] probabilities or [n] predictions (KMeans: cluster ids;
+        PCA and GLRM: [n, k] projections; isolation forest: [n, 2]
+        score and mean path length; CoxPH: the log hazard)."""
         if self.algo == "stackedensemble":
             return self._predict_se(data)
+        if self.algo == "targetencoder":
+            raise ValueError("targetencoder artifacts score through "
+                             "transform(), not predict()")
+        if self.algo == "word2vec":
+            raise ValueError("word2vec artifacts score no rows: use "
+                             "word_vector() or find_synonyms()")
         off = self._offset(data)
         X = data.astype(np.float32) if isinstance(data, np.ndarray) \
             else self._matrix(data)
@@ -219,10 +227,143 @@ class MojoModel:
             return self._predict_glm(X, off)
         if self.algo == "deeplearning":
             return self._predict_deeplearning(X, off)
-        if self.algo == "word2vec":
-            raise ValueError("word2vec artifacts score no rows: use "
-                             "word_vector() or find_synonyms()")
+        if self.algo in _LEARNER_SCORERS:
+            return _LEARNER_SCORERS[self.algo](self, X)
         return self._combine(self._totals(X), off)
+
+    # -- the other learners (the JAX package's numpy scorers) ---------------
+
+    def _predict_naivebayes(self, X) -> np.ndarray:
+        """[n, K] probabilities, the log-likelihoods in float64 (as
+        ``models/naivebayes``)."""
+        m, K = self.meta, self.meta["nclasses"]
+        X = X.astype(np.float64)
+        ll = np.broadcast_to(np.log(self.arrays["priors"].astype(
+            np.float64))[None, :], (X.shape[0], K)).copy()
+        if m["num_cols"]:
+            Xn = X[:, np.asarray(m["num_cols"])]
+            mu = self.arrays["num_mean"].astype(np.float64)
+            sd = self.arrays["num_sd"].astype(np.float64)
+            z = (Xn[:, None, :] - mu[None]) / sd[None]
+            lp = -0.5 * z * z - np.log(sd)[None]
+            ll += np.where(np.isnan(Xn)[:, None, :], 0.0, lp).sum(axis=2)
+        for i, ci in enumerate(m["enum_cols"]):
+            tab = self.arrays[f"nbtab_{i}"].astype(np.float64)
+            c = X[:, ci]
+            code = np.clip(np.where(np.isnan(c), 0, c).astype(np.int64),
+                           0, tab.shape[1] - 1)
+            ll += np.where(np.isnan(c)[:, None], 0.0, np.log(tab.T)[code])
+        p = np.exp(ll - ll.max(axis=1, keepdims=True))
+        return p / p.sum(axis=1, keepdims=True)
+
+    def _predict_pca(self, X) -> np.ndarray:
+        return self._expand(X)[:, :-1] @ self.arrays["eigenvectors"]
+
+    def _predict_kmeans(self, X) -> np.ndarray:
+        """Cluster ids, the distances in float64 (as ``models/kmeans``)."""
+        Xe = self._expand(X)[:, :-1].astype(np.float64)
+        C = self.arrays["centers"].astype(np.float64)
+        d = (Xe * Xe).sum(1)[:, None] - 2 * Xe @ C.T + (C * C).sum(1)[None]
+        return d.argmin(axis=1)
+
+    def _predict_coxph(self, X) -> np.ndarray:
+        return self._expand(X)[:, :-1] @ self.arrays["beta"]
+
+    def _solve_u_glrm(self, X) -> np.ndarray:
+        """[n, k] row factors: the per-row ridge solve against fixed V,
+        the observed mask from the RAW matrix."""
+        m = self.meta
+        cols = [~np.isnan(X[:, i]) for i in m["numeric_idx"]]
+        mats = [np.stack(cols, axis=1)] if cols else []
+        for (i, L, has_na, mode) in m["enum_specs"]:
+            width = L - (1 if m["drop_first"] else 0) + (1 if has_na else 0)
+            mats.append(np.broadcast_to(~np.isnan(X[:, i])[:, None],
+                                        (X.shape[0], width)))
+        mask = np.concatenate(mats, axis=1).astype(np.float32)
+        Xz = np.nan_to_num(self._expand(X)[:, :-1]) * mask
+        V = self.arrays["V"]
+        G = V.T @ V + 1e-6 * np.eye(V.shape[1], dtype=V.dtype)
+        return Xz @ V @ np.linalg.inv(G)
+
+    def _predict_isolationforest(self, X) -> np.ndarray:
+        """[n, 2] (anomaly score, mean path length)."""
+        m, a = self.meta, self.arrays
+        Xf = np.nan_to_num(X.astype(np.float32))
+        n = Xf.shape[0]
+        rows = np.arange(n)
+
+        def c_avg(x):
+            x = np.maximum(x, 2.0)
+            return (2.0 * (np.log(x - 1.0) + 0.5772156649)
+                    - 2.0 * (x - 1.0) / x)
+
+        total = np.zeros(n, dtype=np.float64)
+        for t in range(m["ntrees"]):
+            node = np.zeros(n, dtype=np.int64)
+            depth = np.zeros(n, dtype=np.float64)
+            for _ in range(m["max_depth"]):
+                f = a["iso_split_feat"][t][node]
+                split = a["iso_is_split"][t][node]
+                rowval = Xf[rows, np.maximum(f, 0)]
+                child = 2 * node + 1 + (rowval >= a["iso_split_val"][t][node]
+                                        ).astype(np.int64)
+                node = np.where(split, child, node)
+                depth += split.astype(np.float64)
+            leaf_n = a["iso_count"][t][node]
+            total += depth + np.where(leaf_n > 1.0, c_avg(leaf_n), 0.0)
+        mean_len = total / m["ntrees"]
+        score = np.exp2(-mean_len / c_avg(
+            np.float64(m["sample_size_effective"])))
+        return np.stack([score, mean_len], axis=1).astype(np.float32)
+
+    def reconstruct(self, data) -> dict[str, np.ndarray]:
+        """GLRM imputation: U·Vᵀ in the expanded layout, keyed
+        ``reconstr_<coefficient>``."""
+        if self.algo != "glrm":
+            raise ValueError("reconstruct() is a glrm accessor")
+        X = data.astype(np.float32) if isinstance(data, np.ndarray) \
+            else self._matrix(data)
+        rec = self._solve_u_glrm(X) @ self.arrays["V"].T
+        return {f"reconstr_{n}": rec[:, i]
+                for i, n in enumerate(self.meta["coef_names"])}
+
+    def transform(self, data) -> dict[str, np.ndarray]:
+        """The target encoder's scoring transform: ``<col>_te`` from the
+        full-data tables (no leakage handling, no noise)."""
+        if self.algo != "targetencoder":
+            raise ValueError("transform() is a targetencoder accessor")
+        m = self.meta
+        out: dict[str, np.ndarray] = {}
+        for i, col in enumerate(m["te_columns"]):
+            if hasattr(data, "vec") and hasattr(data, "names"):
+                v = data.vec(col)
+                if not v.is_enum():
+                    raise ValueError(f"'{col}' is not categorical")
+                doms = list(v.domain or [])
+                raw = v.to_numpy().astype(np.int64)
+                vals = np.array(doms + [None], dtype=object)[
+                    np.where(raw < 0, len(doms), raw)]
+            else:
+                vals = np.asarray(data[col])
+                if vals.dtype.kind not in ("U", "S", "O"):
+                    raise ValueError(f"'{col}' is not categorical")
+            lut = {d: j for j, d in enumerate(m["te_domains"][col])}
+            codes = np.array([lut.get(str(s), -1) if s is not None else -1
+                              for s in vals], dtype=np.int64)
+            sums = self.arrays[f"te_sum_{i}"].astype(np.float64)
+            cnts = self.arrays[f"te_cnt_{i}"].astype(np.float64)
+            mean = sums / np.maximum(cnts, 1.0)
+            if m["blending"]:
+                lam = 1.0 / (1.0 + np.exp(-(cnts - m["inflection_point"])
+                                          / max(m["smoothing"], 1e-12)))
+                enc_tab = lam * mean + (1.0 - lam) * m["prior"]
+            else:
+                enc_tab = mean
+            enc_tab = np.where(cnts > 0, enc_tab, m["prior"])
+            out[f"{col}_te"] = np.where(
+                codes >= 0, enc_tab[np.maximum(codes, 0)], m["prior"]
+            ).astype(np.float32)
+        return out
 
     def _predict_se(self, data) -> np.ndarray:
         """Every base artifact on the raw columns, their level-one
@@ -241,9 +382,9 @@ class MojoModel:
         return self._metalearner.predict(cols)
 
     def _expand(self, X) -> np.ndarray:
-        """The design expansion of GLM and DeepLearning
-        (``models/datainfo.expand``) in numpy float32: mean-imputed standardized numerics, one-hot enums,
-        the intercept last."""
+        """The design expansion of the expanded-design algos
+        (``models/datainfo.expand``) in numpy float32: mean-imputed
+        standardized numerics, one-hot enums, the intercept last."""
         m = self.meta
         means, stds = self.arrays["means"], self.arrays["stds"]
         out = []
@@ -395,3 +536,13 @@ class MojoModel:
             # laplace's scaling never meets an offset (training refuses)
             return init[0] + scale * totals[:, 0]
         return probsum[:, 0]
+
+
+_LEARNER_SCORERS = {
+    "naivebayes": MojoModel._predict_naivebayes,
+    "pca": MojoModel._predict_pca,
+    "kmeans": MojoModel._predict_kmeans,
+    "coxph": MojoModel._predict_coxph,
+    "glrm": MojoModel._solve_u_glrm,
+    "isolationforest": MojoModel._predict_isolationforest,
+}

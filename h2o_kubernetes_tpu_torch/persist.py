@@ -1,7 +1,8 @@
 """Persistence: raw bytes over pluggable backends, model save and load
-(GBM, DRF, XGBoost, GLM, DeepLearning and stacked ensembles, with their
-cross-validation), and frame files (``export_file`` CSV, ``save_frame`` /
-``load_frame`` npz + JSON metadata, both the JAX package's formats).
+(every learner of the port but Word2Vec, with their cross-validation;
+an aggregator keeps its exemplar rows), and frame files
+(``export_file`` CSV, ``save_frame`` / ``load_frame`` npz + JSON
+metadata, both the JAX package's formats).
 
 Backends (the JAX package's ``PERSIST_SCHEMES`` registry): bare paths
 are the local file system, ``mem://`` an in-process object store.
@@ -182,7 +183,11 @@ def _np(a) -> np.ndarray:
 
 
 _TREE_ALGOS = ("gbm", "drf", "xgboost")
-_FILE_ALGOS = _TREE_ALGOS + ("glm", "deeplearning", "stackedensemble")
+# the learners of models/base.LearnerModel
+_LEARNER_ALGOS = ("naivebayes", "pca", "kmeans", "glrm",
+                  "isolationforest", "coxph")
+_FILE_ALGOS = _TREE_ALGOS + ("glm", "deeplearning", "stackedensemble") \
+    + _LEARNER_ALGOS + ("targetencoder", "aggregator")
 
 
 def _meta_state(model) -> dict:
@@ -218,13 +223,128 @@ def _cv_state(cv) -> dict | None:
             "fold_metrics": [dict(f) for f in cv.fold_metrics]}
 
 
+def _frame_state(frame) -> dict:
+    """A Frame's columns as plain data (``to_numpy`` values, kinds and
+    domains)."""
+    return {"names": list(frame.names),
+            "cols": {n: (frame.vec(n).kind, frame.vec(n).domain,
+                         frame.vec(n).to_numpy()) for n in frame.names}}
+
+
+def _frame_from_state(st: dict, dev):
+    from .frame import Frame, Vec
+
+    return Frame({n: Vec.from_numpy(st["cols"][n][2], n,
+                                    domain=st["cols"][n][1],
+                                    kind=st["cols"][n][0], device=dev)
+                  for n in st["names"]})
+
+
+def _learner_state(model) -> dict:
+    """The fitted state of a ``LearnerModel`` beside its layout."""
+    algo = model.algo
+    st = {"params": dataclasses.asdict(model.params)}
+    if getattr(model, "dinfo", None) is not None:
+        st["dinfo"] = _dinfo_state(model.dinfo)
+    if algo == "naivebayes":
+        st.update(priors=_np(model.priors), num_mean=_np(model.num_mean),
+                  num_sd=_np(model.num_sd),
+                  enum_tables=[_np(t) for t in model.enum_tables],
+                  enum_cols=list(model.enum_cols),
+                  num_cols=list(model.num_cols))
+    elif algo == "pca":
+        st.update(eigvec=_np(model.eigenvectors),
+                  eigval=_np(model.eigenvalues), n_obs=float(model.n_obs),
+                  total_var=float(model._total_var))
+    elif algo == "kmeans":
+        st.update(centers=_np(model.centers_std), size=_np(model.size),
+                  withinss=float(model.tot_withinss),
+                  iterations=int(model.iterations))
+    elif algo == "glrm":
+        st.update(U=_np(model.U), V=_np(model.V),
+                  objective=float(model.objective), nrows=int(model._nrows))
+    elif algo == "isolationforest":
+        st.update(trees={f: _np(getattr(model.trees, f))
+                         for f in model.trees._fields},
+                  sample=int(model.sample_size_effective))
+    else:
+        st.update(beta=_np(model.beta), names=list(model._names),
+                  loglik=float(model.loglik),
+                  loglik_null=float(model.loglik_null),
+                  n_events=int(model.n_events),
+                  iterations=int(model.iterations))
+    return st
+
+
+def _learner_from_state(algo: str, td, st: dict, dev):
+    import torch
+
+    from .models.datainfo import DataInfo
+
+    dinfo = None
+    if "dinfo" in st:
+        d = st["dinfo"]
+        dinfo = DataInfo(list(d["coef_names"]), list(d["numeric_idx"]),
+                         [tuple(e) for e in d["enum_specs"]], d["means"],
+                         d["stds"], d["n_expanded"], d["drop_first"])
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    if algo == "naivebayes":
+        from .models.naivebayes import NaiveBayesModel, NaiveBayesParams
+
+        return NaiveBayesModel(td, NaiveBayesParams(**st["params"]),
+                               st["priors"], st["num_mean"], st["num_sd"],
+                               st["enum_tables"], st["enum_cols"],
+                               st["num_cols"], dev)
+    if algo == "pca":
+        from .models.pca import PCAModel, PCAParams
+
+        return PCAModel(td, PCAParams(**st["params"]), dinfo,
+                        t(st["eigvec"]), t(st["eigval"]), st["n_obs"],
+                        st["total_var"])
+    if algo == "kmeans":
+        from .models.kmeans import KMeansModel, KMeansParams
+
+        return KMeansModel(td, KMeansParams(**st["params"]), dinfo,
+                           t(st["centers"]), st["size"], st["withinss"],
+                           st["iterations"])
+    if algo == "glrm":
+        from .models.glrm import GLRMModel, GLRMParams
+
+        return GLRMModel(td, GLRMParams(**st["params"]), dinfo, t(st["U"]),
+                         t(st["V"]), st["objective"], st["nrows"])
+    if algo == "isolationforest":
+        from .models.isolationforest import (IsolationForestModel,
+                                             IsolationForestParams, IsoTree)
+
+        trees = IsoTree(*(t(st["trees"][f]) for f in IsoTree._fields))
+        return IsolationForestModel(td, IsolationForestParams(
+            **st["params"]), trees, st["sample"])
+    from .models.coxph import CoxPHModel, CoxPHParams
+
+    return CoxPHModel(td, CoxPHParams(**st["params"]), dinfo, t(st["beta"]),
+                      st["names"], st["loglik"], st["loglik_null"],
+                      st["n_events"], st["iterations"])
+
+
 def _model_state(model) -> dict:
     """A model as plain data (its cross-validation included)."""
     algo = getattr(model, "algo", None)
     if algo not in _FILE_ALGOS:
-        raise ValueError(f"save_model: algo '{algo or '?'}' is not ported "
-                         "(GBM, DRF, XGBoost, GLM, DeepLearning and "
-                         "stacked-ensemble models are)")
+        raise ValueError(f"save_model: algo '{algo or '?'}' has no model "
+                         "file (Word2Vec models leave as artifacts)")
+    if algo == "targetencoder":
+        return {"algo": algo, "params": dataclasses.asdict(model.params),
+                "y": model.y, "columns": list(model.columns),
+                "prior": float(model.prior),
+                "tables": {c: dict(t) for c, t in model.tables.items()}}
+    if algo == "aggregator":
+        return {"algo": algo, "params": dataclasses.asdict(model.params),
+                "feature_names": list(model.feature_names),
+                "exemplars": _frame_state(
+                    model._frame.select_rows(model._ex_idx)),
+                "counts": np.asarray(model._counts)}
     st = {"algo": algo, "meta": _meta_state(model),
           "scoring_history": [dict(h) for h in model.scoring_history],
           "validation_metrics": model.validation_metrics,
@@ -259,6 +379,8 @@ def _model_state(model) -> dict:
             model.params, checkpoint=None)),
             dinfo=_dinfo_state(model.dinfo), net=model.net_numpy(),
             loss_kind=model.loss_kind)
+    elif algo in _LEARNER_ALGOS:
+        st["learner"] = _learner_state(model)
     else:
         st.update(base=[_model_state(m) for m in model.base_models],
                   metalearner=_model_state(model.metalearner),
@@ -267,8 +389,8 @@ def _model_state(model) -> dict:
 
 
 def save_model(model, path: str, force: bool = True) -> str:
-    """Save a port GBM/DRF/XGBoost/GLM/DeepLearning or stacked-ensemble
-    model, with its cross-validation, at ``path`` (a path without an
+    """Save a port model (any learner but Word2Vec), with its
+    cross-validation, at ``path`` (a path without an
     extension is a directory: the file is ``<algo>.model`` in it);
     returns the file's path."""
     state = _model_state(model)
@@ -290,11 +412,26 @@ def _model_from_state(st: dict, dev):
     from .models.cv import CVResult
     from .models.datainfo import DataInfo
 
+    algo = st["algo"]
+    if algo == "targetencoder":
+        from .models.targetencoder import (TargetEncoderModel,
+                                           TargetEncoderParams)
+
+        return TargetEncoderModel(TargetEncoderParams(**st["params"]),
+                                  st["y"], st["columns"], st["prior"],
+                                  st["tables"])
+    if algo == "aggregator":
+        from .models.aggregator import AggregatorModel, AggregatorParams
+
+        ex = _frame_from_state(st["exemplars"], dev)
+        td = TrainData(list(st["feature_names"]), None, None, 0, 1, None,
+                       "gaussian")
+        return AggregatorModel(td, AggregatorParams(**st["params"]), ex,
+                               np.arange(ex.nrows), st["counts"])
     m = st["meta"]
     td = TrainData(list(m["feature_names"]), torch.zeros(0), torch.zeros(0),
                    0, int(m["nclasses"]), m["response_domain"],
                    m["distribution"], dict(m["feature_domains"] or {}))
-    algo = st["algo"]
     if algo in ("glm", "deeplearning"):
         d = st["dinfo"]
         dinfo = DataInfo(list(d["coef_names"]), list(d["numeric_idx"]),
@@ -340,6 +477,8 @@ def _model_from_state(st: dict, dev):
                                   carry_net(st["net"], dev, p.activation),
                                   st["loss_kind"])
         model.offset_column = m["offset_column"]
+    elif algo in _LEARNER_ALGOS:
+        model = _learner_from_state(algo, td, st["learner"], dev)
     else:
         from .models.stackedensemble import StackedEnsembleModel
 

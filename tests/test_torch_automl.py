@@ -322,9 +322,9 @@ def test_model_files_both_ways(runs, cols, tmp_path, algo):
 
 
 def test_estimator_names_and_the_ensemble_artifact(runs, cols):
-    """h2o-py's names map to the port's learners (the item-12 learners'
-    raise, naming their item); an ensemble's artifact nests its base
-    models' and metalearner's and scores with numpy as the model does."""
+    """h2o-py's names map to the port's learners (the eight other
+    learners' names too); an ensemble's artifact nests its base models'
+    and metalearner's and scores with numpy as the model does."""
     import io
 
     from h2o_kubernetes_tpu_torch import estimators as E
@@ -333,8 +333,18 @@ def test_estimator_names_and_the_ensemble_artifact(runs, cols):
     assert E.H2OAutoML is port.AutoML and E.H2OGradientBoostingEstimator \
         is port.GBM and E.H2OStackedEnsembleEstimator is \
         port.StackedEnsemble
-    with pytest.raises(NotImplementedError, match="item 12"):
-        E.H2OKMeansEstimator(k=3)
+    from h2o_kubernetes_tpu_torch.models import (
+        aggregator, coxph, glrm, isolationforest, kmeans, naivebayes, pca,
+        targetencoder)
+    assert (E.H2OKMeansEstimator, E.H2OPrincipalComponentAnalysisEstimator,
+            E.H2OGeneralizedLowRankEstimator, E.H2ONaiveBayesEstimator,
+            E.H2OIsolationForestEstimator,
+            E.H2OCoxProportionalHazardsEstimator, E.H2OAggregatorEstimator,
+            E.H2OTargetEncoderEstimator) == (
+        kmeans.KMeans, pca.PCA, glrm.GLRM, naivebayes.NaiveBayes,
+        isolationforest.IsolationForest, coxph.CoxPH,
+        aggregator.Aggregator, targetencoder.TargetEncoder)
+    assert E.H2OKMeansEstimator(k=3).params.k == 3
     _, ta = runs
     se = ta.leaderboard.models["StackedEnsemble_AllModels_AutoML_automl"]
     buf = io.BytesIO()

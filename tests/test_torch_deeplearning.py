@@ -19,7 +19,12 @@ port's. Held here:
 - ``anomaly``, ``deepfeatures``, the ``reconstr_*`` frame, the
   scoring-history row, and the reference's errors;
 - two trains of one configuration equal bitwise (card vs CPU is held
-  on the card by comparing two trains).
+  on the card by comparing two trains);
+- the design statistics: the port's means and standard deviations are
+  the numpy float64 two-pass values rounded once (``x2`` is Year-like,
+  mean 1997 and sigma 6.3), and every reference train here is given the
+  same statistics (``tests/torch_f64_rollups.py``), so its ``DataInfo``
+  equals the port's bitwise.
 """
 
 import io
@@ -37,6 +42,7 @@ from h2o_kubernetes_tpu.runtime.mesh import make_mesh, use_mesh
 from h2o_kubernetes_tpu_torch import DeepLearning, Frame
 from h2o_kubernetes_tpu_torch.models import deeplearning as DLM
 from h2o_kubernetes_tpu_torch.runtime import prng
+from torch_f64_rollups import f64_rollups, two_pass
 
 _MESH1 = make_mesh(n_rows=1)
 _W_REL = 1e-5            # per-layer weights, relative to the largest |w|
@@ -65,6 +71,7 @@ def dl_cols(rows, seed=0):
     rng = np.random.default_rng(seed)
     X = {f"x{i}": rng.normal(size=rows).astype(np.float32)
          for i in range(3)}
+    X["x2"] = (1997.0 + 6.3 * X["x2"]).astype(np.float32)   # Year-like
     X["x2"][::37] = np.nan                          # numeric NAs
     c = np.array(list("abc"), dtype=object)[rng.integers(0, 3, rows)]
     c[::53] = None                                  # an NA level
@@ -111,7 +118,7 @@ def trained():
     tf = Frame.from_arrays(cols, device="cpu")
     th = Frame.from_arrays(hold, device="cpu")
     out = {}
-    with use_mesh(_MESH1):
+    with use_mesh(_MESH1), f64_rollups():
         jf, jh = h2o.Frame.from_arrays(cols), h2o.Frame.from_arrays(hold)
         for name in CASES:
             y, kw, tkw = _tkw(name)
@@ -147,7 +154,7 @@ def trained():
         Xe = jmojo.MojoModel(io.BytesIO(buf.getvalue()))._expand(X)[:, :-1]
         ref["deepfeatures"] = np.maximum(
             Xe @ np.asarray(ae.net[0]["w"]) + np.asarray(ae.net[0]["b"]), 0)
-    return out, tf, th, ref, jf
+    return out, tf, th, ref, jf, cols
 
 
 # -- draws ---------------------------------------------------------------------
@@ -257,8 +264,16 @@ def test_train_matches_reference(trained, name):
     (jm, tm), th, ref = trained[0][name], trained[2], trained[3]
     assert tm.loss_kind == jm.loss_kind and tm.algo == "deeplearning"
     assert tm.dinfo.coef_names == jm.dinfo.coef_names
-    # the frames' rollup means (NA-aware column sums) agree to an ulp
-    np.testing.assert_allclose(tm.dinfo.means, jm.dinfo.means, rtol=1e-6)
+    # the port's statistics are the float64 two-pass ones rounded once,
+    # and the reference was given the same (``f64_rollups``)
+    cols = trained[5]
+    d = tm.dinfo
+    want = [two_pass(cols[tm.feature_names[i]])[1:] for i in d.numeric_idx]
+    assert d.means.tobytes() == np.float32([m for m, _ in want]).tobytes()
+    if d.numeric_idx and np.any(d.stds != 1.0):
+        assert d.stds.tobytes() == np.float32([s for _, s in want]).tobytes()
+    assert d.means.tobytes() == np.asarray(jm.dinfo.means).tobytes()
+    assert d.stds.tobytes() == np.asarray(jm.dinfo.stds).tobytes()
     for lyr, w in zip(tm.net_numpy(), jm.net):
         want = np.asarray(w["w"])
         assert lyr["w"].shape == want.shape

@@ -138,6 +138,8 @@ def test_jax_artifact_scores_in_port_mojo(models):
 
 
 def test_unported_artifact_algos_name_their_item():
+    """Every artifact algo of the JAX package is ported: an algo that
+    has none (the aggregator) is refused, reading and writing."""
     buf = io.BytesIO()
     npz = io.BytesIO()
     np.savez_compressed(npz, beta=np.zeros(3, np.float32))
@@ -146,13 +148,12 @@ def test_unported_artifact_algos_name_their_item():
     with zipfile.ZipFile(buf, "w") as z:
         z.writestr("model.json", json.dumps({
             "format": "h2o_kubernetes_tpu/mojo/2",
-            "algo": "kmeans"}))
+            "algo": "aggregator"}))
         z.writestr("arrays.npz", npz.getvalue())
     with pytest.raises(NotImplementedError,
-                       match="'kmeans' artifacts are not ported "
-                             r"\(ROADMAP Queue 1 item 12\)"):
+                       match="'aggregator' has no MOJO artifact"):
         MojoModel(io.BytesIO(buf.getvalue()))
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="has no MOJO artifact"):
         export_mojo(object(), io.BytesIO())
 
 
@@ -567,3 +568,121 @@ def test_export_file_bytes_equal(tmp_path):
     with use_mesh(make_mesh(n_rows=1)):
         jback = h2o.import_file(str(tmp_path / "jax.csv"))
     _same_frame(back, jback)
+
+
+# -- the other learners: artifacts both ways and model files ----------------
+
+@pytest.fixture(scope="module")
+def learners():
+    """One small train of each of the eight other learners in both
+    packages (the reference on a one-row-shard mesh, with the port's
+    column statistics)."""
+    from h2o_kubernetes_tpu import models as JM_
+    from h2o_kubernetes_tpu.models.targetencoder import TargetEncoder as JTE
+    from h2o_kubernetes_tpu.runtime.mesh import make_mesh, use_mesh
+    from h2o_kubernetes_tpu_torch import (GLRM, PCA, Aggregator, CoxPH,
+                                          IsolationForest, KMeans,
+                                          NaiveBayes, TargetEncoder)
+    from torch_f64_rollups import f64_rollups
+
+    rng = np.random.default_rng(11)
+    n = 800
+    cols = {f"x{i}": rng.normal(size=n).astype(np.float32)
+            for i in range(3)}
+    cols["x1"][::13] = np.nan
+    cols["c"] = np.array(list("pqr"), dtype=object)[rng.integers(0, 3, n)]
+    cols["y"] = np.where(cols["x0"] + rng.logistic(size=n) > 0, "b", "a")
+    cols["t"] = (np.ceil(rng.weibull(1.5, n) * 50) / 50).astype(np.float32)
+    cols["e"] = (rng.uniform(size=n) < 0.7).astype(np.float32)
+    cols["fold"] = (np.arange(n) % 3).astype(np.float32)
+    unsup = ["y", "t", "e", "fold"]
+    specs = {
+        "naivebayes": (JM_.NaiveBayes, NaiveBayes, {},
+                       {"y": "y", "ignored_columns": ["t", "e", "fold"]}),
+        "pca": (JM_.PCA, PCA, {"k": 2}, {"ignored_columns": unsup}),
+        "kmeans": (JM_.KMeans, KMeans, {"k": 3}, {"ignored_columns": unsup}),
+        "glrm": (JM_.GLRM, GLRM, {"k": 2, "max_iterations": 20},
+                 {"ignored_columns": unsup}),
+        "isolationforest": (JM_.IsolationForest, IsolationForest,
+                            {"ntrees": 3}, {"ignored_columns": unsup}),
+        "coxph": (JM_.CoxPH, CoxPH,
+                  {"stop_column": "t", "event_column": "e"},
+                  {"ignored_columns": ["y", "fold", "x1"]}),
+        "targetencoder": (JTE, TargetEncoder,
+                          {"data_leakage_handling": "k_fold",
+                           "fold_column": "fold", "blending": True},
+                          {"y": "y", "x": ["c"]}),
+        "aggregator": (JM_.Aggregator, Aggregator,
+                       {"target_num_exemplars": 30},
+                       {"ignored_columns": unsup}),
+    }
+    tf = Frame.from_arrays(cols, device="cpu")
+    out = {}
+    with use_mesh(make_mesh(n_rows=1)), f64_rollups():
+        jf = h2o.Frame.from_arrays(cols)
+        for algo, (jcls, tcls, kw, tkw) in specs.items():
+            out[algo] = (jcls(**kw).train(training_frame=jf, **tkw),
+                         tcls(**kw).train(training_frame=tf, **tkw))
+    return out, cols, tf
+
+
+def _scores(m, data):
+    """A port model's scores on a port Frame, or a MojoModel's."""
+    if m.algo == "targetencoder":
+        if isinstance(m, MojoModel):
+            return m.transform(data)["c_te"]
+        return m.transform(data)["c_te"].to_numpy()
+    return m.predict(data) if isinstance(m, MojoModel) \
+        else m.predict_raw(data)
+
+
+@pytest.mark.parametrize("algo", ["naivebayes", "pca", "kmeans", "glrm",
+                                  "isolationforest", "coxph",
+                                  "targetencoder"])
+def test_learner_artifacts_both_ways(learners, algo):
+    """A port artifact scores in the JAX package's ``MojoModel`` and in
+    the port's within 1e-6 (relative past 1) of the port model; a JAX
+    artifact scores in the port's ``MojoModel`` as in the JAX
+    package's."""
+    (jm, tm), cols, tf = learners[0][algo], learners[1], learners[2]
+    jf = h2o.Frame.from_arrays(cols)
+    want = np.asarray(_scores(tm, tf), np.float64)
+    buf = io.BytesIO()
+    export_mojo(tm, buf)
+    jmm = jmojo.MojoModel(io.BytesIO(buf.getvalue()))
+    got_j = jmm.transform(jf)["c_te"] if algo == "targetencoder" \
+        else jmm.predict(jf)
+    got_t = _scores(MojoModel(io.BytesIO(buf.getvalue())), tf)
+    buf2 = io.BytesIO()
+    jmojo.export_mojo(jm, buf2)
+    jmm2 = jmojo.MojoModel(io.BytesIO(buf2.getvalue()))
+    want2 = jmm2.transform(jf)["c_te"] if algo == "targetencoder" \
+        else jmm2.predict(jf)
+    got2 = _scores(MojoModel(io.BytesIO(buf2.getvalue())), tf)
+    for got, ref in ((got_j, want), (got_t, want), (got2, want2)):
+        got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+        assert got.shape == ref.shape
+        ok = ~np.isnan(ref)
+        assert (np.isnan(got) == ~ok).all()
+        assert np.all(np.abs(got[ok] - ref[ok]) <=
+                      1e-6 * np.maximum(np.abs(ref[ok]), 1.0)), algo
+
+
+@pytest.mark.parametrize("algo", ["naivebayes", "pca", "kmeans", "glrm",
+                                  "isolationforest", "coxph",
+                                  "targetencoder", "aggregator"])
+def test_learner_model_files(learners, tmp_path, algo):
+    """``save_model``/``load_model`` keep every learner's scores (the
+    aggregator its exemplar frame) bitwise."""
+    tm, tf = learners[0][algo][1], learners[2]
+    back = load_model(save_model(tm, str(tmp_path / algo)), device="cpu")
+    assert type(back) is type(tm) and back.algo == algo
+    if algo == "aggregator":
+        a, b = tm.aggregated_frame, back.aggregated_frame
+        assert a.names == b.names
+        for n in a.names:
+            np.testing.assert_array_equal(a[n].to_numpy(), b[n].to_numpy())
+        return
+    np.testing.assert_array_equal(_scores(back, tf), _scores(tm, tf))
+    if algo not in ("targetencoder",):
+        assert back.params == tm.params

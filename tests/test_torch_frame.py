@@ -10,8 +10,10 @@ both orders; abs, floor, ceil, sign and sqrt; ``select_rows``,
 and ``asnumeric``; time columns (origin, ``as_float``, ``to_numpy``,
 NaT). Within a stated tolerance: log, exp and ``**`` ≤ 1 ulp, log1p
 ≤ 2 ulp (XLA's CPU backend flushes denormal results to zero, so the
-port's are compared flushed); rollups ≤ 1e-6 relative. The reference's ``select_rows`` runs its
-device gather (``H2O_TPU_DEVICE_GATHER_MIN=0``), the port's only path.
+port's are compared flushed); rollups: min, max and counts equal,
+mean and sigma the float64 two-pass values. The reference's
+``select_rows`` runs its device gather (``H2O_TPU_DEVICE_GATHER_MIN=0``),
+the port's only path.
 """
 
 import os
@@ -25,6 +27,7 @@ import h2o_kubernetes_tpu as h2o
 from h2o_kubernetes_tpu.runtime.mesh import make_mesh, use_mesh
 from h2o_kubernetes_tpu_torch import Frame
 from h2o_kubernetes_tpu_torch.frame import frame as frame_mod
+from torch_f64_rollups import two_pass
 
 DEV = "cpu"
 
@@ -137,18 +140,36 @@ def test_from_arrays_and_time_columns(frames):
         bitwise(tv.as_float().numpy(), np.asarray(jv.as_float())[:len(x)])
 
 
-@pytest.mark.parametrize("col", ["a", "k", "g", "t"])
+@pytest.mark.parametrize("col", ["a", "k", "g", "t", "year"])
 def test_rollups_close(frames, col):
+    """min, max and the counts equal the reference's; mean and sigma are
+    the numpy float64 two-pass values (``tests/torch_f64_rollups.py``),
+    within 1e-12 relative and equal once rounded to float32. ``year``
+    (2,000 rows, mean 1997, sigma 6.3) is where the reference's one
+    float32 pass drifts."""
     tf, jf = frames
+    if col == "year":
+        x = (1997.0 + 6.3 * np.random.default_rng(3).normal(size=2000)
+             ).astype(np.float32)
+        tf = Frame.from_arrays({"year": x}, device=DEV)
+        jf = h2o.Frame.from_arrays({"year": x})
     tr, jr = tf[col].rollups(), jf[col].rollups()
     for key in ("nacnt", "zeros", "rows"):
         assert tr[key] == jr[key], key
-    for key in ("min", "max", "mean", "sigma"):
+    for key in ("min", "max"):
         a, b = tr[key], jr[key]
-        if np.isnan(b) or np.isinf(b):
-            assert (np.isnan(a) and np.isnan(b)) or a == b, (key, a, b)
-        else:
-            assert abs(a - b) <= 1e-6 * max(abs(b), 1.0), (key, a, b)
+        assert (np.isnan(a) and np.isnan(b)) or a == b, (key, a, b)
+    v = tf[col]
+    x = (v.data if v.kind == "time" else v.as_float()).numpy()
+    _, mean, sigma = two_pass(x)
+    mean += v.origin if v.kind == "time" else 0.0
+    for key, want in (("mean", mean), ("sigma", sigma)):
+        got = tr[key]
+        if not np.isfinite(want):       # ±inf in the column
+            assert (np.isnan(got) and np.isnan(want)) or got == want
+            continue
+        assert abs(got - want) <= 1e-12 * max(abs(want), 1.0), (key, got)
+        assert np.float32(got) == np.float32(want), (key, got, want)
 
 
 def test_rollups_of_an_empty_selection(frames):

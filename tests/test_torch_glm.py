@@ -6,9 +6,14 @@ Both packages solve in float32 (the JAX package's Gram is summed over 8
 row shards, the port's on one device), so coefficients agree to f32
 rounding of well-conditioned systems. Held here:
 - ``DataInfo``: the layout (names, numeric columns, enum specs) equal,
-  means and standard deviations within 1e-6 relative, and the expanded
-  matrix BITWISE equal under the same layout, with NAs and unseen
-  levels, ``drop_first`` on and off;
+  the port's means and standard deviations equal to a numpy float64
+  two-pass computation rounded once to float32 (``x3`` is Year-like,
+  mean 1997 and sigma 6.3, where the reference's one float32 pass
+  drifts), and, with the reference given the same statistics
+  (``tests/torch_f64_rollups.py``, for every reference train of this
+  file), its means and standard deviations and the expanded matrix
+  BITWISE equal, with NAs and unseen levels, ``drop_first`` on and
+  off;
 - IRLSM for the seven families (gamma with its inverse and its log
   link): coefficients within 1e-4 of the largest, residual and null
   deviance within 1e-5 relative, the same iteration count;
@@ -50,6 +55,7 @@ from h2o_kubernetes_tpu_torch import GLM, Frame, MojoModel, export_mojo
 from h2o_kubernetes_tpu_torch.models import datainfo as tdi
 from h2o_kubernetes_tpu_torch.models import glm as tglm
 from h2o_kubernetes_tpu_torch.models.base import resolve_xy as tresolve
+from torch_f64_rollups import f64_rollups, two_pass
 
 _MESH1 = make_mesh(n_rows=1)
 _RESP = ("yb", "yg", "yc", "yinv", "ypos", "ym", "w", "off")
@@ -86,6 +92,7 @@ def glm_cols(rows, seed=0):
     rng = np.random.default_rng(seed)
     X = {f"x{i}": rng.normal(size=rows).astype(np.float32)
          for i in range(4)}
+    X["x3"] = (1997.0 + 6.3 * X["x3"]).astype(np.float32)   # Year-like
     X["c1"] = np.array(list("abcd"), dtype=object)[
         rng.integers(0, 4, size=rows)]
     lin = 0.5 * X["x0"] - 0.3 * X["x1"] + 0.2 * (X["c1"] == "b")
@@ -118,7 +125,7 @@ def trained():
     hold["c1"][5:9] = "zz"                      # a level unseen in training
     tf = Frame.from_arrays(cols, device="cpu")
     out = {}
-    with use_mesh(_MESH1):
+    with use_mesh(_MESH1), f64_rollups():
         jf, jh = h2o.Frame.from_arrays(cols), h2o.Frame.from_arrays(hold)
         for name in CASES:
             fam, y, kw, tkw = _args(name)
@@ -150,8 +157,21 @@ def _beta(m):
 
 @pytest.mark.parametrize("drop_first", [True, False])
 def test_datainfo_layout_and_bitwise_expansion(trained, drop_first):
-    with use_mesh(_MESH1):
+    with use_mesh(_MESH1), f64_rollups():
         _datainfo_case(trained, drop_first)
+
+
+def test_reference_float32_rollups_drift_on_the_fixture(trained):
+    """Without the patch the reference's one float32 pass parts from the
+    float64 two-pass sigma of the Year-like column: the fixture shows
+    the drift the like-for-like statistics remove."""
+    cols = trained[1]
+    jsig = h2o.Frame.from_arrays({"x3": cols["x3"]})["x3"].rollups()["sigma"]
+    sig = two_pass(cols["x3"])[2]
+    assert abs(jsig - sig) > 1e-5 * sig, (jsig, sig)
+    tsig = Frame.from_arrays({"x3": cols["x3"]}, device="cpu")["x3"] \
+        .rollups()["sigma"]
+    assert np.float32(tsig) == np.float32(sig)
 
 
 def _datainfo_case(trained, drop_first):
@@ -165,11 +185,15 @@ def _datainfo_case(trained, drop_first):
     assert [tuple(s) for s in ti.enum_specs] == \
         [tuple(s) for s in ji.enum_specs]
     assert (ti.n_expanded, ti.drop_first) == (ji.n_expanded, ji.drop_first)
-    np.testing.assert_allclose(ti.means, ji.means, rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(ti.stds, ji.stds, rtol=1e-6)
-    # the same layout: bitwise, on the training rows and on a holdout
-    # with an unseen level and NAs
-    ti.means, ti.stds = np.asarray(ji.means), np.asarray(ji.stds)
+    # the port's statistics: float64 two-pass, rounded once
+    want = [two_pass(cols[td.feature_names[i]])[1:] for i in ti.numeric_idx]
+    assert ti.means.tobytes() == np.float32([m for m, _ in want]).tobytes()
+    assert ti.stds.tobytes() == np.float32([s for _, s in want]).tobytes()
+    # the reference given the same statistics: equal, and the expansion
+    # bitwise, on the training rows and on a holdout with an unseen
+    # level and NAs
+    assert np.asarray(ji.means).tobytes() == ti.means.tobytes()
+    assert np.asarray(ji.stds).tobytes() == ti.stds.tobytes()
     for frame_cols in (cols, hold):
         X = np.stack([_codes(frame_cols[n]) if n == "c1" else
                       frame_cols[n] for n in jd.feature_names],
@@ -190,7 +214,8 @@ def _datainfo_case(trained, drop_first):
                              drop_first)
     assert [tuple(s) for s in ti2.enum_specs] == \
         [tuple(s) for s in ji2.enum_specs]
-    ti2.means, ti2.stds = np.asarray(ji2.means), np.asarray(ji2.stds)
+    assert (ti2.means.tobytes(), ti2.stds.tobytes()) == \
+        (np.asarray(ji2.means).tobytes(), np.asarray(ji2.stds).tobytes())
     X[:, jd.feature_names.index("c1")] = np.nan
     assert ti2.expand(torch.as_tensor(X)).numpy().tobytes() == \
         np.asarray(ji2.expand(jnp.asarray(X))).tobytes()

@@ -26,12 +26,22 @@ The JAX package's CPU histogram adds a bin's rows one after another in
 float32; the port's plain version sums them in float64 and rounds each
 cell once (``ops/histogram.histogram_plain``, held to float64 sums in
 tests/test_torch_histogram.py). The limits above hold the port's own
-train. Two more tests hold the same limits on a port train fed the
-reference's accumulation (``_f32_running_histogram``, the plain
-version's float32 twin), which isolates the grower, split finder,
-leaves and boosting loop from the histogram sums.
+train against a like-for-like reference: the JAX train with its CPU
+histogram (``ops/histogram._hist_segment``) replaced, in this process
+only, by float64 sums rounded once per cell (``_f64_segment``, a
+``jax.pure_callback``). Two more tests hold the same limits on a port
+train fed the reference's float32 accumulation
+(``_f32_running_histogram``, the plain version's float32 twin) against
+the unpatched reference, which isolates the grower, split finder,
+leaves and boosting loop from the histogram sums. Round 0's class
+priors and every round's softmax gradients follow XLA's CPU ``log`` and
+``exp`` bit for bit (``runtime/prng.xla_log``, ``xla_softmax``): a
+node whose rows all carry one gradient splits on f32 noise alone, so
+one ulp of a prior moves its split.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -78,25 +88,67 @@ def _f32_running_histogram(binned, rel, vals, n_nodes, n_bins):
         .contiguous()
 
 
+def _f64_segment(binned, rel, vals, n_nodes, n_bins):
+    """The reference's ``_hist_segment`` ([r, F] bins, [r] rel, [r, C]
+    vals -> [n_nodes, F, B, C]) with float64 sums rounded once per cell,
+    on the host through ``jax.pure_callback``."""
+    F, C = binned.shape[1], vals.shape[1]
+
+    def host(b, rl, v):
+        b, v = np.asarray(b).astype(np.int64), np.asarray(v, np.float64)
+        seg_node = np.where(np.asarray(rl) >= 0, rl, n_nodes) \
+            .astype(np.int64)
+        out = np.empty((n_nodes, F, n_bins, C), dtype=np.float32)
+        for f in range(F):
+            seg = seg_node * n_bins + b[:, f]
+            for c in range(C):
+                acc = np.bincount(seg, weights=v[:, c],
+                                  minlength=(n_nodes + 1) * n_bins)
+                out[:, f, :, c] = acc[: n_nodes * n_bins].reshape(
+                    n_nodes, n_bins)
+        return out
+
+    return jax.pure_callback(
+        host, jax.ShapeDtypeStruct((n_nodes, F, n_bins, C), jnp.float32),
+        binned, rel, vals, vmap_method="sequential")
+
+
+def _reference(cols, f64: bool):
+    """The JAX train on a one-row-shard mesh; ``f64``: with float64
+    histogram sums (``_f64_segment``), traced afresh."""
+    from h2o_kubernetes_tpu.ops import histogram as jhist
+
+    with pytest.MonkeyPatch.context() as mp:
+        if f64:
+            mp.setattr(jhist, "_hist_segment", _f64_segment)
+            jax.clear_caches()
+        with use_mesh(make_mesh(n_rows=1)):
+            jm = JGBM(**_KW).train(y="y",
+                                   training_frame=h2o.Frame.from_arrays(cols))
+    if f64:
+        jax.clear_caches()
+    return jm
+
+
 @pytest.fixture(scope="module")
 def trained():
+    """(the float64-summed reference, the port's own train, their walk,
+    the columns, a holdout, the unpatched float32 reference)."""
     cols = multinomial_cols(4096)
-    with use_mesh(make_mesh(n_rows=1)):
-        jm = JGBM(**_KW).train(y="y", training_frame=h2o.Frame.from_arrays(
-            cols))
+    jm32, jm = _reference(cols, False), _reference(cols, True)
     tf = Frame.from_arrays(cols, device="cpu")
     tm = GBM(**_KW).train(y="y", training_frame=tf)
     hold = multinomial_cols(1000, seed=9)
-    return jm, tm, _walk(tm, jm, *_round_grads(tm, tf)), cols, hold
+    return jm, tm, _walk(tm, jm, *_round_grads(tm, tf)), cols, hold, jm32
 
 
 @pytest.fixture(scope="module")
 def trained_f32(trained):
     """The port trained on the reference's float32 accumulation, and its
-    walk against the reference."""
+    walk against the unpatched reference."""
     from h2o_kubernetes_tpu_torch.ops import histogram as hist_op
 
-    jm, _, _, cols, _ = trained
+    _, _, _, cols, _, jm = trained
     tf = Frame.from_arrays(cols, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(hist_op, "histogram_plain", _f32_running_histogram)
@@ -193,7 +245,7 @@ def _assert_structure(jm, tm, walk):
 def test_split_structure_equal(trained):
     """Every split equal, or a tie at f32 resolution (see _walk); the
     ties are few and the compared leaves agree within 1e-5."""
-    jm, tm, walk, _, _ = trained
+    jm, tm, walk = trained[:3]
     _assert_structure(jm, tm, walk)
 
 
@@ -201,12 +253,12 @@ def test_split_structure_equal_on_the_reference_accumulation(trained,
                                                              trained_f32):
     """The same limits on the train fed the reference's float32
     histogram sums."""
-    jm = trained[0]
+    jm = trained[5]
     _assert_structure(jm, *trained_f32)
 
 
 def test_train_logloss_and_priors_close(trained):
-    jm, tm, _, _, _ = trained
+    jm, tm = trained[:2]
     # log of the class shares: 1 ulp apart at most
     np.testing.assert_allclose(tm.init_score, np.asarray(jm.init_score),
                                rtol=2 ** -23, atol=0)
@@ -218,7 +270,7 @@ def test_train_logloss_and_priors_close(trained):
 def test_probabilities_and_model_performance_close(trained):
     """Probabilities within 1e-5 on every row no tie routed differently;
     the holdout metrics (the same keys) within 1e-5."""
-    jm, tm, walk, cols, hold = trained
+    jm, tm, walk, cols, hold = trained[:5]
     _assert_probabilities(jm, tm, walk, cols, hold)
 
 
@@ -226,7 +278,7 @@ def test_probabilities_close_on_the_reference_accumulation(trained,
                                                            trained_f32):
     """The same limits on the train fed the reference's float32
     histogram sums."""
-    jm, _, _, cols, hold = trained
+    _, _, _, cols, hold, jm = trained
     tm, walk = trained_f32
     _assert_probabilities(jm, tm, walk, cols, hold)
 
@@ -255,7 +307,7 @@ def test_carried_across_model_scores_bitwise(trained):
     """A JAX-trained 4-class GBM, handed over as numpy arrays (trees
     interleaved class-fastest, [K] class priors), flattens to the same
     serving arrays and scores through flat_margin bitwise."""
-    jm, _, _, cols, _ = trained
+    jm, _, _, cols = trained[:4]
     spec = jm.bin_spec
     pm = gbm_model_from_arrays(
         {f: np.asarray(getattr(jm.trees, f)) for f in jcore.Tree._fields},

@@ -3,7 +3,11 @@ is BITWISE equal to ``jax.random`` (threefry2x32, partitionable) — the
 raw key words, split, fold_in, uniform (with and without a range),
 bernoulli, normal (through XLA's float32 erf_inv and log1p), and the
 bin-edge row sample ``randint(key(0x51BB), (65536,), 0, n)`` — and draws
-are prefix-stable, so grouping forest trees cannot change their keys."""
+are prefix-stable, so grouping forest trees cannot change their keys.
+Beside the draws, XLA's CPU float32 ``log``, ``exp``, ``softmax`` and
+``cumsum`` twins (``prng.xla_log``/``xla_exp``/``xla_softmax``,
+``models/tree/core.cumsum_xla``) are held BITWISE to the jitted JAX
+functions (torch's own differ in the last bit)."""
 
 import jax
 import numpy as np
@@ -125,6 +129,52 @@ def test_log1p_and_erf_inv_bitwise_on_a_sweep():
     u = np.linspace(-0.9999999, 0.9999999, 400_001, dtype=np.float32)
     want = np.asarray(jax.jit(jax.lax.erf_inv)(u))
     got = prng._erf_inv(torch.as_tensor(u)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("fn", ["log", "exp", "softmax"])
+def test_xla_log_exp_softmax_bitwise(fn):
+    """XLA's CPU float32 log (Cephes polynomial), exp (its fused
+    multiply-adds, denormal results flushed) and jax.nn.softmax over 3,
+    4 and 7 classes, bitwise to the jitted ops on dense sweeps; torch's
+    own log and exp differ on some of them."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(5)
+    if fn == "softmax":
+        for K in (3, 4, 7):
+            m = (3 * rng.normal(size=(100_000, K))).astype(np.float32)
+            want = np.asarray(jax.jit(lambda v: jax.nn.softmax(v, axis=1))(
+                m))
+            got = prng.xla_softmax(torch.as_tensor(m)).numpy()
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))
+        return
+    x = np.concatenate([
+        np.linspace(1e-6, 10.0, 200_001, dtype=np.float32),
+        np.linspace(-90.0, 90.0, 200_001, dtype=np.float32)])
+    if fn == "log":
+        x = np.abs(x) + np.float32(1e-30)
+    jfn, tfn, plain = {"log": (jnp.log, prng.xla_log, torch.log),
+                       "exp": (jnp.exp, prng.xla_exp, torch.exp)}[fn]
+    want = np.asarray(jax.jit(jfn)(x))
+    got = tfn(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (plain(torch.as_tensor(x)).numpy() != want).any()
+
+
+@pytest.mark.parametrize("n", [5, 16, 17, 63, 255, 256, 1023])
+def test_cumsum_xla_bitwise(n):
+    """``jnp.cumsum`` along a histogram's bin axis as XLA's CPU backend
+    computes it (a reduce-window cut into blocks of 16)."""
+    import jax.numpy as jnp
+
+    from h2o_kubernetes_tpu_torch.models.tree.core import cumsum_xla
+
+    x = np.random.default_rng(n).normal(size=(3, 4, n, 3)).astype(
+        np.float32)
+    want = np.asarray(jax.jit(lambda v: jnp.cumsum(v, axis=2))(x))
+    got = cumsum_xla(torch.as_tensor(x), 2).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 

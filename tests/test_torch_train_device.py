@@ -327,3 +327,30 @@ def test_cross_validation_and_automl_on_the_card():
     assert set(rows[0]) == set(rows[1]) and len(rows[0]) == 4
     glm = "GLM_1_AutoML_automl"
     assert abs(rows[0][glm] - rows[1][glm]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kmeans", "pca", "glrm", "naivebayes",
+                                  "isolationforest", "coxph", "aggregator",
+                                  "targetencoder"])
+def test_other_learners_train_on_the_card(name):
+    """Each of the eight other learners trained on the card against the
+    same train on the CPU at 20,000 rows of chip_smoke.py phase 28's
+    tables, at the parity tests' tolerances (``tools/torch_learners.
+    compare``: k-means seeding and the trees of an isolation forest
+    bitwise, GLRM's initial factors bitwise, PCA's eigenvalues within
+    1e-5, ...), and the card model's artifact in ``MojoModel`` within
+    1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tools import torch_learners as L
+
+    tables = L.arrays(20_000)
+    fc, fh = L.frames(tables, "cuda"), L.frames(tables, "cpu")
+    (mc, tc), (mh, th) = L.train(name, fc), L.train(name, fh)
+    if hasattr(mc, "device"):
+        assert mc.device.type == "cuda"
+    res = L.compare(name, mc, mh, fc, fh, tc, th)
+    assert res["ok"], res
+    if name != "aggregator":
+        assert L.artifact_gap(name, mc, fc, 5000) <= 1e-6

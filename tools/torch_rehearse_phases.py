@@ -1,6 +1,6 @@
-"""Rehearse chip_smoke.py's phases 18-27 (xgboost, lambdarank, glm,
-efb, goss, ooc, deeplearning, word2vec, frame, automl) on the CPU, without a
-card, at small sizes: the entry
+"""Rehearse chip_smoke.py's phases 18-28 (xgboost, lambdarank, glm,
+efb, goss, ooc, deeplearning, word2vec, frame, automl, learners) on the
+CPU, without a card, at small sizes: the entry
 points' default device resolves to
 the CPU, the histogram and TreeSHAP kernels are replaced by counting
 fakes over their plain versions (the histogram fake sums in float64 and
@@ -16,6 +16,7 @@ are the CPU's and say nothing of the card.
         [--dl-rows 70000] [--w2v-tokens 50000] [--text8-tokens 300000]
         [--frame-rows 100000]
         [--aml-wall-rows 20000 --aml-rows 30000 --aml-parity-rows 1500]
+        [--learner-rows 200000 --learner-parity-rows 20000]
 
 With ``--card`` it installs no fakes and runs the phases on the card at
 the given sizes (kernels built on first use): a short check of new
@@ -36,6 +37,9 @@ the ``--aml-*`` rows (below 196,608 config #5's holdouts are too small
 for the AUC's histogram path, and its hold is left out); its CPU leg
 (the whole default plan on the CPU, in a process of its own) starts
 first and takes ~4-8 min at any row count (the depth-12 forests).
+``--phases learners`` trains the eight other learners at
+``--learner-rows`` (first and warm trains, artifacts) and card against
+CPU at ``--learner-parity-rows`` (both the CPU here).
 """
 
 from __future__ import annotations
@@ -124,6 +128,8 @@ def main() -> int:
     ap.add_argument("--aml-wall-rows", type=int, default=20_000)
     ap.add_argument("--aml-rows", type=int, default=30_000)
     ap.add_argument("--aml-parity-rows", type=int, default=1_500)
+    ap.add_argument("--learner-rows", type=int, default=200_000)
+    ap.add_argument("--learner-parity-rows", type=int, default=20_000)
     ap.add_argument("--efb-hist-budget", type=int, default=None,
                     help="H2O_TPU_HIST_BYTES_BUDGET for the efb phase, so "
                          "that a small unbundled frame goes out of core "
@@ -151,6 +157,9 @@ def main() -> int:
     cs._FRAME_ROWS = args.frame_rows
     cs._AML_WALL_ROWS, cs._AML_ROWS = args.aml_wall_rows, args.aml_rows
     cs._AML_PARITY_ROWS = args.aml_parity_rows
+    cs._LEARNER_ROWS = args.learner_rows
+    cs._LEARNER_PARITY_ROWS = args.learner_parity_rows
+    cs._LEARNER_MOJO_ROWS = min(cs._LEARNER_MOJO_ROWS, args.learner_rows)
     if not args.card:
         cs._upload_gbs = lambda torch, nbytes: {"pinned": 0.0,
                                                 "pageable": 0.0}
