@@ -41,7 +41,7 @@ import torch
 
 from ..config import default_nbins, hist_bytes_budget
 from ..operator.registry import FlatTreeScorer
-from ..runtime import prng
+from ..runtime import prng, xla_math
 from .base import TrainData, resolve_xy
 from .tree import efb as efb_mod
 from .tree.binning import BinSpec, fit_bins, fused_fit_bins
@@ -222,9 +222,10 @@ def _init_margin(y, w, off, dist: str, K: int):
         cls = torch.where(w > 0, y, K).long()
         cls_w = torch.zeros(K + 1, dtype=w.dtype, device=w.device
                             ).index_add_(0, cls, w)[:K]
-        # XLA's CPU log: the priors' last bit decides f32 near-ties of
-        # round 0's zero-information nodes (every row one gradient)
-        init = prng.xla_log(torch.clamp(cls_w / w_sum, min=1e-8))
+        # XLA's CPU log on the CPU: the priors' last bit decides f32
+        # near-ties of round 0's zero-information nodes (every row one
+        # gradient)
+        init = xla_math.cpu_log(torch.clamp(cls_w / w_sum, min=1e-8))
         return init, init[None, :].expand(y.shape[0], K)
     if dist == "bernoulli":
         p1 = torch.clamp(torch.sum(y * w) / w_sum, 1e-6, 1 - 1e-6)

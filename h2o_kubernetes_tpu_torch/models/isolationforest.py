@@ -15,7 +15,7 @@ made for every tree and level at once before the trees grow
 (``tree_draws``: a level's draws are the prefix of the deepest level's
 shape, as threefry counters are), and the threshold
 ``fmin + u·(fmax − fmin)`` is XLA's fused multiply-add
-(``prng._fma``), so every tree equals the reference's bit for bit. Row
+(``xla_math.fma``), so every tree equals the reference's bit for bit. Row
 sampling is numpy ``default_rng(seed).choice``, as in the reference.
 """
 
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..frame import Frame
-from ..runtime import prng
+from ..runtime import prng, xla_math
 from .base import LearnerModel, TrainData, resolve_x
 from .datainfo import design
 
@@ -54,9 +54,9 @@ class IsoTree(NamedTuple):
 
 def avg_path(n: torch.Tensor) -> torch.Tensor:
     """c(n): the average unsuccessful-search path length of a BST, with
-    XLA's CPU log (``prng.xla_log``: the same bits on every device)."""
+    XLA's CPU log (``xla_math.log``: the same bits on every device)."""
     n = torch.clamp(n, min=2.0)
-    return 2.0 * (prng.xla_log(n - 1.0) + 0.5772156649) \
+    return 2.0 * (xla_math.log(n - 1.0) + 0.5772156649) \
         - 2.0 * (n - 1.0) / n
 
 
@@ -106,7 +106,7 @@ def grow_tree(Xs: torch.Tensor, r_all: torch.Tensor, u_all: torch.Tensor,
         u = u_all[d, :n_nodes]
         fmin = vmin.gather(1, feat[:, None])[:, 0]
         fmax = vmax.gather(1, feat[:, None])[:, 0]
-        val = prng._fma(u, fmax - fmin, fmin)     # XLA fuses this
+        val = xla_math.fma(u, fmax - fmin, fmin)     # XLA fuses this
         can = spread_ok.any(dim=1) & (cnt > 1.0)
         if d == max_depth:
             can = torch.zeros_like(can)

@@ -58,7 +58,7 @@ import torch
 
 from ...config import hist_bytes_budget
 from ...ops.histogram import build_histogram, expand_unit_hess
-from ...runtime import prng
+from ...runtime import prng, xla_math
 from ...runtime.quantile import nanquantile
 
 __all__ = ["TreeParams", "Tree", "BoostParams", "grow_tree",
@@ -132,52 +132,6 @@ def _split_gains(left, tot4, p: TreeParams):
     return torch.where(ok, raw, float("-inf"))
 
 
-def cumsum_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``jnp.cumsum(x, axis=dim)`` of float32 values as XLA's CPU
-    backend computes it, bit for bit: its reduce-window rewrite cuts the
-    axis into blocks of 16 (zero-padded), scans each block left to
-    right, scans the block totals the same way (recursively) and adds
-    each block's exclusive prefix. Split gains on plateaus are tied at
-    f32 resolution, so the order of these sums decides splits. The
-    blocks are scanned in place, one vectorized add per position."""
-    dim %= x.dim()
-    n = x.shape[dim]
-    if n <= 16:
-        y = x.clone()
-        for k in range(1, n):
-            y.select(dim, k).add_(y.select(dim, k - 1))
-        return y
-    nb = -(-n // 16)
-    shape = list(x.shape)
-    pad = [0, 0] * (x.dim() - 1 - dim) + [0, nb * 16 - n]
-    blocks = torch.nn.functional.pad(x, pad).reshape(
-        shape[:dim] + [nb, 16] + shape[dim + 1:])
-    for k in range(1, 16):
-        blocks.select(dim + 1, k).add_(blocks.select(dim + 1, k - 1))
-    tot = cumsum_xla(blocks.select(dim + 1, 15), dim)   # [..., nb, ...]
-    blocks.narrow(dim, 1, nb - 1).add_(
-        tot.narrow(dim, 0, nb - 1).unsqueeze(dim + 1))
-    return blocks.reshape(shape[:dim] + [nb * 16] + shape[dim + 1:]) \
-        .narrow(dim, 0, n)
-
-
-# the largest level histogram (cells) the CPU scans in XLA's order
-_XLA_SCAN_CELLS = 1 << 24
-
-
-def _bin_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The split finder's prefix sums over bins. On the CPU, up to
-    ``_XLA_SCAN_CELLS`` cells, XLA's CPU order (``cumsum_xla``), so a CPU
-    train takes the JAX package's decisions at f32 ties; past it (a deep
-    forest's last levels) one scan, as the blocked order's extra passes
-    over the histogram would slow those levels by ~20%. On the card one
-    scan (the blocked order would add ~35 launches to every level of a
-    host-bound train)."""
-    if x.device.type == "cpu" and x.numel() <= _XLA_SCAN_CELLS:
-        return cumsum_xla(x, dim)
-    return torch.cumsum(x, dim)
-
-
 def _find_splits(hist, p: TreeParams, feat_ok=None, efb=None):
     """Best split per node from a [n_nodes, F, B, 3] histogram (with
     ``efb``, a bundled [n_nodes, Fb, B, 3] one: ``_find_splits_efb``).
@@ -193,7 +147,8 @@ def _find_splits(hist, p: TreeParams, feat_ok=None, efb=None):
         return _find_splits_efb(hist, p, efb, feat_ok)
     nb = hist.shape[2]
     na = hist[:, :, nb - 1, :]                          # [n, F, 3]
-    cum = _bin_cumsum(hist[:, :, : nb - 1, :], 2)      # left, NA excluded
+    # XLA's CPU order on the CPU: f32 plateau ties follow it
+    cum = xla_math.cpu_cumsum(hist[:, :, : nb - 1, :], 2)  # left, NA excl.
     totn = (cum[:, :, -1, :] + na)[:, 0:1, :]           # [n, 1, 3]
     tot4 = totn[:, :, None, :]                          # [n, 1, 1, 3]
     cum_na = cum + na[:, :, None, :]
@@ -243,7 +198,7 @@ def _find_splits_efb(hist, p: TreeParams, efb, feat_ok):
     body_mask = (efb.slot_feat >= 0) & (efb.slot_bin < nb - 1)  # [Fb, nb]
     bm = body_mask.to(hist.dtype)
     body = hist[:, :, :S, :] * bm[None, :, :S, None]
-    cum = _bin_cumsum(body, 2)                           # [n, Fb, S, 3]
+    cum = xla_math.cpu_cumsum(body, 2)                   # [n, Fb, S, 3]
     # node totals from column 0: its body cumsum tail plus its non-body
     # mass (the default slot and the members' NA slots; for a
     # passthrough column only its NA bin)
@@ -614,7 +569,7 @@ def goss_threshold(counts, total, a: float):
     the top ``a`` of the rows in expectation, whatever the ties. XLA
     contracts the JAX package's ``a * total - above`` into one fused
     multiply-add, ``fma(a, total, -above)``, rounded once
-    (``prng._fma``)."""
+    (``xla_math.fma``)."""
     suffix = torch.cumsum(counts.flip(0), 0).flip(0).to(torch.float32)
     a32 = torch.tensor(np.float32(a), device=counts.device)
     total = total.to(torch.float32)
@@ -622,7 +577,7 @@ def goss_threshold(counts, total, a: float):
                     0, _GOSS_BINS - 1)
     cnt_T = counts[T.long()].to(torch.float32)
     above = suffix[T.long()] - cnt_T
-    num = prng._fma(a32, total, -above)
+    num = xla_math.fma(a32, total, -above)
     frac = torch.clamp(num / torch.clamp(cnt_T, min=1.0), 0.0, 1.0)
     return T, frac
 
@@ -742,9 +697,9 @@ def boost_trees_multi(binned, y, w, margin, n_trees: int, K: int,
         if bp.drf_mode:
             g, h = -yk, torch.ones_like(yk)
         else:
-            # XLA's CPU softmax, bitwise: its last bits decide f32
+            # XLA's CPU softmax on the CPU: its last bits decide f32
             # near-ties
-            probs = prng.xla_softmax(margin).T                 # [K, rows]
+            probs = xla_math.cpu_softmax(margin).T             # [K, rows]
             g, h = probs - yk, probs * (1.0 - probs)
         bG, wG = binned, w_t
         if goss:

@@ -25,16 +25,9 @@ the same bits:
   ``[nextafter(-1, 0), 1)``, through XLA's float32 ``erf_inv`` (Giles'
   polynomial) and its ``log1p`` (a Cephes rational for small
   arguments, else its own ``log`` polynomial), transcribed operation
-  by operation with the same fused multiply-adds;
+  by operation with the same fused multiply-adds (``xla_math``);
 - ``randint(key, shape, lo, hi)``: two 32-bit draws per value combined
   by the multiply-mod of ``jax.random.randint`` (int32 sampling).
-
-Beside the draws, XLA's CPU float32 ``log``, ``exp`` and
-``jax.nn.softmax`` (``xla_log``, ``xla_exp``, ``xla_softmax``: Cephes
-polynomials with XLA's fused multiply-adds, read from its optimized IR
-and object code; 1 ulp from torch's in 14% and 1% of arguments), for
-the trains whose f32 near-ties follow those last bits (multinomial
-GBM's class priors and softmax gradients).
 
 Keys are explicit int64 tensors of shape [..., 2] holding uint32 words;
 there is no global state. A leading batch of keys ([T, 2]) draws T
@@ -52,9 +45,10 @@ import math
 import numpy as np
 import torch
 
+from . import xla_math
+
 __all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint",
-           "bernoulli", "normal", "threefry2x32", "xla_log", "xla_exp",
-           "xla_softmax"]
+           "bernoulli", "normal", "threefry2x32"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -132,26 +126,6 @@ def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
     return (y0 ^ y1).reshape(k.shape[:-1] + shape)
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 ``a·b + c`` rounded once, as a fused multiply-add (XLA's
-    CPU backend contracts a multiply feeding one add into an FMA). The
-    product of two float32 values is exact in float64; the float64 sum
-    is made round-to-odd (its exact error, from TwoSum, moves an inexact
-    sum with an even last bit one ulp toward the exact value), and a
-    round-to-odd float64 rounds to float32 as the exact value would,
-    since float64 carries more than float32's 24 bits + 2. A plain
-    float64 sum would round twice: wrong where it lands on a float32
-    halfway point the exact value is not on."""
-    p = a.double() * b
-    s = p + c
-    bb = s - p
-    e = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.copysign(torch.full_like(s, math.inf), e)
-    fix = even & (e != 0) & torch.isfinite(e)
-    return torch.where(fix, torch.nextafter(s, toward), s).float()
-
-
 def uniform(k: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """[..., 2] key -> [..., *shape] float32 in [minval, maxval)
@@ -163,7 +137,7 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0,
         return f                        # f·1 + 0 and max(0, f) are f
     lo = float(np.float32(minval))
     span = float(np.float32(np.float32(maxval) - np.float32(lo)))
-    return torch.clamp_min(_fma(f, span, lo), lo)
+    return torch.clamp_min(xla_math.fma(f, span, lo), lo)
 
 
 def bernoulli(k: torch.Tensor, p: float, shape) -> torch.Tensor:
@@ -172,125 +146,12 @@ def bernoulli(k: torch.Tensor, p: float, shape) -> torch.Tensor:
     return uniform(k, shape) < float(np.float32(p))
 
 
-# XLA's float32 log1p on the CPU: |x| < 0.41421357 takes the Cephes
-# rational x - x²/2 + x³·P(x)/Q(x); otherwise log(1 + x) through the
-# Cephes logf polynomial on the mantissa in [sqrt(1/2), sqrt(2))
-_LOG1P_P = (4.527e-05, 0.49854103, 6.5787325, 29.911919, 60.94967,
-            57.112965, 20.039553)
-_LOG1P_Q = (1.0, 15.062909, 83.04757, 221.7624, 309.09872, 216.42789,
-            60.11866)
-_LOGF_A = ((0.070376836, -0.1151461, 0.116769984),
-           (-0.12420141, 0.14249323, -0.16668057),
-           (0.20000714, -0.24999994, 0.3333333))
-# Giles' erf_inv polynomial, w < 5 and w >= 5 (XLA's ErfInv32)
-_ERFINV_LT = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
-              -4.39150654e-06, 0.00021858087, -0.00125372503,
-              -0.00417768164, 0.246640727, 1.50140941)
-_ERFINV_GE = (-0.000200214257, 0.000100950558, 0.00134934322,
-              -0.00367342844, 0.00573950773, -0.0076224613,
-              0.00943887047, 1.00167406, 2.83297682)
-
-
-def _sqrt(a: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 sqrt (float64 carries more than twice
-    float32's precision, so its rounding to float32 is exact; torch's
-    float32 CPU sqrt is not always correctly rounded)."""
-    return torch.sqrt(a.double()).float()
-
-
-def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 ``a / b`` (as ``_sqrt``)."""
-    return (a.double() / b.double()).float()
-
-
-def _c(v: float) -> float:
-    """A constant as the float32 XLA holds it."""
-    return float(np.float32(v))
-
-
-def xla_log(v: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``log`` for v > 0: the Cephes logf polynomial
-    on the mantissa in [sqrt(1/2), sqrt(2)), operation by operation."""
-    bits = torch.clamp_min(v, _c(1.1754944e-38)).view(torch.int32)
-    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
-    ef = ((bits >> 23) - 127).float() + 1.0
-    low = m < _c(0.70710677)
-    t = (m - 1.0) + torch.where(low, m, 0.0)
-    ef = ef - low.float()
-    z = t * t
-    x3 = z * t
-    p = [_fma(_fma(t, _c(a), _c(b)), t, _c(c)) for a, b, c in _LOGF_A]
-    q = _fma(_fma(p[0], x3, p[1]), x3, p[2])
-    y = _fma(q, x3, ef * _c(-0.00021219444))
-    return _fma(ef, 0.693359375, (t - z * 0.5) + y)
-
-
-# XLA's float32 exp on the CPU: x clamped to [-87.8, 88.8], m =
-# floor(x·log2(e) + 1/2) clamped to ±127, r = x − m·ln2 in two parts,
-# 1 + r + r²·P(r), times 2^m built from the exponent bits; denormal
-# results flushed to zero
-_EXP_P = (0.00019875691, 0.0013981999, 0.008333452, 0.041665796,
-          0.16666666, 0.5)
-
-
-def xla_exp(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``exp``, operation by operation."""
-    x = torch.clamp(x, _c(-87.8), _c(88.8))
-    m = torch.floor(_fma(x, _c(1.442695), 0.5)).clamp(-127.0, 127.0)
-    r = _fma(m, -0.693359375, x)
-    r = _fma(m, _c(2.1219444e-4), r)
-    y = _fma(r, _c(_EXP_P[0]), _c(_EXP_P[1]))
-    for c in _EXP_P[2:]:
-        y = _fma(y, r, _c(c))
-    y = 1.0 + _fma(y, r * r, r)
-    out = y * ((m.to(torch.int32) + 127) << 23).view(torch.float32)
-    return torch.where(out < _c(1.1754944e-38), 0.0, out)
-
-
-def xla_softmax(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax(x, axis=1)`` of a [rows, K] float32 tensor as
-    XLA's CPU backend computes it: ``xla_exp(x − max)`` over the class
-    sum taken left to right."""
-    e = xla_exp(x - x.max(dim=1, keepdim=True).values)
-    s = e[:, 0]
-    for k in range(1, e.shape[1]):
-        s = s + e[:, k]
-    return e / s[:, None]
-
-
-def _log1p(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``log1p`` for x > -1, operation by operation."""
-    x2 = x * x
-    num = torch.full_like(x, _c(_LOG1P_P[0]))
-    den = torch.ones_like(x)
-    for a, b in zip(_LOG1P_P[1:], _LOG1P_Q[1:]):
-        num = _fma(num, x, _c(a))
-        den = _fma(den, x, _c(b))
-    small = x + _fma(x2, -0.5, (x * x2) * _div(num, den))
-    return torch.where(torch.abs(x) < _c(0.41421357), small,
-                       xla_log(x + 1.0))
-
-
-def _erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``erf_inv`` (Giles), every multiply-add fused."""
-    w = -_log1p(-(x * x))
-    lt = w < 5.0
-    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
-    lt_c = torch.tensor(_ERFINV_LT, dtype=torch.float32, device=x.device)
-    ge_c = torch.tensor(_ERFINV_GE, dtype=torch.float32, device=x.device)
-    coef = torch.where(lt[..., None], lt_c, ge_c)
-    p = coef[..., 0]
-    for i in range(1, len(_ERFINV_LT)):
-        p = _fma(p, w, coef[..., i].double())
-    return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
-
-
 def normal(k: torch.Tensor, shape) -> torch.Tensor:
     """[..., 2] key -> [..., *shape] float32 standard normals
     (``jax.random.normal``)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(k, shape, lo, 1.0)
-    return _erf_inv(u) * _c(np.sqrt(2.0))
+    return xla_math.erf_inv(u) * float(np.float32(np.sqrt(2.0)))
 
 
 def randint(k: torch.Tensor, shape, lo: int, hi: int) -> torch.Tensor:

@@ -9,14 +9,14 @@ hw`` in float32 — and then contracts ``lo·lw + hi·hw`` into one fused
 multiply-add. Which product it fuses depends on the program around it,
 read from each program's object code: huber's δ and ``Frame.quantile``
 compile to ``fma(hi, hw, lo·lw)``, the binning program to ``fma(lo, lw,
-hi·hw)``. The fused step goes through ``prng._fma``, which rounds once.
+hi·hw)``. The fused step goes through ``xla_math.fma``, which rounds once.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .prng import _fma
+from .xla_math import fma
 
 __all__ = ["nanquantile", "lerp"]
 
@@ -26,9 +26,9 @@ def lerp(lo, hi, lw, hw, fused: str) -> torch.Tensor:
     ``fma(hi, hw, lo·lw)``, ``"lo"`` is ``fma(lo, lw, hi·hw)``; the
     unfused product rounds to float32 first, the fused step once."""
     if fused == "hi":
-        return _fma(hi, hw, lo * lw)
+        return fma(hi, hw, lo * lw)
     if fused == "lo":
-        return _fma(lo, lw, hi * hw)
+        return fma(lo, lw, hi * hw)
     raise ValueError(f"fused must be 'hi' or 'lo', got {fused!r}")
 
 

@@ -47,7 +47,8 @@ def test_imports_without_jax():
         "models.glm", "models.datainfo", "models.tree.efb",
         "models.tree.ooc", "models.deeplearning",
         "models.word2vec", "frame.parse", "frame.munge",
-        "runtime.quantile", "diagnostics", "runtime.faults",
+        "runtime.quantile", "runtime.xla_math", "diagnostics",
+        "runtime.faults",
         "runtime.scheduler", "models.cv", "models.stackedensemble",
         "automl", "grid", "estimators", "models.targetencoder",
         "models.naivebayes", "models.pca", "models.kmeans", "models.glrm",

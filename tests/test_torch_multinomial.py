@@ -35,7 +35,8 @@ train fed the reference's float32 accumulation
 the unpatched reference, which isolates the grower, split finder,
 leaves and boosting loop from the histogram sums. Round 0's class
 priors and every round's softmax gradients follow XLA's CPU ``log`` and
-``exp`` bit for bit (``runtime/prng.xla_log``, ``xla_softmax``): a
+``exp`` bit for bit on the CPU (``runtime/xla_math.cpu_log``,
+``cpu_softmax``): a
 node whose rows all carry one gradient splits on f32 noise alone, so
 one ulp of a prior moves its split.
 """

@@ -4,17 +4,17 @@ raw key words, split, fold_in, uniform (with and without a range),
 bernoulli, normal (through XLA's float32 erf_inv and log1p), and the
 bin-edge row sample ``randint(key(0x51BB), (65536,), 0, n)`` — and draws
 are prefix-stable, so grouping forest trees cannot change their keys.
-Beside the draws, XLA's CPU float32 ``log``, ``exp``, ``softmax`` and
-``cumsum`` twins (``prng.xla_log``/``xla_exp``/``xla_softmax``,
-``models/tree/core.cumsum_xla``) are held BITWISE to the jitted JAX
-functions (torch's own differ in the last bit)."""
+Beside the draws, XLA's CPU float32 arithmetic that they and the
+trains use (``runtime/xla_math.py``: ``fma``, ``log1p``, ``erf_inv``,
+``log``, ``exp``, ``softmax``, ``cumsum``) is held BITWISE to the jitted
+JAX functions (torch's own differ in the last bit)."""
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from h2o_kubernetes_tpu_torch.runtime import prng
+from h2o_kubernetes_tpu_torch.runtime import prng, xla_math
 
 
 def _raw(k):
@@ -124,11 +124,11 @@ def test_log1p_and_erf_inv_bitwise_on_a_sweep():
 
     x = np.linspace(-0.999999, 3.0, 400_001, dtype=np.float32)
     want = np.asarray(jax.jit(jnp.log1p)(x))
-    got = prng._log1p(torch.as_tensor(x)).numpy()
+    got = xla_math.log1p(torch.as_tensor(x)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     u = np.linspace(-0.9999999, 0.9999999, 400_001, dtype=np.float32)
     want = np.asarray(jax.jit(jax.lax.erf_inv)(u))
-    got = prng._erf_inv(torch.as_tensor(u)).numpy()
+    got = xla_math.erf_inv(torch.as_tensor(u)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
@@ -146,7 +146,7 @@ def test_xla_log_exp_softmax_bitwise(fn):
             m = (3 * rng.normal(size=(100_000, K))).astype(np.float32)
             want = np.asarray(jax.jit(lambda v: jax.nn.softmax(v, axis=1))(
                 m))
-            got = prng.xla_softmax(torch.as_tensor(m)).numpy()
+            got = xla_math.softmax(torch.as_tensor(m)).numpy()
             np.testing.assert_array_equal(got.view(np.int32),
                                           want.view(np.int32))
         return
@@ -155,8 +155,8 @@ def test_xla_log_exp_softmax_bitwise(fn):
         np.linspace(-90.0, 90.0, 200_001, dtype=np.float32)])
     if fn == "log":
         x = np.abs(x) + np.float32(1e-30)
-    jfn, tfn, plain = {"log": (jnp.log, prng.xla_log, torch.log),
-                       "exp": (jnp.exp, prng.xla_exp, torch.exp)}[fn]
+    jfn, tfn, plain = {"log": (jnp.log, xla_math.log, torch.log),
+                       "exp": (jnp.exp, xla_math.exp, torch.exp)}[fn]
     want = np.asarray(jax.jit(jfn)(x))
     got = tfn(torch.as_tensor(x)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
@@ -169,12 +169,10 @@ def test_cumsum_xla_bitwise(n):
     computes it (a reduce-window cut into blocks of 16)."""
     import jax.numpy as jnp
 
-    from h2o_kubernetes_tpu_torch.models.tree.core import cumsum_xla
-
     x = np.random.default_rng(n).normal(size=(3, 4, n, 3)).astype(
         np.float32)
     want = np.asarray(jax.jit(lambda v: jnp.cumsum(v, axis=2))(x))
-    got = cumsum_xla(torch.as_tensor(x), 2).numpy()
+    got = xla_math.cumsum(torch.as_tensor(x), 2).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
@@ -236,7 +234,7 @@ def test_fma_rounds_once_at_halfway_points():
     a, b, c = (np.concatenate(v) for v in ((a, ra), (b, rb), (c, rc)))
     want = _fma_exact(a, b, c)
     ta, tb, tc = (torch.as_tensor(v) for v in (a, b, c))
-    got = prng._fma(ta, tb.double(), tc).numpy()
+    got = xla_math.fma(ta, tb.double(), tc).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     xla = np.asarray(jax.jit(lambda x, y, z: x * y + z)(a, b, c))
     np.testing.assert_array_equal(xla.view(np.int32), want.view(np.int32))
@@ -259,7 +257,7 @@ def test_fused_orders_round_once_at_halfway_points():
     one = torch.ones_like(ta)
     got = {"hi": lerp(tc, ta, one, tb, "hi"),       # hi·hw + lo·1
            "lo": lerp(ta, tc, tb, one, "lo"),       # lo·lw + hi·1
-           "goss": prng._fma(ta, tb, -(-tc))}       # a·total - above
+           "goss": xla_math.fma(ta, tb, -(-tc))}   # a·total - above
     for name, g in got.items():
         np.testing.assert_array_equal(g.numpy().view(np.int32),
                                       want.view(np.int32), err_msg=name)
