@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (h2o_kubernetes_tpu_torch): the
-scorer-replica serving path, binomial GBM training, DRF and multinomial
+scorer-replica serving path (and the multi-tenant replica with the H2O
+REST API), binomial GBM training, DRF and multinomial
 GBM training, the other GBM distributions, checkpoint continuation, the
 train -> export -> registry -> replica loop, XGBoost-hist (pointwise and
 LambdaMART ranking), GLM, Exclusive Feature Bundling, GOSS,
@@ -171,13 +172,14 @@ Phases, in order; any failure exits non-zero:
    held at both chunk grids' levels;
 24. deeplearning — deeplearning_mlp (tools/bench_suite.py:282-291):
    higgs_arrays(200,000, seed=2), DeepLearning(hidden=[64, 64],
-   epochs=1, seed=1), 6,250 Adam steps of 32 rows: a warm-up and three
+   epochs=1, seed=1), 6,250 Adam steps of 32 rows: a warm-up and two
    timed trains as rows/s (median and spread), train AUC and logloss
    (past 65,536 rows the AUC's score histogram is B1's: its launches
    counted around that call, B1 held and timed at its input); the
    device events of one step and the device-busy share, from two short
    trains (200 and 400 steps) under torch.profiler; the estimator's
-   default width (200, 200) once; an autoencoder (16,): anomaly and
+   default width (200, 200) once and an autoencoder (16,), both on the
+   first 50,000 rows: anomaly and
    deepfeatures shapes, reconstruction MSE; card vs CPU on 5,000 rows,
    each trained on its own device: train AUC and logloss within 1e-5,
    predictions within 1e-5; the artifact in MojoModel within 1e-5 of
@@ -193,12 +195,13 @@ Phases, in order; any failure exits non-zero:
 26. frame — BASELINE config #1 from the file (tools/bench_suite.py's
    ingest_airlines_csv at its on-chip size, :157-158 and :189-203):
    tools/datasets.airlines_csv at 1,000,000 rows (27 columns, 5 enums)
-   written under build/frame, import_file on the card as rows/s, MB/s
+   written under build/frame (kept for phase 29), import_file on the
+   card (median of 2) as rows/s, MB/s
    and cells/s with the CSV path taken (pyarrow's reader or the
    pure-Python one), card = CPU bitwise; split_frame, two sorts,
    group_by, merge (a 1,000,000-row left join), impute, table,
    quantile, a filter, asfactor and rbind, each a synchronized median
-   of 3 on the card, held against the CPU's (bitwise; the group sums
+   of 2 on the card, held against the CPU's (bitwise; the group sums
    within 1e-6 of each group's Σ|x|); GBM ntrees=10 max_depth=5 seed=1
    on the 0.8 split part, model_performance on the 0.2 part: warm train
    s, rows·trees/s, train and holdout AUC and logloss, B1's launches on
@@ -246,7 +249,22 @@ Phases, in order; any failure exits non-zero:
    parity tests' tolerances, B1-B4 launches on these paths (none), and
    the airlines columns' rollups card = CPU bitwise in float32 (mean,
    sigma);
-29. report — one JSON line of kernel records (B4 with its variants,
+29. serving remainder — the multi-tenant replica and the H2O REST
+   API through start_server() on the card: four base GBMs of the
+   serving model's shape pushed to 100 tenant keys
+   (push_many(require=True)), a quarter of their device-state charge as
+   H2O_TPU_SCORER_CACHE_BYTES, tools/score_load.run_load_zipf (Zipf 1.1,
+   concurrency 6, 16 rows, 10 s: p50/p99, per-decile p99, rows/s, 5xx,
+   shed, every /3/Stats sample within the budget), a 5 s explain leg
+   (contributions through B4 and promotions), evict -> promote
+   bitwise, the storm fair and unfair (tools/score_load._storm_leg;
+   the fair tail's SLO gated), then /3/ImportFiles of phase 26's CSV,
+   /3/ModelBuilders/gbm at phase 26's parameters against an in-process
+   train on the same frame, the frame predictions route,
+   contributions of 1,000 rows, /3/Parse and /3/AutoML at
+   automl_wall_100k's shape against the in-process leaderboard,
+   /3/Stats and a timed /metrics; B1-B4 launches per leg;
+30. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
    row partition; the launches of phases 15-23 beside each, B1's levels
    including the xgboost_hist, lambdarank, bundled, compacted and chunk
@@ -254,7 +272,8 @@ Phases, in order; any failure exits non-zero:
    the XGBoost and the bundled one), one JSON line of phases 24-25's
    learner numbers, one of phase 26's, one of phase 27's and one of
    phase 28's (they add no kernel; phase 27's B1-B3 launches also stand
-   in the records), the card line, and as the last line
+   in the records), one of phase 29's (its B1-B4 launches per leg also
+   stand in the records), the card line, and as the last line
    {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
@@ -277,6 +296,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -346,10 +366,13 @@ _OOC_DEEP = 10
 # phase 24, deeplearning_mlp (tools/bench_suite.py:282-291): HIGGS rows
 # (seed 2), DeepLearning(hidden=[64, 64], epochs=1, seed=1); card vs CPU
 # on its first rows; a short train of each step count gives the
-# launches per step
+# launches per step; two warm trains (three until phase 29 was added:
+# a warm train is 9.5-20 s of host-bound steps), the default width and
+# the autoencoder on the first _DL_SIDE_ROWS rows (200,000 until then)
 _DL_ROWS = 200_000
 _DL_HIDDEN = [64, 64]
-_DL_WARM = 3
+_DL_WARM = 2
+_DL_SIDE_ROWS = 50_000
 _DL_PARITY_ROWS = 5_000
 _DL_PROBE_STEPS = (200, 400)
 # card vs CPU at _DL_PARITY_ROWS: train AUC and logloss, predictions
@@ -403,6 +426,29 @@ _LEARNER_PARITY_ROWS = 100_000
 _LEARNER_WARM = 3
 _LEARNER_MOJO_ROWS = 20_000
 _LEARNER_MOJO_LIMIT = 1e-6
+
+# phase 29: the multi-tenant replica at the reference bench's settings
+# (tools/bench_suite.py:513-530, tools/score_load.py:814-849): 4 base
+# models of the serving model's shape (28 features, 20 trees of depth
+# 5, trained on one frame of _SR_TRAIN_ROWS HIGGS-shaped rows) pushed
+# to 100 tenant keys, a quarter of their device-state charge as the byte budget, Zipf
+# s = 1.1 at concurrency 6 and 16 rows a request for 10 s, an explain
+# leg of 4 workers for 5 s, the storm at 6 s a leg; the REST API on
+# phase 26's CSV (a GBM at phase 26's parameters) and AutoML at
+# automl_wall_100k's shape on its first 100,000 rows
+_SR_BASES = 4
+_SR_TENANTS = 100
+_SR_TRAIN_ROWS = 100_000
+_SR_ZIPF_S = 1.1
+_SR_CONCURRENCY = 6
+_SR_REQ_ROWS = 16
+_SR_SWEEP_S = 10.0
+_SR_EXPLAIN_WORKERS = 4
+_SR_EXPLAIN_S = 5.0
+_SR_STORM_S = 6.0
+_SR_CONTRIB_ROWS = 1_000
+_SR_AML_ROWS = 100_000
+_SR_GBM_LIMIT = 1e-4
 
 _T0 = time.perf_counter()
 
@@ -915,7 +961,7 @@ def _shap_compare(torch, shap_kernel, model, X: np.ndarray, label: str,
     group and over all groups."""
     kern, plain = (shap_kernel.flat_shap_tab_kernel,
                    shap_kernel.flat_shap_tab_plain)
-    groups, ctabs = model._contrib_prepare()
+    groups, ctabs, _ = model._contrib_prepare()
     em = model._contrib_enum_mask()
     Xd = torch.as_tensor(X, device=model.device)
     rows, F = Xd.shape
@@ -2084,7 +2130,8 @@ def _phase_deeplearning(c) -> dict:
     and three timed trains as rows/s, train AUC and logloss; the
     launches of one step and the device-busy share from two short
     trains (200 and 400 steps) under torch.profiler; the estimator's
-    default width (200, 200) once; an autoencoder (16,); card vs CPU on
+    default width (200, 200) once and an autoencoder (16,) on the first
+    _DL_SIDE_ROWS rows; card vs CPU on
     5,000 rows; the artifact in MojoModel; B1 held at the train AUC's
     score histogram, its launches counted around that call."""
     from tools.datasets import higgs_arrays
@@ -2145,26 +2192,32 @@ def _phase_deeplearning(c) -> dict:
          f"{busy_share:.1%} (profiled) [{card}]")
     if c.profile:
         _profile(torch, "deeplearning train", fit, top=12)
+    # the default width and the autoencoder on the frame's first
+    # _DL_SIDE_ROWS rows (a step's cost does not depend on the rows)
+    n_side = min(_DL_SIDE_ROWS, frame.nrows)
+    side = frame.select_rows(np.arange(n_side))
     t0 = time.perf_counter()
-    wide = DeepLearning(epochs=1, seed=1).train(y="y", training_frame=frame)
+    wide = DeepLearning(epochs=1, seed=1).train(y="y", training_frame=side)
     torch.cuda.synchronize()
     wide_s = time.perf_counter() - t0
-    wide_auc = wide.model_performance(frame, "y")["auc"]
+    wide_auc = wide.model_performance(side, "y")["auc"]
     _log(f"[deeplearning] the estimator's default width {wide.params.hidden}"
-         f", 1 epoch: {wide_s:.3f}s = {rows / wide_s:.1f} rows/s, train "
-         f"auc {wide_auc:.6f} [{card}]")
+         f", 1 epoch on {n_side} rows: {wide_s:.3f}s = "
+         f"{n_side / wide_s:.1f} rows/s, train auc {wide_auc:.6f} "
+         f"[{card}]")
     feats = [n for n in cols if n != "y"]
     t0 = time.perf_counter()
     ae = DeepLearning(hidden=(16,), epochs=1, seed=1, autoencoder=True
-                      ).train(training_frame=frame, ignored_columns=["y"])
+                      ).train(training_frame=side, ignored_columns=["y"])
     torch.cuda.synchronize()
     ae_s = time.perf_counter() - t0
-    an, df = ae.anomaly(frame), ae.deepfeatures(frame, 0)
-    ae_mse = ae.model_performance(frame)["mse"]
-    _log(f"[deeplearning] autoencoder (16,) on the {len(feats)} features: "
-         f"{ae_s:.3f}s; anomaly {an.shape}, deepfeatures {df.shape}, "
-         f"reconstruction mse {ae_mse:.6f} [{card}]")
-    if not (an.shape == (rows,) and df.shape == (rows, 16)
+    an, df = ae.anomaly(side), ae.deepfeatures(side, 0)
+    ae_mse = ae.model_performance(side)["mse"]
+    _log(f"[deeplearning] autoencoder (16,) on the {len(feats)} features, "
+         f"{n_side} rows: {ae_s:.3f}s; anomaly {an.shape}, "
+         f"deepfeatures {df.shape}, reconstruction mse {ae_mse:.6f} "
+         f"[{card}]")
+    if not (an.shape == (n_side,) and df.shape == (n_side, 16)
             and np.isfinite(an).all() and 0 < ae_mse < 1):
         raise RuntimeError("deeplearning: bad autoencoder outputs")
     # card vs CPU on the first rows, each trained on its own device; the
@@ -2215,7 +2268,8 @@ def _phase_deeplearning(c) -> dict:
             "rows_per_s": rows / med, "auc": perf["auc"],
             "logloss": perf["logloss"], "events_per_step": per_step,
             "busy_share": busy_share, "default_width_s": wide_s,
-            "default_width_rows_per_s": rows / wide_s,
+            "default_width_rows_per_s": n_side / wide_s,
+            "side_rows": n_side,
             "autoencoder_s": ae_s, "autoencoder_mse": ae_mse,
             "parity_metric_gap": metric_gap, "parity_pred_gap": pred_gap,
             "parity_weight_rel": w_gap, "mojo_err": mojo_err,
@@ -2398,6 +2452,9 @@ def _automl_cpu_leg(out: str, rows: int) -> int:
     packages by tools/dl_sigma_ulp.py: C7.)"""
     import torch
 
+    # below the card phases' host work in the scheduler's order: it has
+    # ~100 s of slack before phase 27c reads it
+    os.nice(10)
     torch.set_num_threads(_AML_CPU_THREADS)
     from h2o_kubernetes_tpu_torch import AutoML, Frame
     from tools.datasets import airlines_arrays
@@ -2810,7 +2867,7 @@ def _phase_frame(c) -> dict:
     5 enums; tools/bench_suite.py's ingest_airlines_csv at its on-chip
     size) on the card against the same call on the CPU (bitwise), as
     rows/s, MB/s and cells/s, with the CSV path taken; eleven Frame
-    calls on the card, each a synchronized median of 3 held against the CPU's
+    calls on the card, each a synchronized median of 2 held against the CPU's
     (bitwise; the group sums within 1e-6 of each group's Σ|x|);
     ``split_frame([0.8], seed=42)`` -> GBM(ntrees=10, max_depth=5,
     seed=1) on the 0.8 part -> ``model_performance`` on the 0.2 part:
@@ -2819,17 +2876,10 @@ def _phase_frame(c) -> dict:
     up to float64 near-ties, holdout AUC within 1e-4), B1 held at the
     train's levels and its two AUC inputs; ``save_frame``/``load_frame`` and
     ``export_file``/``import_file`` round trips; a 1,000,000-value time
-    column's ``as_float`` and ``to_numpy`` card = CPU."""
-    import os
-    import shutil
-
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "build", "frame")
-    os.makedirs(work, exist_ok=True)
-    try:
-        return _frame_body(c, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    column's ``as_float`` and ``to_numpy`` card = CPU. Its files are
+    written under ``c.frame_work``, which main() removes after phase 29
+    has imported the CSV over REST."""
+    return _frame_body(c, c.frame_work)
 
 
 def _frame_body(c, work: str) -> dict:
@@ -3222,6 +3272,513 @@ def _phase_learners(c) -> dict:
             raise RuntimeError(f"learners: {name} differs between card "
                                "and CPU")
         out[name]["parity"] = dict(res, cpu_s=cpu_s)
+    return out
+
+
+def _launch_counts(hist_op, shap_kernel) -> dict:
+    """B1-B4 launches since the counts were last set to 0: B1 the
+    single-tree histograms outside the partitioned regime, B2 the
+    partitioned single-tree ones, B3 every launch over K > 1 trees, B4
+    the TreeSHAP kernel."""
+    lau, bat = hist_op.LAUNCHES, hist_op.BATCHED_LAUNCHES
+    return {"b1": sum(lau[r] - bat[r] for r in lau if r != "partitioned"),
+            "b2": lau["partitioned"] - bat["partitioned"],
+            "b3": sum(bat.values()),
+            "b4": shap_kernel.flat_shap_tab_kernel.launches}
+
+
+def _reset_counts(hist_op, shap_kernel) -> None:
+    hist_op.reset_launches()
+    shap_kernel.reset_launches()
+
+
+def _stats_poller(url: str, budget: int, stop):
+    """Samples GET /3/Stats every 0.5 s until ``stop``; returns
+    (thread, record of samples and the samples over the budget)."""
+    from tools.score_load import _get_json
+
+    rec = {"samples": 0, "over_budget": 0, "max_resident_bytes": 0}
+
+    def run():
+        while not stop.is_set():
+            st = _get_json(url + "/3/Stats", timeout=5.0)
+            if st:
+                rb = int(st["scorer_cache"]["resident_bytes"])
+                rec["samples"] += 1
+                rec["max_resident_bytes"] = max(rec["max_resident_bytes"],
+                                                rb)
+                rec["over_budget"] += rb > budget
+            stop.wait(0.5)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, rec
+
+
+def _explain_leg(url: str, keys: list, columns: list, seconds: float,
+                 workers: int, seed: int) -> dict:
+    """Closed-loop contributions traffic: ``workers`` threads, each
+    request ``X-H2O-SLO: explain``, _SR_REQ_ROWS rows, its tenant drawn
+    Zipf(_SR_ZIPF_S) over ``keys``."""
+    from tools.datasets import zipf_probs
+    from tools.score_load import (_make_bodies, _percentile_ms,
+                                  _post_json)
+
+    probs = zipf_probs(len(keys), _SR_ZIPF_S)
+    bodies = _make_bodies(columns, _SR_REQ_ROWS, seed + 2)
+    lock = threading.Lock()
+    out = {"requests": 0, "fivexx": 0, "shed": 0, "fourxx": 0,
+           "errors": 0, "bad_shape": 0}
+    lat: list[float] = []
+    deadline = time.perf_counter() + seconds
+
+    def worker(w):
+        rng = np.random.default_rng(seed * 100 + w)
+        i = w
+        while time.perf_counter() < deadline:
+            key = keys[int(rng.choice(len(keys), p=probs))]
+            t0 = time.perf_counter()
+            try:
+                r = _post_json(f"{url}/3/Predictions/models/{key}/"
+                               "contributions", bodies[i % len(bodies)],
+                               timeout=60.0,
+                               headers={"X-H2O-SLO": "explain"})
+                ok = len(r["contributions"]) == _SR_REQ_ROWS and \
+                    len(r["contributions"][0]) == len(columns) + 1
+                with lock:
+                    out["requests"] += 1
+                    out["bad_shape"] += not ok
+                    lat.append(time.perf_counter() - t0)
+            except urllib.error.HTTPError as e:
+                e.read()
+                with lock:
+                    out["requests"] += 1
+                    if e.code >= 500:
+                        out["fivexx"] += 1
+                    elif e.code == 429:
+                        out["shed"] += 1
+                    else:
+                        out["fourxx"] += 1
+            except Exception:  # noqa: BLE001 — counted, the leg goes on
+                with lock:
+                    out["errors"] += 1
+            i += 1
+
+    ts = [threading.Thread(target=worker, args=(w,), daemon=True)
+          for w in range(workers)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    out.update(wall_s=wall, p50_ms=_percentile_ms(lat, 0.5),
+               p99_ms=_percentile_ms(lat, 0.99),
+               rows_per_s=len(lat) * _SR_REQ_ROWS / wall)
+    return out
+
+
+def _rest_rows(model, X: np.ndarray) -> list:
+    """A [n, F] design matrix as JSON rows in the model's feature order:
+    enum codes as their training labels, NaN as null."""
+    doms = model.feature_domains
+    rows = []
+    for r in X:
+        row = []
+        for name, v in zip(model.feature_names, r):
+            if np.isnan(v):
+                row.append(None)
+            elif name in doms:
+                row.append(doms[name][int(v)])
+            else:
+                row.append(float(v))
+        rows.append(row)
+    return rows
+
+
+def _phase_serving_remainder(c) -> dict:
+    """29. serving remainder (ROADMAP item 7b-2): the multi-tenant
+    replica and the H2O REST API on the card, through ``start_server()``.
+    a. four base GBMs of the serving model's shape trained here on one
+    frame of HIGGS-shaped rows (a row sample each), published to a registry and pushed to 100 tenant
+    keys (``push_many(require=True)``, warm bucket 128); every tenant
+    scored once (predictions and contributions), then
+    H2O_TPU_SCORER_CACHE_BYTES set to a quarter of the tenants' charge
+    and ``tools/score_load.run_load_zipf`` driven at the reference
+    bench's settings (stdlib and numpy only: checked that it reaches
+    nothing of the JAX package); b. an explain leg; c. one tenant
+    evicted and scored again, bitwise; d. ``tools/score_load._storm_leg``
+    with fairness on, then off; e. ``/3/ImportFiles`` + ``/3/Parse`` of
+    phase 26's CSV, ``/3/ModelBuilders/gbm`` at phase 26's parameters
+    polled through ``/3/Jobs`` and held against an in-process train on
+    the same frame (metrics within _SR_GBM_LIMIT, trees up to float64
+    near-ties), the frame predictions route, contributions of
+    _SR_CONTRIB_ROWS rows, ``/3/AutoML`` at automl_wall_100k's shape
+    against the in-process run's leaderboard, ``/3/Stats`` and one timed
+    ``/metrics``. B1-B4 launches counted from 0 per leg: the tenants'
+    push, warm-up and first scores (the base trains are set-up), the
+    sweep, the explain leg, the storm, and each REST build, prediction
+    and contributions call around its own request (the in-process
+    reference runs count in no leg).
+    Gated: every /3/Stats sample within the budget, evictions and
+    promotions > 0, no 5xx in the sweep and the explain leg, evict ->
+    promote bitwise, the fair storm's tail SLO met, the REST GBM and the
+    AutoML leaderboard as stated, B4 > 0 on the explain leg and B1 > 0
+    on the REST builds. The unfair storm is reported."""
+    import shutil
+
+    from tools import score_load
+
+    from h2o_kubernetes_tpu_torch import GBM, AutoML, Frame, ModelRegistry
+    from h2o_kubernetes_tpu_torch.models.base import (evict_scorer_cache,
+                                                      scorer_cache_stats)
+
+    torch, card, rest = c.torch, c.card, c.rest
+    hist_op, shap_kernel = c.hist_op, c.shap_kernel
+    knobs = ("H2O_TPU_SCORER_CACHE_BYTES", "H2O_TPU_SCORE_FAIRNESS",
+             "H2O_TPU_SCORE_QUEUE_MAX", "H2O_TPU_SCORE_BATCH_US")
+    saved = {k: os.environ.get(k) for k in knobs}
+    work = Path(c.frame_work)
+    regdir = work / "registry"
+    t_phase = time.perf_counter()
+    legs: dict = {}
+    launches: dict = {}
+    out: dict = {}
+    evict_scorer_cache()            # the earlier phases' models leave
+    rest.BATCHER.reset()            # phase 17 stopped it
+    srv = c.start_server(port=0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        # -- a. the tenants and the Zipf sweep ------------------------------
+        t0 = time.perf_counter()
+        reg = ModelRegistry(str(regdir))
+        cols, dom = _higgs_cols(_SR_TRAIN_ROWS, 290)
+        bframe = Frame.from_arrays(cols, domains=dom)
+        for b in range(_SR_BASES):
+            # one frame (its bins fit once), a row sample per seed
+            m = GBM(ntrees=20, max_depth=5, sample_rate=0.8,
+                    seed=b + 1).train(y="y", training_frame=bframe)
+            reg.publish(m, f"base{b}")
+        del bframe
+        columns = list(m.feature_names)
+        keys = [f"m{i:03d}" for i in range(_SR_TENANTS)]
+        legs["train_bases_s"] = time.perf_counter() - t0
+        # the base trains are set-up: the tenants' leg counts from here
+        _reset_counts(hist_op, shap_kernel)
+        t0 = time.perf_counter()
+        loaded = reg.push_many(url, [(f"base{i % _SR_BASES}", 1, k)
+                                     for i, k in enumerate(keys)],
+                               warm_buckets=[128])
+        legs["push_s"] = time.perf_counter() - t0
+        ready = score_load._get_json(url + "/readyz")
+        if len(loaded) != _SR_TENANTS or not all(
+                o["contributions"] for o in loaded) or not ready:
+            raise RuntimeError("serving remainder: the tenant push failed")
+        rest.install_pool_replica_gate()
+        t0 = time.perf_counter()
+        body = score_load._make_bodies(columns, _SR_REQ_ROWS, 29, pool=1)[0]
+        for k in keys:
+            for route in ("", "/contributions"):
+                code, r = _post(srv.server_address[1],
+                                f"/3/Predictions/models/{k}{route}", body)
+                if code != 200:
+                    raise RuntimeError(f"tenant {k}{route}: {code} {r}")
+        legs["score_all_s"] = time.perf_counter() - t0
+        launches["a_tenants"] = _launch_counts(hist_op, shap_kernel)
+        charge = sum(rest.MODELS[k]._serving_resident_bytes() for k in keys)
+        budget = charge // 4
+        os.environ["H2O_TPU_SCORER_CACHE_BYTES"] = str(budget)
+        # the lowered budget holds from the next call on
+        rest.MODELS[keys[0]].score_numpy(
+            np.zeros((_SR_REQ_ROWS, len(columns)), np.float32))
+        s0 = scorer_cache_stats()
+        _log(f"[serving] {_SR_BASES} base GBMs (28 features, 20 trees of "
+             f"depth 5, sample_rate 0.8 of {_SR_TRAIN_ROWS} HIGGS-shaped "
+             f"rows) trained in "
+             f"{legs['train_bases_s']:.2f}s; pushed to {_SR_TENANTS} tenant "
+             f"keys with push_many(require=True) in {legs['push_s']:.2f}s; "
+             f"every tenant scored and explained once in "
+             f"{legs['score_all_s']:.2f}s; the tenants' device-state "
+             f"charge {charge} bytes, budget {budget} bytes (a quarter); "
+             f"resident now {s0['resident']} models, "
+             f"{s0['resident_bytes']} bytes [{card}]")
+        if s0["resident_bytes"] > budget:
+            raise RuntimeError("serving remainder: the budget did not hold")
+        _reset_counts(hist_op, shap_kernel)
+        scrape_before = score_load._metrics_scrape(url)
+        sweep = score_load.run_load_zipf(
+            url, keys, columns, concurrency=_SR_CONCURRENCY,
+            rows_per_request=_SR_REQ_ROWS, seconds=_SR_SWEEP_S,
+            zipf_s=_SR_ZIPF_S, seed=c.seed)
+        launches["a_sweep"] = _launch_counts(hist_op, shap_kernel)
+        reached = sorted(m for m in sys.modules
+                         if m == "jax" or m.startswith(("jax.",
+                                                        "h2o_kubernetes_tpu.")))
+        reached += [m for m in ("h2o_kubernetes_tpu",) if m in sys.modules]
+        s1 = scorer_cache_stats()
+        res = sweep["residency"]
+        _log(f"[serving] Zipf sweep (s={_SR_ZIPF_S}, {_SR_TENANTS} tenants, "
+             f"concurrency {_SR_CONCURRENCY}, {_SR_REQ_ROWS} rows, "
+             f"{_SR_SWEEP_S:g}s): {sweep['value']} rows/s, "
+             f"{sweep['requests']} requests, p50 {sweep['p50_ms']} ms, p99 "
+             f"{sweep['p99_ms']} ms; p99 by popularity decile "
+             f"{[d['p99_ms'] for d in sweep['deciles']]} ms; 5xx "
+             f"{sweep['fivexx']}, shed {sweep['shed']}, errors "
+             f"{sweep['errors']}; residency {res}; scorer cache evictions "
+             f"{s1['evictions'] - s0['evictions']}, promotions "
+             f"{s1['promotions'] - s0['promotions']} "
+             f"({s1['promotion_s'] - s0['promotion_s']:.4f}s of device "
+             f"rebuilds); launches {launches['a_sweep']}; modules of the "
+             f"JAX package or jax loaded: {reached} [{card}]")
+        if reached:
+            raise RuntimeError(f"run_load_zipf reached {reached}")
+        if sweep["fivexx"] or sweep["errors"] or not res["samples"] or \
+                res["budget_exceeded"] or res["max_resident_bytes"] > budget:
+            raise RuntimeError("serving remainder: the sweep served 5xx or "
+                               "exceeded the byte budget")
+
+        # -- b. contributions under the explain class -----------------------
+        _reset_counts(hist_op, shap_kernel)
+        stop = threading.Event()
+        poll, polled = _stats_poller(url, budget, stop)
+        try:
+            explain = _explain_leg(url, keys, columns, _SR_EXPLAIN_S,
+                                   _SR_EXPLAIN_WORKERS, c.seed)
+        finally:
+            stop.set()
+            poll.join(10)
+        launches["b_explain"] = _launch_counts(hist_op, shap_kernel)
+        s2 = scorer_cache_stats()
+        explain.update(polled, promotions=s2["promotions"] - s1["promotions"],
+                       evictions=s2["evictions"] - s1["evictions"])
+        _log(f"[serving] explain leg ({_SR_EXPLAIN_WORKERS} workers, "
+             f"X-H2O-SLO: explain, {_SR_REQ_ROWS} rows, Zipf "
+             f"{_SR_ZIPF_S}, {_SR_EXPLAIN_S:g}s): {explain}; launches "
+             f"{launches['b_explain']} [{card}]")
+        if explain["fivexx"] or explain["errors"] or explain["bad_shape"] \
+                or explain["over_budget"] or not explain["samples"] or \
+                launches["b_explain"]["b4"] <= 0:
+            raise RuntimeError("serving remainder: the explain leg failed")
+        if s2["evictions"] <= s0["evictions"] or \
+                s2["promotions"] <= s0["promotions"]:
+            raise RuntimeError("serving remainder: no eviction churn")
+
+        # -- c. evict -> promote ----------------------------------------------
+        probe = rest.MODELS[keys[-1]]
+        Xp = np.random.default_rng(c.seed + 7).normal(
+            size=(64, len(columns))).astype(np.float32)
+        p_before, c_before = probe.score_numpy(Xp), probe.contrib_numpy(Xp)
+        evict_scorer_cache(probe)
+        p_after, c_after = probe.score_numpy(Xp), probe.contrib_numpy(Xp)
+        bitwise = bool(np.array_equal(p_before, p_after)
+                       and np.array_equal(c_before, c_after))
+        _log(f"[serving] evict -> promote of {keys[-1]}: scores and "
+             f"contributions bitwise {bitwise}")
+        if not bitwise:
+            raise RuntimeError("serving remainder: a promotion changed bits")
+
+        # -- d. the storm, fair then unfair ------------------------------------
+        _reset_counts(hist_op, shap_kernel)
+        storm = {}
+        for fair in (True, False):
+            storm["fair" if fair else "unfair"] = score_load._storm_leg(
+                url, keys[0], keys[-1], columns, fair=fair,
+                seconds=_SR_STORM_S, seed=c.seed)
+        for k in knobs[1:]:                  # _storm_leg leaves them set
+            if saved[k] is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = saved[k]
+        launches["d_storm"] = _launch_counts(hist_op, shap_kernel)
+        for leg, r in storm.items():
+            _log(f"[serving] storm {leg}: hot {r['hot']}, tail {r['tail']}, "
+                 f"tail SLO met {r['tail_slo_met']} [{card}]")
+        if not storm["fair"]["tail_slo_met"]:
+            raise RuntimeError("serving remainder: the fair storm missed "
+                               "the tail's SLO")
+
+        # -- e. the REST API: each route's launches counted from 0 around
+        # its own call; the in-process reference runs are counted nowhere
+        y = "IsDepDelayed"
+        csv = str(work / "airlines.csv")
+        port = srv.server_address[1]
+        t0 = time.perf_counter()
+        code, fr_schema = _post(port, "/3/ImportFiles",
+                                {"path": csv, "destination_frame": "air"})
+        legs["import_s"] = time.perf_counter() - t0
+        if code != 200 or fr_schema["rows"] != _FRAME_ROWS:
+            raise RuntimeError(f"ImportFiles: {code} {fr_schema}")
+        kw = dict(ntrees=_FRAME_TREES, max_depth=_FRAME_DEPTH, seed=1)
+        _reset_counts(hist_op, shap_kernel)
+        t0 = time.perf_counter()
+        code, built = _post(port, "/3/ModelBuilders/gbm", {
+            "training_frame": "air", "response_column": y,
+            "model_id": "air_gbm", **kw})
+        legs["rest_gbm_s"] = time.perf_counter() - t0
+        gbm_launches = _launch_counts(hist_op, shap_kernel)
+        launches["e_rest_gbm"] = gbm_launches
+        jobs = score_load._get_json(url + "/3/Jobs") or {"jobs": []}
+        done = [j["status"] for j in jobs["jobs"] if j["dest"] == "air_gbm"]
+        if code != 200 or done != ["DONE"]:
+            raise RuntimeError(f"ModelBuilders/gbm: {code} {built} {done}")
+        frame = rest.FRAMES["air"]
+        m_rest = rest.MODELS["air_gbm"]
+        t0 = time.perf_counter()
+        m_local = GBM(**kw).train(y=y, training_frame=frame)
+        torch.cuda.synchronize()
+        legs["local_gbm_s"] = time.perf_counter() - t0
+        h_rest = m_rest.scoring_history[-1]
+        h_local = m_local.scoring_history[-1]
+        gaps = {k: abs(h_rest[k] - h_local[k])
+                for k in ("train_auc", "train_logloss")}
+        compared, ties, leaf_gap = _near_ties(m_rest, m_local, frame, y, {})
+        _reset_counts(hist_op, shap_kernel)
+        t0 = time.perf_counter()
+        code, pred = _post(port, "/3/Predictions/models/air_gbm/frames/air",
+                           {})
+        legs["predict_frame_s"] = time.perf_counter() - t0
+        launches["e_rest_predict_frame"] = _launch_counts(hist_op,
+                                                          shap_kernel)
+        pf = rest.FRAMES[pred["predictions_frame"]["name"]]
+        p_direct = m_rest.predict_raw(frame)
+        pred_equal = pf.nrows == _FRAME_ROWS and bool(np.array_equal(
+            pf[f"p{m_rest.response_domain[1]}"].to_numpy(), p_direct[:, 1]))
+        X = m_rest._design_matrix(frame)[:_SR_CONTRIB_ROWS].cpu().numpy()
+        rows = _rest_rows(m_rest, X)
+        body = {"rows": rows, "columns": list(m_rest.feature_names)}
+        _reset_counts(hist_op, shap_kernel)
+        code, cr = _post(port, "/3/Predictions/models/air_gbm/contributions",
+                         body)
+        launches["e_rest_contrib"] = _launch_counts(hist_op, shap_kernel)
+        contrib_b4 = launches["e_rest_contrib"]["b4"]
+        _reset_counts(hist_op, shap_kernel)
+        code_p, pr = _post(port, "/3/Predictions/models/air_gbm", body)
+        launches["e_rest_predict_rows"] = _launch_counts(hist_op,
+                                                         shap_kernel)
+        if code != 200 or code_p != 200:
+            raise RuntimeError(f"REST contributions/predictions: {code} "
+                               f"{code_p}")
+        phi = np.asarray(cr["contributions"], dtype=np.float64)
+        p1 = np.asarray(pr[f"p{m_rest.response_domain[1]}"],
+                        dtype=np.float64)
+        add = float(np.abs(phi.sum(axis=1) - np.log(p1 / (1 - p1))).max())
+        phi_equal = bool(np.array_equal(np.float32(phi),
+                                        m_rest.contrib_numpy(X)))
+        rest_gbm = {"rows": frame.nrows, "features": len(columns),
+                    "import_s": legs["import_s"],
+                    "rest_build_s": legs["rest_gbm_s"],
+                    "local_train_s": legs["local_gbm_s"],
+                    "metrics_rest": {k: h_rest[k] for k in gaps},
+                    "metrics_local": {k: h_local[k] for k in gaps},
+                    "gaps": gaps, "nodes_compared": compared,
+                    "near_ties": len(ties), "leaf_gap": leaf_gap,
+                    "predict_frame_s": legs["predict_frame_s"],
+                    "predictions_equal": pred_equal,
+                    "contrib_rows": len(rows), "contrib_b4": contrib_b4,
+                    "contrib_equal_direct": phi_equal,
+                    "additivity": add, "launches": gbm_launches}
+        _log(f"[serving] REST API: ImportFiles of phase 26's "
+             f"{_FRAME_ROWS}-row CSV {legs['import_s']:.3f}s; ModelBuilders/"
+             f"gbm ({kw}) {legs['rest_gbm_s']:.3f}s (job DONE in /3/Jobs), "
+             f"in-process train on the same frame {legs['local_gbm_s']:.3f}s;"
+             f" train auc/logloss REST {h_rest['train_auc']:.6f}/"
+             f"{h_rest['train_logloss']:.6f} against "
+             f"{h_local['train_auc']:.6f}/{h_local['train_logloss']:.6f} "
+             f"(gaps {gaps}, limit {_SR_GBM_LIMIT:.0e}); {compared} nodes "
+             f"compared, near-ties {ties}, largest leaf gap {leaf_gap:.3e}; "
+             f"frame predictions {legs['predict_frame_s']:.3f}s, equal to "
+             f"predict_raw {pred_equal}; contributions of {len(rows)} rows: "
+             f"{contrib_b4} B4 launches, equal to contrib_numpy {phi_equal},"
+             f" additivity {add:.3e}; launches around the build "
+             f"{gbm_launches} [{card}]")
+        if max(gaps.values()) > _SR_GBM_LIMIT or not pred_equal or \
+                not phi_equal or add > 1e-4 or gbm_launches["b1"] <= 0 or \
+                contrib_b4 <= 0:
+            raise RuntimeError("serving remainder: the REST GBM disagrees")
+        # AutoML at automl_wall_100k's shape on the CSV's first rows
+        aml_csv = str(work / "airlines_100k.csv")
+        with open(csv) as src, open(aml_csv, "w") as dst:
+            for i, line in enumerate(src):
+                if i > _SR_AML_ROWS:
+                    break
+                dst.write(line)
+        code, parsed = _post(port, "/3/Parse", {
+            "source_frames": [aml_csv], "destination_frame": "air100k"})
+        if code != 200 or parsed["rows"] != _SR_AML_ROWS:
+            raise RuntimeError(f"Parse: {code} {parsed}")
+        aml_kw = {"max_models": 2, "nfolds": 3,
+                  "include_algos": ["glm", "gbm"], "seed": 1}
+        _reset_counts(hist_op, shap_kernel)
+        t0 = time.perf_counter()
+        code2, job = _post(port, "/3/AutoML", {
+            "training_frame": "air100k", "response_column": y,
+            "project_name": "aml_rest", **aml_kw})
+        legs["rest_automl_s"] = time.perf_counter() - t0
+        aml_launches = _launch_counts(hist_op, shap_kernel)
+        launches["e_rest_automl"] = aml_launches
+        lb = score_load._get_json(url + "/3/AutoML/aml_rest") or {}
+        if code2 != 200 or job["job"]["status"] != "DONE":
+            raise RuntimeError(f"AutoML over REST: {code2} {job}")
+        t0 = time.perf_counter()
+        local = AutoML(project_name="aml_rest", verbosity=None,
+                       **aml_kw).train(y=y,
+                                       training_frame=rest.FRAMES["air100k"])
+        legs["local_automl_s"] = time.perf_counter() - t0
+        ids_rest = [r["model_id"] for r in lb.get("leaderboard", [])]
+        ids_local = [r["model_id"] for r in local.leaderboard.as_list()]
+        automl = {"rows": _SR_AML_ROWS, **aml_kw,
+                  "rest_s": legs["rest_automl_s"],
+                  "local_s": legs["local_automl_s"],
+                  "leaderboard_rest": lb.get("leaderboard"),
+                  "leaderboard_local": local.leaderboard.as_list(),
+                  "same_ids_and_order": ids_rest == ids_local,
+                  "launches": aml_launches}
+        _log(f"[serving] AutoML over REST ({_SR_AML_ROWS} rows, {aml_kw}): "
+             f"{legs['rest_automl_s']:.3f}s, leaderboard {ids_rest}; "
+             f"in-process on the same frame {legs['local_automl_s']:.3f}s, "
+             f"{ids_local}; same ids and order {ids_rest == ids_local}; "
+             f"launches around the REST run {aml_launches} [{card}]")
+        if ids_rest != ids_local or not ids_rest or aml_launches["b1"] <= 0:
+            raise RuntimeError("serving remainder: the AutoML leaderboards "
+                               "differ")
+        stats = score_load._get_json(url + "/3/Stats") or {}
+        scrape_after = score_load._metrics_scrape(url)
+        _log(f"[serving] /3/Stats scorer_cache {stats.get('scorer_cache')}, "
+             f"batcher {stats.get('batcher')}, counters "
+             f"{stats.get('counters')}; GET /metrics before the sweep "
+             f"{scrape_before}, after {scrape_after} [{card}]")
+        if not (scrape_after["ok"] and stats.get("scorer_cache")):
+            raise RuntimeError("serving remainder: /3/Stats or /metrics")
+        total = {k: sum(v[k] for v in launches.values())
+                 for k in ("b1", "b2", "b3", "b4")}
+        out = {"tenants": _SR_TENANTS, "bases": _SR_BASES,
+               "charge_bytes": charge, "budget_bytes": budget,
+               "sweep": {k: sweep[k] for k in (
+                   "value", "requests", "p50_ms", "p95_ms", "p99_ms",
+                   "fivexx", "shed", "errors", "deciles", "residency")},
+               "explain": explain, "evict_promote_bitwise": bitwise,
+               "storm": storm, "rest_gbm": rest_gbm, "automl": automl,
+               "scorer_cache": stats.get("scorer_cache"),
+               "metrics_scrape": {"before": scrape_before,
+                                  "after": scrape_after},
+               "legs_s": legs, "launches": launches,
+               "launches_total": total}
+    finally:
+        rest.stop_server(srv)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        rest.READINESS_GATES.clear()
+        rest.REQUIRED_MODEL_IDS.clear()
+        for store in (rest.MODELS, rest.REGISTRY_MODELS, rest.FRAMES,
+                      rest.AUTOML, rest.MODEL_STATS):
+            store.clear()
+        shutil.rmtree(regdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"[serving] phase 29 {out['phase_s']:.1f}s; B1-B4 launches by leg "
+         f"{launches}, total {out['launches_total']} [{card}]")
     return out
 
 
@@ -4006,6 +4563,10 @@ def main() -> int:
 
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 26 starts")
     # -- 26. frame: airlines.csv -> split -> GBM -> holdout metrics -----------
+    # its CSV stays for phase 29's REST import (build/ is gitignored)
+    ctx.frame_work = str(Path(__file__).resolve().parent / "build" / "frame")
+    os.makedirs(ctx.frame_work, exist_ok=True)
+    atexit.register(shutil.rmtree, ctx.frame_work, True)
     frame_res = _phase_frame(ctx)
 
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 27 starts")
@@ -4017,7 +4578,13 @@ def main() -> int:
     learn_res = _phase_learners(ctx)
 
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 29 starts")
-    # -- 29. report ----------------------------------------------------------
+    # -- 29. serving remainder: the multi-tenant replica, the REST API -------
+    ctx.seed = args.seed
+    sr_res = _phase_serving_remainder(ctx)
+    shutil.rmtree(ctx.frame_work, ignore_errors=True)
+
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 30 starts")
+    # -- 30. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -4164,6 +4731,12 @@ def main() -> int:
     _log(json.dumps({"automl": aml_res}))
     # phase 28 adds no kernel (B1-B4 launch 0 times on its paths)
     _log(json.dumps({"other_learners": learn_res}))
+    # phase 29 adds no kernel; B4 (contributions, promotions) and B1/B3
+    # (the REST builds) run on its routes, counted from 0 per leg
+    for i, k in ((0, "b4"), (1, "b1"), (2, "b2"), (3, "b3")):
+        records[i]["serving_remainder_launches"] = {
+            leg: n[k] for leg, n in sr_res["launches"].items()}
+    _log(json.dumps({"serving_remainder": sr_res}))
     _log(json.dumps({"kernels": records}))
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: the whole run")
     _log(card)

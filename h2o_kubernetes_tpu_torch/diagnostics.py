@@ -1,11 +1,12 @@
-"""Diagnostics: the runtime's event ring (``TimeLine``, ``timeline``).
+"""Diagnostics: the runtime's event ring (``TimeLine``, ``timeline``),
+served at ``GET /3/Timeline``. Its cumulative per-kind counts are the
+``timeline`` stat group of the telemetry registry
+(``runtime/telemetry.py``), so event rates reach ``GET /metrics`` after
+the events themselves left the ring.
 
-The JAX package's ``diagnostics.py`` also registers the ring's
-per-kind counts as a telemetry stat group and wraps its device
-profiler and memory stats; those wait for ROADMAP Queue 1 items 7b-2
-and 13, which port the telemetry registry, ``profile`` and
-``device_memory``. What is here is what AutoML's jobs
-(``automl.Job``) and the fault harness (``runtime/faults.py``) write.
+The JAX package's ``diagnostics.py`` also wraps its device profiler and
+memory stats; those wait for ROADMAP Queue 1 item 13 (``profile``,
+``device_memory``).
 """
 
 from __future__ import annotations
@@ -60,3 +61,7 @@ class TimeLine:
 
 
 timeline = TimeLine()
+
+from .runtime.telemetry import register_group as _register_tel_group  # noqa: E402
+
+_register_tel_group("timeline", timeline.kind_counts)

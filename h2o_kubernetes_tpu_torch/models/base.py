@@ -9,9 +9,34 @@ cache of device tensors.
 
 A model keeps its host state (numpy arrays) and builds its device
 state — the flattened trees, the TreeSHAP path tables and pattern
-tables — once, on its device, the first time it scores. The cache
-counts hits and misses per model and process-wide: a miss is a call
-that had to build device state, so warm serving adds only hits.
+tables — on its device the first time it scores. The cache counts hits
+and misses per model and process-wide: a miss is a call that had to
+build device state, so warm serving adds only hits.
+
+The cache is byte-budgeted across models (the multi-tenant replica):
+each resident model is charged the bytes of its device tensors, its
+scoring graphs and its enum-code LUTs (``_serving_resident_bytes``).
+Past
+``H2O_TPU_SCORER_CACHE_BYTES`` (default 1 GiB; <= 0 unbounded) the
+least-recently-scored model's device tensors are dropped
+(``_serving_evict``) while its host arrays stay, and
+``H2O_TPU_SCORER_CACHE_MAX`` (<= 0 off, the default) caps the resident
+count on top. The next call rebuilds the same tensors from the same
+host arrays — a ``promotion``, counted and timed (``promotion_s``) —
+so scores and contributions are bitwise the same across an eviction.
+Eager torch compiles nothing, so a promotion costs host-to-device
+copies and the recapture of the model's scoring graphs.
+
+On a CUDA device a tree model scores only through CUDA graphs: its
+descent is captured once per batch bucket, with and without an offset
+(``_score_graph``), and replayed — one host call in place of ~130
+eager ones, each of which would hand the interpreter lock to a serving
+process's handler threads. A graph reads the model's device state
+through raw pointers, so its entry holds that state, and captures,
+replays and evictions of one model take its ``_graph_guard()`` in turn:
+an eviction waits for the replay in flight, and a state evicted before
+a replay is rebuilt outside the capture. Captures of all models take
+one process-wide lock (they share torch's capture stream).
 
 Scoring batches are padded to power-of-two buckets (``_batch_bucket``).
 Contributions follow ``contrib_dispatch``: on a CUDA device whose depth
@@ -22,17 +47,20 @@ unpadded; elsewhere the JAX package's serving shapes (chunks of
 
 from __future__ import annotations
 
+import collections
 import os
 import threading
+import time
+import weakref
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["Model", "TrainData", "resolve_xy", "resolve_x", "LearnerModel",
            "scorer_cache_stats", "model_scorer_counters",
-           "contrib_dispatch", "score_predictions"]
+           "evict_scorer_cache", "contrib_dispatch", "score_predictions"]
 
 _SCORE_MIN_BATCH = 128          # smallest padded-batch bucket
 _CONTRIB_CHUNK = 16384          # default rows per chunk of the JAX rule
@@ -42,24 +70,173 @@ _CONTRIB_CHUNK = 16384          # default rows per chunk of the JAX rule
 _CONTRIB_OUT_BYTES = 1 << 30
 _CONTRIB_OUT_COPIES = 3
 
-_SCORER_STATS = {"hits": 0, "misses": 0, "models": 0}
-# guards device-state creation + stats: an HTTP handler thread and the
-# REST micro-batcher thread can first-score one model concurrently
+_SCORER_STATS = {"hits": 0, "misses": 0, "models": 0, "evictions": 0,
+                 "promotions": 0, "promotion_s": 0.0}
+# guards the LRU, the byte charges and the stats: an HTTP handler
+# thread and the REST micro-batcher thread can score concurrently
 _SCORER_LOCK = threading.Lock()
+# LRU over models holding device state, and each one's byte charge
+_SCORER_LRU: "collections.OrderedDict[int, weakref.ref]" = \
+    collections.OrderedDict()
+_SCORER_BYTES: dict[int, int] = {}      # id(model) -> charged bytes
+# one CUDA graph capture at a time in the process: captures share
+# torch's capture stream, and a second capture begun on it while one
+# runs fails both
+_CAPTURE_LOCK = threading.Lock()
+_LUT_BYTES_PER_ENTRY = 80       # dict slot + boxed float + key str
 
 
-def scorer_cache_stats() -> dict[str, int]:
-    """Process-wide device-state cache counters: ``misses`` counts
-    calls that built a model's device state, ``hits`` calls that found
-    it, ``models`` the models that built one."""
+def _scorer_cache_cap() -> int:
+    """H2O_TPU_SCORER_CACHE_MAX — optional resident-model COUNT cap on
+    top of the byte budget (<= 0 = off, the default). Read per call."""
+    try:
+        cap = int(os.environ.get("H2O_TPU_SCORER_CACHE_MAX", "0"))
+    except ValueError:
+        cap = 0
+    return max(0, cap)
+
+
+def _scorer_cache_budget() -> int:
+    """H2O_TPU_SCORER_CACHE_BYTES (default 1 GiB) — the resident-bytes
+    budget over every model's device state; <= 0 = unbounded. Read per
+    call, so a live server can be re-tuned."""
+    try:
+        b = int(float(os.environ.get("H2O_TPU_SCORER_CACHE_BYTES",
+                                     str(2 ** 30))))
+    except ValueError:
+        b = 2 ** 30
+    return b
+
+
+def scorer_cache_stats() -> dict:
+    """Process-wide device-state cache counters: ``misses`` counts calls
+    that built device state, ``hits`` calls that found it, ``models``
+    the models that ever built one; ``evictions`` models whose device
+    state the byte budget (or the count cap, or ``evict_scorer_cache``)
+    dropped, ``promotions`` the misses that rebuilt an evicted state
+    and ``promotion_s`` the seconds those rebuilds took; ``resident``
+    models holding device state now, charged ``resident_bytes`` against
+    ``budget_bytes``."""
     with _SCORER_LOCK:
-        return dict(_SCORER_STATS)
+        out = dict(_SCORER_STATS)
+        resident, rbytes = 0, 0
+        for vid, ref in _SCORER_LRU.items():
+            if ref() is not None:       # skip collected models' charges
+                resident += 1
+                rbytes += _SCORER_BYTES.get(vid, 0)
+        out["resident"] = resident
+        out["resident_bytes"] = rbytes
+        out["budget_bytes"] = _scorer_cache_budget()
+    return out
 
 
 def model_scorer_counters(model) -> dict[str, int]:
-    """Per-model cache counters (hits/misses)."""
+    """Per-model cache counters (hits/misses/promotions). They live on
+    the model's host side and survive eviction, so ``/3/Stats`` reports
+    warm_cache_misses = (misses - promotions) - the warm-up baseline."""
     return dict(model.__dict__.get("_scorer_counters")
-                or {"hits": 0, "misses": 0})
+                or {"hits": 0, "misses": 0, "promotions": 0})
+
+
+def evict_scorer_cache(model=None) -> int:
+    """Drop one model's device state (or every resident model's when
+    ``model`` is None) exactly as the byte budget would: device tensors
+    go, host arrays stay, the next call promotes. Returns the number of
+    models evicted."""
+    with _SCORER_LOCK:
+        victims = []
+        if model is None:
+            for vid, ref in list(_SCORER_LRU.items()):
+                del _SCORER_LRU[vid]
+                _SCORER_BYTES.pop(vid, None)
+                m = ref()
+                if m is not None:
+                    victims.append(m)
+        elif _SCORER_LRU.pop(id(model), None) is not None:
+            _SCORER_BYTES.pop(id(model), None)
+            victims.append(model)
+        for m in victims:
+            m._serving_evict()
+            _SCORER_STATS["evictions"] += 1
+    return len(victims)
+
+
+def _tensor_bytes(obj) -> int:
+    """Bytes of the tensors in ``obj`` (a tensor, or tuples, lists and
+    NamedTuples of them; anything else counts 0)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(_tensor_bytes(o) for o in obj)
+    return 0
+
+
+def device_synchronize(device) -> None:
+    """``torch.cuda.synchronize(device)`` outside every scoring graph's
+    capture: a device-wide wait on another thread while a capture runs
+    fails with "operation not permitted when stream is capturing"."""
+    with _CAPTURE_LOCK:
+        torch.cuda.synchronize(device)
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds for the private memory pool
+    ``pool`` (a CUDA graph's): its segments, whatever other threads
+    allocate meanwhile."""
+    pool = tuple(pool)
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == pool)
+
+
+class _ScoreGraph(NamedTuple):
+    """One captured scoring descent. ``state`` holds the device tensors
+    the capture reads, so they live as long as the graph does."""
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor                 # the input rows a replay reads
+    offset: "torch.Tensor | None"   # the per-row offsets, when captured
+    out: torch.Tensor
+    state: tuple
+    nbytes: int                     # x, offset and the graph's pool
+
+
+def _enforce_budget(keep_id: int) -> None:
+    """Evict least-recently-scored models until the population fits the
+    byte budget and the count cap, both read now (a budget lowered on a
+    live server takes effect at the next call). The model ``keep_id``
+    is never a victim. Caller holds _SCORER_LOCK."""
+    cap = _scorer_cache_cap()
+    budget = _scorer_cache_budget()
+    while len(_SCORER_LRU) > 1 and (
+            (cap and len(_SCORER_LRU) > cap)
+            or (budget > 0 and sum(_SCORER_BYTES.values()) > budget)):
+        vid, ref = next(iter(_SCORER_LRU.items()))
+        if vid == keep_id:
+            break
+        del _SCORER_LRU[vid]
+        _SCORER_BYTES.pop(vid, None)
+        victim = ref()
+        if victim is None:
+            continue                 # already collected: just reclaim
+        victim._serving_evict()
+        _SCORER_STATS["evictions"] += 1
+
+
+def _charge_and_evict(model) -> None:
+    """Re-charge ``model``'s bytes, then keep the budget. Caller holds
+    _SCORER_LOCK."""
+    for vid in [v for v, r in _SCORER_LRU.items() if r() is None]:
+        del _SCORER_LRU[vid]
+        _SCORER_BYTES.pop(vid, None)
+    mid = id(model)
+    if mid not in _SCORER_LRU:       # evicted while it was building
+        return
+    _SCORER_BYTES[mid] = model._serving_resident_bytes()
+    _enforce_budget(mid)
+
+
+from ..runtime.telemetry import register_group as _register_tel_group  # noqa: E402
+
+_register_tel_group("scorer_cache", scorer_cache_stats)
 
 
 @dataclass
@@ -87,7 +264,11 @@ def resolve_xy(frame, y: str, x: Sequence[str] | None = None,
     """Resolve and validate the response, features, weights and offset;
     infer the distribution from the response (2 levels: bernoulli, more:
     multinomial, numeric: gaussian). Rows with an NA response or offset
-    get weight 0."""
+    get weight 0. The training entry's health gate (the ``train.step``
+    fault point) runs first."""
+    from ..runtime.health import require_healthy
+
+    require_healthy()
     if y not in frame:
         raise ValueError(f"response column '{y}' not in frame")
     ignored = set(ignored or []) | {y}
@@ -148,6 +329,9 @@ def resolve_x(frame, x: Sequence[str] | None = None,
               ignored: Sequence[str] | None = None) -> TrainData:
     """The unsupervised resolve (the JAX package's ``resolve_x``): the
     features only; ``y`` is zeros, every row has weight 1, one class."""
+    from ..runtime.health import require_healthy
+
+    require_healthy()
     names = _feature_names(frame, x, set(ignored or []))
     fdoms = {n: list(frame.vec(n).domain) for n in names
              if frame.vec(n).is_enum()}
@@ -211,8 +395,19 @@ class Model:
     hooks)."""
 
     algo = "base"
-    # the attribute whose presence marks the scoring device state built
+    # the attribute whose presence marks the scoring device state built,
+    # and the other device attributes built with it
     _score_state = "_flat_trees"
+    _score_extra: tuple = ()
+    # True where ``_score_matrix`` is a fixed sequence of device ops
+    # (no host sync, no data-dependent shapes): on a CUDA device its
+    # launches are captured once per batch bucket as a CUDA graph
+    _score_graphs_ok = False
+    # False where the device tensors ARE the model (nothing to rebuild
+    # from host arrays): such a model never enters the byte-budget LRU
+    _evictable = True
+    # True on models REST serves inline (JSON rows -> score_numpy)
+    _serving_rows = False
     # models/cv.CVResult when trained with nfolds (models/cv.py)
     cv = None
 
@@ -243,28 +438,160 @@ class Model:
     def _score_matrix(self, X: torch.Tensor, offset=None) -> torch.Tensor:
         raise NotImplementedError
 
+    _SHAP_DEVICE = ("_shap_tables", "_shap_ctab", "_shap_slots")
+
+    def _graph_guard(self) -> threading.Lock:
+        """The lock under which this model's graphs are captured and
+        replayed and its serving state is evicted: a replay reads the
+        state through raw pointers, so an eviction waits for it. Taken
+        after ``_SCORER_LOCK`` (an eviction holds both), never before."""
+        return self.__dict__.setdefault("_graph_lock", threading.Lock())
+
+    def _serving_evict(self) -> None:
+        """Drop every piece of serving state rebuildable from the host
+        arrays: the scoring tensors and their CUDA graphs, the TreeSHAP
+        path and pattern tables and the enum-code LUTs. The kinds that
+        were built (and the graphs' buckets) are remembered, so their
+        rebuild counts as a promotion and rebuilds the same graphs."""
+        with self._graph_guard():
+            built = self.__dict__.setdefault("_evicted_kinds", set())
+            if self.__dict__.get(self._score_state) is not None:
+                built.add("score")
+            if self.__dict__.get("_shap_tables") is not None:
+                built.add("contrib")
+            graphs = self.__dict__.pop("_score_graphs", None)
+            if graphs:
+                self.__dict__.setdefault("_graph_buckets",
+                                         set()).update(graphs)
+            for name in ((self._score_state,) + self._score_extra
+                         + self._SHAP_DEVICE + ("_serving_luts",)):
+                self.__dict__.pop(name, None)
+
+    def _serving_resident_bytes(self) -> int:
+        """Bytes this model's serving state pins: its device tensors
+        (scoring state, TreeSHAP path and pattern tables, slot records),
+        its scoring graphs' buffers and pools and its enum-code LUTs."""
+        total = sum(_tensor_bytes(self.__dict__.get(name)) for name in (
+            (self._score_state,) + self._score_extra + self._SHAP_DEVICE))
+        # a snapshot: another thread may be capturing a bucket
+        for ent in tuple((self.__dict__.get("_score_graphs") or {}).values()):
+            total += ent.nbytes
+        for lut in (self.__dict__.get("_serving_luts") or {}).values():
+            total += _LUT_BYTES_PER_ENTRY * len(lut)
+        return total
+
+    def _score_graph(self, rows: int, offset: bool) -> _ScoreGraph:
+        """``_score_matrix`` at a ``rows``-row bucket (with a per-row
+        offset or without) as a CUDA graph, captured on the first call:
+        replaying it is one host call where the eager descent makes
+        ~130, each of which hands the interpreter lock to the serving
+        process's other threads. The state is built before the capture
+        (host-to-device copies cannot be captured). Caller holds
+        ``_graph_guard()``, so no eviction runs meanwhile."""
+        graphs = self.__dict__.setdefault("_score_graphs", {})
+        ent = graphs.get((rows, offset))
+        if ent is None:
+            state = self._serving_prepare()
+            dev = self.device
+            x = torch.zeros((rows, len(self.feature_names)),
+                            dtype=torch.float32, device=dev)
+            off = torch.zeros(rows, dtype=torch.float32, device=dev) \
+                if offset else None
+            g = torch.cuda.CUDAGraph()
+            with _CAPTURE_LOCK, torch.cuda.graph(
+                    g, capture_error_mode="thread_local"):
+                out = self._score_matrix(x, off)
+            ent = _ScoreGraph(g, x, off, out, state,
+                              _tensor_bytes((x, off)) + _pool_bytes(g.pool()))
+            graphs[(rows, offset)] = ent
+        return ent
+
+    def _score_replay(self, Xp: np.ndarray, offp: "np.ndarray | None",
+                      n: int) -> np.ndarray:
+        """``_score_matrix`` on the padded batch ``Xp`` (and offsets
+        ``offp``) through the bucket's CUDA graph: the same launches on
+        the same inputs, so the same bits as the eager descent. A state
+        evicted since ``_cached`` is rebuilt here, counted as that call's
+        miss."""
+        key = (Xp.shape[0], offp is not None)
+        with self._graph_guard():
+            rebuilt = self.__dict__.get(self._score_state) is None
+            new = key not in (self.__dict__.get("_score_graphs") or {})
+            t0 = time.perf_counter()
+            ent = self._score_graph(*key)
+            dt = time.perf_counter() - t0
+            ent.x.copy_(torch.from_numpy(Xp))
+            if offp is not None:
+                ent.offset.copy_(torch.from_numpy(offp))
+            ent.graph.replay()
+            res = ent.out[:n].cpu().numpy()
+        if self._evictable and (new or rebuilt):
+            with _SCORER_LOCK:          # the new graph joins the charge
+                if rebuilt and self._count_call("score", False)[0]:
+                    _SCORER_STATS["promotion_s"] += dt
+                _charge_and_evict(self)
+        return res
+
+    def _count_call(self, kind: str, built: bool) -> tuple[bool, bool]:
+        """Count one call for ``kind``: a hit, or a miss (a promotion
+        when an eviction dropped that state), and make the model the
+        most recently scored. Returns (promotion, new to the LRU).
+        Caller holds _SCORER_LOCK."""
+        ctr = self.__dict__.setdefault(
+            "_scorer_counters", {"hits": 0, "misses": 0, "promotions": 0})
+        promo = fresh = False
+        if built:
+            ctr["hits"] += 1
+            _SCORER_STATS["hits"] += 1
+        else:
+            if not (ctr["hits"] or ctr["misses"]):
+                _SCORER_STATS["models"] += 1
+            ctr["misses"] += 1
+            _SCORER_STATS["misses"] += 1
+            ev = self.__dict__.get("_evicted_kinds")
+            if ev and kind in ev:
+                ev.discard(kind)
+                promo = True
+                ctr["promotions"] += 1
+                _SCORER_STATS["promotions"] += 1
+        if self._evictable:
+            mid = id(self)
+            fresh = mid not in _SCORER_LRU
+            _SCORER_LRU[mid] = weakref.ref(self)
+            _SCORER_LRU.move_to_end(mid)
+        return promo, fresh
+
     def _cached(self, kind: str) -> None:
         """Make sure the device state for ``kind`` ("score" or
-        "contrib") exists, counting a cache hit or a miss."""
+        "contrib") exists, counting a cache hit or a miss (a promotion
+        when an eviction dropped it), and keep the byte budget."""
+        key = "_shap_tables" if kind == "contrib" else self._score_state
         with _SCORER_LOCK:
-            ctr = self.__dict__.setdefault("_scorer_counters",
-                                           {"hits": 0, "misses": 0})
-            key = "_shap_tables" if kind == "contrib" else \
-                self._score_state
-            if self.__dict__.get(key) is not None:
-                ctr["hits"] += 1
-                _SCORER_STATS["hits"] += 1
-            else:
-                if not (ctr["hits"] or ctr["misses"]):
-                    _SCORER_STATS["models"] += 1
-                ctr["misses"] += 1
-                _SCORER_STATS["misses"] += 1
-        # built outside the lock (a first contributions call builds the
-        # path tables on the host): racing first calls of one model
-        # build the same state twice, and other models are not held up
-        self._serving_prepare()
-        if kind == "contrib":
-            self._contrib_prepare()
+            built = self.__dict__.get(key) is not None
+            promo, fresh = self._count_call(kind, built)
+            if self._evictable and built and not fresh:
+                _enforce_budget(id(self))
+        if not built:
+            # built outside the lock (a first contributions call builds
+            # the path tables on the host): other models are not held up
+            t0 = time.perf_counter()
+            self._serving_prepare()
+            if kind == "contrib":
+                self._contrib_prepare()
+            if self.device.type == "cuda":
+                if kind == "score":
+                    # a promotion recaptures the evicted graphs
+                    with self._graph_guard():
+                        for b in sorted(self.__dict__.pop(
+                                "_graph_buckets", ())):
+                            self._score_graph(*b)
+                device_synchronize(self.device)
+            dt = time.perf_counter() - t0
+        if self._evictable and (fresh or not built):
+            with _SCORER_LOCK:
+                if promo:
+                    _SCORER_STATS["promotion_s"] += dt
+                _charge_and_evict(self)
 
     # -- TreeSHAP contributions --------------------------------------------
 
@@ -293,8 +620,9 @@ class Model:
         built once."""
         st = self.__dict__.get("_shap_tables")
         ct = self.__dict__.get("_shap_ctab")
-        if st is not None and ct is not None:
-            return st, ct
+        sl = self.__dict__.get("_shap_slots")
+        if st is not None and ct is not None and sl is not None:
+            return st, ct, sl
         stn = self.__dict__.get("_shap_tables_np")
         if stn is None:
             from .tree.shap import (_PATTERN_TABLE_MAX_BYTES,
@@ -324,11 +652,11 @@ class Model:
               for c in self.__dict__["_shap_ctab_np"]]
         # the kernel's 16-byte slot records, once per model; set before
         # the tables, whose presence marks the state built
-        self._shap_slots = [None if c is None else pack_slots(g)
-                            for g, c in zip(st, ct)]
+        sl = [None if c is None else pack_slots(g) for g, c in zip(st, ct)]
+        self._shap_slots = sl
         self._shap_ctab = ct
         self._shap_tables = st
-        return st, ct
+        return st, ct, sl
 
     def _contrib_matrix(self, X: torch.Tensor) -> torch.Tensor:
         """[rows, F+1] contributions on raw features: each depth group
@@ -339,8 +667,7 @@ class Model:
         from ..ops.shap_kernel import flat_shap_tab_kernel
         from .tree.shap import flat_shap
 
-        groups, ctabs = self._contrib_prepare()
-        slots = self.__dict__["_shap_slots"]
+        groups, ctabs, slots = self._contrib_prepare()
         em = self._contrib_enum_mask()
         phi = None
         for g, ct, sl in zip(groups, ctabs, slots):
@@ -383,13 +710,14 @@ class Model:
         says (the whole batch on a CUDA device whose groups all have
         pattern tables; else chunks, each padded to its pow2 bucket),
         under the circuit breaker and the device guard."""
+        from ..runtime import faults
         from ..runtime.health import device_dispatch, require_healthy
         from ..runtime.lifecycle import breaker_guard
 
         reason = self.contrib_support()
         if reason:
             raise ValueError(reason)
-        require_healthy()
+        require_healthy(fault_site=None)
         X = np.asarray(X, dtype=np.float32)
         if X.ndim != 2 or X.shape[1] != len(self.feature_names):
             raise ValueError(
@@ -400,6 +728,7 @@ class Model:
             raise ValueError("contrib_numpy: empty batch")
         with breaker_guard("contributions scoring"), \
                 device_dispatch("contributions scoring", locking=False):
+            faults.fire("score.dispatch")
             self._cached("contrib")
             chunk, pad = self._contrib_dispatch()
             outs = []
@@ -473,10 +802,11 @@ class Model:
         predictions. Rows are padded to a power-of-two bucket; the
         dispatch runs under the serving circuit breaker and the device
         guard."""
+        from ..runtime import faults
         from ..runtime.health import device_dispatch, require_healthy
         from ..runtime.lifecycle import breaker_guard
 
-        require_healthy()
+        require_healthy(fault_site=None)
         X = np.asarray(X, dtype=np.float32)
         if X.ndim != 2 or X.shape[1] != len(self.feature_names):
             raise ValueError(
@@ -503,12 +833,18 @@ class Model:
                     f"offset has {offset.shape[0]} rows, X has {n}")
             offp = np.zeros(b, dtype=np.float32)
             offp[:n] = offset
-            offp = torch.as_tensor(offp, device=self.device)
         with breaker_guard("model scoring"), \
                 device_dispatch("model scoring", locking=False):
+            # the rehearsable serving fault point: kind dispatch_error
+            # feeds the breaker without locking the node
+            faults.fire("score.dispatch")
             self._cached("score")
+            if self._score_graphs_ok and self.device.type == "cuda":
+                return self._score_replay(Xp, offp, n)
             out = self._score_matrix(
-                torch.as_tensor(Xp, device=self.device), offp)
+                torch.as_tensor(Xp, device=self.device),
+                None if offp is None else
+                torch.as_tensor(offp, device=self.device))
             return out[:n].cpu().numpy()
 
     # -- Frame surface ---------------------------------------------------------
@@ -551,9 +887,13 @@ class Model:
     def predict(self, frame):
         """H2O-style prediction frame: ``predict`` (+ per-class probs),
         on the CPU."""
+        return self._prediction_frame(self.predict_raw(frame))
+
+    def _prediction_frame(self, out: np.ndarray):
+        """[n, K] probabilities or [n] predictions -> the H2O-style
+        prediction frame on the CPU (REST's batched frame route)."""
         from ..frame import Frame, Vec
 
-        out = self.predict_raw(frame)
         if self.nclasses == 1:
             return Frame.from_arrays({"predict": out}, device="cpu")
         dom = self.response_domain or [str(i) for i in
@@ -678,6 +1018,7 @@ class LearnerModel(Model):
     meta, with the ``DataInfo`` layout of the expanded-design ones."""
 
     _score_state = "_device_ready"
+    _evictable = False
 
     def _init_layout(self, data: TrainData, device) -> None:
         self.feature_names = list(data.feature_names)

@@ -210,7 +210,7 @@ def cross_validate(est, y: str, frame: Frame, cv: CVArgs,
         box["preds"][hold] = pk
         fold_metrics[k] = _combined_metrics(m, y_all[hold], pk)
 
-    host = HostStream(name="h2o-cv-host")
+    host = HostStream(name="h2o-torch-cv-host")
     try:
         for k in range(nfolds):
             # fail fast as a serial loop would: an earlier fold's error

@@ -210,6 +210,7 @@ class DeepLearningModel(Model):
 
     algo = "deeplearning"
     _score_state = "_dl_state"
+    _serving_rows = True
 
     def __init__(self, data: TrainData, params: DeepLearningParams,
                  dinfo: DataInfo, net: MLP, loss_kind: str):

@@ -443,6 +443,7 @@ class GLMModel(Model):
 
     algo = "glm"
     _score_state = "_glm_state"
+    _serving_rows = True
 
     def __init__(self, data: TrainData, params: GLMParams, dinfo: DataInfo,
                  beta: torch.Tensor, lambda_used: float,

@@ -39,6 +39,7 @@ def _frame_of(cols: dict[str, torch.Tensor]) -> Frame:
 
 class StackedEnsembleModel(Model):
     algo = "stackedensemble"
+    _evictable = False        # scores through its base models
 
     def __init__(self, data, base_models: list, metalearner,
                  base_tags: list[str]):

@@ -18,7 +18,13 @@ waits for the compute stream to be done with the chunk it held before.
 The copies' and the consumer's times are CUDA events (host clocks on
 the CPU); ``boost_trees_chunked`` returns their sums: the upload time,
 the histogram time, the passes' wall time and the overlap ratio (the
-share of the upload time hidden under the histograms).
+share of the upload time hidden under the histograms), kept on the
+model as ``ooc_stats``. The same sums feed the telemetry registry
+(``runtime/telemetry.ooc_stream_account``: the ``ooc_stream`` stat
+group and the ``h2o_ooc_*`` series on ``GET /metrics``), and every
+level's histogram and split find is a ``phase_span`` (the
+``h2o_train_phase_seconds`` histogram and the ``diagnostics`` TimeLine;
+host clock, not synchronized).
 
 Numerics: each level's histograms are summed over the chunks in chunk
 order with f32 adds, and every split and leaf goes through the shared
@@ -48,6 +54,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ...ops.histogram import build_histogram, expand_unit_hess
+from ...runtime import telemetry
 from .core import (BoostParams, Tree, TreeParams, _boost_grad_hess,
                    _find_splits, _leaf_value, descend_level, descend_tree,
                    goss_cap_rows, goss_compact, goss_local_counts,
@@ -97,7 +104,9 @@ class BinnedChunks:
         event times on the card (this synchronizes), host clock
         times on the CPU."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            from ..base import device_synchronize
+
+            device_synchronize(self.device)
             ms = {k: sum(s.elapsed_time(e) for s, e in v)
                   for k, v in self._marks.items()}
         else:
@@ -293,18 +302,21 @@ def _grow_tree_chunked(chunks: BinnedChunks, gs, hs, wts, p: TreeParams,
             cov[idx] = tot[:, 2]
             break
         acc = None
-        for ci, bc in enumerate(_stream(chunks)):
-            if d == 0:
-                hc = _hist(bc, rel[ci], gs[ci], hs[ci], wts[ci], 1, p.n_bins,
-                           p)
-            else:
-                rel[ci], absn[ci] = _descend(bc, rel[ci], absn[ci], split,
-                                             d - 1, p.n_bins, efb)
-                left_rel = torch.where((rel[ci] >= 0) & (rel[ci] % 2 == 0),
-                                       rel[ci] // 2, -1)
-                hc = _hist(bc, left_rel, gs[ci], hs[ci], wts[ci],
-                           n_nodes // 2, p.n_bins, p)
-            acc = hc if acc is None else acc + hc
+        with telemetry.phase_span("level_hist", depth=d):
+            for ci, bc in enumerate(_stream(chunks)):
+                if d == 0:
+                    hc = _hist(bc, rel[ci], gs[ci], hs[ci], wts[ci], 1,
+                               p.n_bins, p)
+                else:
+                    rel[ci], absn[ci] = _descend(bc, rel[ci], absn[ci],
+                                                 split, d - 1, p.n_bins,
+                                                 efb)
+                    left_rel = torch.where(
+                        (rel[ci] >= 0) & (rel[ci] % 2 == 0),
+                        rel[ci] // 2, -1)
+                    hc = _hist(bc, left_rel, gs[ci], hs[ci], wts[ci],
+                               n_nodes // 2, p.n_bins, p)
+                acc = hc if acc is None else acc + hc
         if p.unit_hess:
             acc = expand_unit_hess(acc)
         if d == 0:
@@ -315,8 +327,9 @@ def _grow_tree_chunked(chunks: BinnedChunks, gs, hs, wts, p: TreeParams,
             hist_r = torch.where(keep, hist_prev, 0.0) - hist_l
             hist = torch.stack([hist_l, hist_r], dim=1).reshape(
                 (n_nodes,) + acc.shape[1:])
-        (feat, bin_, na_l, can, v, g_best, c_, left_prev,
-         right_prev) = _find_splits(hist, p, None, efb)
+        with telemetry.phase_span("split_find", depth=d):
+            (feat, bin_, na_l, can, v, g_best, c_, left_prev,
+             right_prev) = _find_splits(hist, p, None, efb)
         sf[idx] = torch.where(can, feat, -1)
         sb[idx] = bin_
         nl[idx] = na_l
@@ -383,7 +396,7 @@ def boost_trees_chunked(chunks: BinnedChunks, n_trees: int, p: TreeParams,
     (or a GOSS round), and the margin update in one more pass (the
     final level's descent). Returns (margin [rows] on the device, trees
     stacked [T, N], the GOSS rows dropped or None, the stream's
-    ``stream_stats``)."""
+    ``stream_stats``, also fed to ``telemetry.ooc_stream_account``)."""
     if bp.drf_mode or bp.sample_rate < 1.0 or \
             bp.col_sample_rate_per_tree < 1.0 or p.mtries > 0:
         raise ValueError("out-of-core boosting takes pointwise boosting "
@@ -420,4 +433,8 @@ def boost_trees_chunked(chunks: BinnedChunks, n_trees: int, p: TreeParams,
         trees.append(tree)
     margin = torch.cat(chunks.margin)[: chunks.padded_rows]
     stacked = Tree(*(torch.stack(a) for a in zip(*trees)))
-    return margin, stacked, dropped, chunks.stream_stats()
+    stats = chunks.stream_stats()
+    telemetry.ooc_stream_account(stats["upload_ms"] / 1e3,
+                                 stats["compute_ms"] / 1e3,
+                                 stats["wall_ms"] / 1e3)
+    return margin, stacked, dropped, stats

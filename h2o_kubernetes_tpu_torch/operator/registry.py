@@ -4,7 +4,9 @@ The training side publishes a trained tree ensemble as a versioned
 MOJO-v2 artifact (``ModelRegistry.publish``) under a ``persist.py`` root
 (a local directory or ``mem://``), and pushes it to scorer replicas
 (``push``: ``POST /3/ModelRegistry/load`` with the artifact's path and
-sha256 for a file root, the bytes inline for ``mem://``).
+sha256 for a file root, the bytes inline for ``mem://``; ``push_many``
+declares the tenant set through ``POST /3/ModelRegistry/require``
+first).
 
 A scorer replica never sees the training stack: it wraps the artifact's
 flat arrays in a ``FlatTreeScorer`` — a ``Model`` whose
@@ -71,6 +73,10 @@ class FlatTreeScorer(Model):
     arrays and ``model.json`` meta, on ``device`` (None = the CUDA
     card; raises without one unless ``device="cpu"``)."""
 
+    _score_extra = ("_enum_mask", "_init_t")
+    _serving_rows = True
+    _score_graphs_ok = True
+
     def __init__(self, meta: dict, arrays: dict, device=None):
         self.device = resolve_device(device)
         self._artifact_meta = dict(meta)
@@ -97,23 +103,26 @@ class FlatTreeScorer(Model):
 
     def _serving_prepare(self):
         """Build (or fetch) the device arrays; returns (FlatTrees,
-        enum mask, init score)."""
-        ft = self.__dict__.get("_flat_trees")
-        if ft is not None:
-            return ft, self._enum_mask, self._init_t
+        enum mask, init score). Each is read once, so an eviction on
+        another thread can only make this call rebuild them."""
+        d = self.__dict__
+        st = (d.get("_flat_trees"), d.get("_enum_mask"), d.get("_init_t"))
+        if all(t is not None for t in st):
+            return st
         from ..models.tree.core import FlatTrees
 
         a = self._artifact_arrays
         dev = self.device
-        self._enum_mask = torch.as_tensor(
-            np.asarray(a["enum_mask"]).astype(bool), device=dev)
-        self._init_t = torch.as_tensor(
+        em = torch.as_tensor(np.asarray(a["enum_mask"]).astype(bool),
+                             device=dev)
+        init = torch.as_tensor(
             np.asarray(a["init_score"], dtype=np.float32).reshape(-1),
             device=dev)
         ft = FlatTrees(*(torch.as_tensor(a[f"flat_{f}"], device=dev)
                          for f in _FLAT_PARTS))
-        self._flat_trees = ft
-        return ft, self._enum_mask, self._init_t
+        # the flat trees last: their presence marks the state built
+        self._enum_mask, self._init_t, self._flat_trees = em, init, ft
+        return ft, em, init
 
     # -- TreeSHAP contributions ---------------------------------------------
 
@@ -297,17 +306,20 @@ class ModelRegistry:
 
     def push(self, base_url: str, name: str, version: int,
              model_key: str, warm_buckets: Sequence[int] | None = None,
-             timeout: float = 300.0) -> dict:
+             timeout: float = 300.0, slo: str | None = None) -> dict:
         """POST the artifact to a replica's ``/3/ModelRegistry/load`` and
         wait until it has loaded and warmed (the route warms before it
         answers). ``warm_buckets=None`` lets the replica use its own
-        ``H2O_TPU_POOL_WARM_BUCKETS``. A file root sends the artifact's
-        path and sha256 (the replica reads and checks it); a ``mem://``
-        root, which exists only in this process, sends the bytes."""
+        ``H2O_TPU_POOL_WARM_BUCKETS``; ``slo`` is the tenant's default
+        SLO class there. A file root sends the artifact's path and
+        sha256 (the replica reads and checks it); a ``mem://`` root,
+        which exists only in this process, sends the bytes."""
         body = {"model_id": model_key, "name": name,
                 "version": int(version)}
         if warm_buckets is not None:
             body["warm_buckets"] = [int(b) for b in warm_buckets]
+        if slo is not None:
+            body["slo"] = slo
         if self.root.startswith("mem://"):
             body["artifact_b64"] = base64.b64encode(
                 self.fetch(name, version)).decode()
@@ -319,16 +331,24 @@ class ModelRegistry:
 
     def push_many(self, base_url: str, items: Sequence[Sequence],
                   warm_buckets: Sequence[int] | None = None,
-                  timeout: float = 300.0) -> list[dict]:
-        """Push a set of artifacts to one replica: ``items`` is a
-        sequence of (artifact, version, model_key) entries; returns the
-        per-artifact load responses. (The JAX package's replica also
-        takes a required-model set first, ``/3/ModelRegistry/require``;
-        the port's replica gains that route with ROADMAP Queue 1 item
-        7b-2.)"""
-        return [self.push(base_url, name, version, key,
-                          warm_buckets=warm_buckets, timeout=timeout)
-                for name, version, key in items]
+                  timeout: float = 300.0,
+                  require: bool = True) -> list[dict]:
+        """Push a tenant set to one replica: ``items`` is a sequence of
+        (artifact, version, model_key[, slo]) entries. With ``require``
+        (the default) the replica's required-model set is declared
+        first (``POST /3/ModelRegistry/require``), so its ``/readyz``
+        cannot pass between the first artifact landing and the last,
+        whatever order the pushes complete in. Returns the per-artifact
+        load responses."""
+        items = [tuple(it) for it in items]
+        if require:
+            self._post_json(base_url, "/3/ModelRegistry/require",
+                            {"model_ids": [it[2] for it in items]},
+                            timeout)
+        return [self.push(base_url, it[0], it[1], it[2],
+                          warm_buckets=warm_buckets, timeout=timeout,
+                          slo=it[3] if len(it) > 3 else None)
+                for it in items]
 
     @staticmethod
     def _post_json(base_url: str, path: str, body: dict,

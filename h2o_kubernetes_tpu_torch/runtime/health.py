@@ -5,7 +5,13 @@ error escapes a locking dispatch, ``healthy()`` flips false and
 ``require_healthy()`` raises ``ClusterHealthError`` until ``reset()``.
 The probe is one small reduction on the device, run under a deadline
 in a daemon thread, so a wedged card reports unhealthy instead of
-hanging the caller.
+hanging the caller; ``start_heartbeat`` runs it every ``interval``
+seconds on a background thread (``h2o-torch-heartbeat``) until
+``stop_heartbeat``, which the drain path calls with ``join=True``.
+
+Fault points (``runtime/faults.py``): ``health.probe`` fires inside
+each probe; ``train.step`` fires in ``require_healthy()`` (callers
+outside training pass ``fault_site=None``).
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 
 __all__ = ["ClusterHealthError", "heartbeat", "healthy", "health_status",
            "require_healthy", "is_device_error", "device_dispatch",
-           "mark_unhealthy", "reset"]
+           "mark_unhealthy", "reset", "start_heartbeat", "stop_heartbeat"]
 
 _state = {
     "healthy": True,
@@ -27,6 +33,8 @@ _state = {
     "error": "",
 }
 _lock = threading.Lock()
+_thread: threading.Thread | None = None       # the heartbeat loop
+_stop = threading.Event()
 # the in-flight probe worker: a wedged device must not collect one more
 # hung daemon thread per heartbeat() call
 _probe_thread: threading.Thread | None = None
@@ -39,6 +47,9 @@ class ClusterHealthError(RuntimeError):
 def _probe(device) -> float:
     """One heartbeat: sum a small tensor on the device and read it
     back (the read-back synchronises, so a dead context surfaces)."""
+    from . import faults
+
+    faults.fire("health.probe")   # rehearse hangs/errors without a card
     return float(torch.ones(8, device=device).sum().item())
 
 
@@ -94,8 +105,17 @@ def health_status() -> dict:
         return dict(_state)
 
 
-def require_healthy() -> None:
-    """Fail fast: work on an unhealthy node fails cleanly."""
+def require_healthy(fault_site: str | None = "train.step") -> None:
+    """Fail fast: work on an unhealthy node fails cleanly.
+
+    Training entries call it with the default, which makes it the
+    ``train.step`` fault point: an armed ``device_error`` flips health
+    and raises here. Scoring callers pass ``fault_site=None``, so an
+    armed train.step fault is never consumed by a request."""
+    from . import faults
+
+    if fault_site:
+        faults.fire(fault_site)
     with _lock:
         if not _state["healthy"]:
             raise ClusterHealthError(
@@ -107,8 +127,10 @@ def is_device_error(e: BaseException) -> bool:
     """True for CUDA runtime failures — the class of exception that
     means the device, not the caller's inputs, is broken: an
     out-of-memory error, or a runtime/accelerator error whose message
-    names CUDA."""
-    if isinstance(e, torch.cuda.OutOfMemoryError):
+    names CUDA; or the fault harness's ``InjectedDeviceError``."""
+    from .faults import InjectedDeviceError
+
+    if isinstance(e, (torch.cuda.OutOfMemoryError, InjectedDeviceError)):
         return True
     acc = getattr(torch, "AcceleratorError", None)
     if acc is not None and isinstance(e, acc):
@@ -121,11 +143,22 @@ def device_dispatch(desc: str, locking: bool = True):
     """Guard a device dispatch: a device error escaping it re-surfaces
     as ClusterHealthError. ``locking=False`` (the serving paths) feeds
     the circuit breaker without marking the node unhealthy — one bad
-    scoring dispatch corrupts no state and must not demand a restart."""
+    scoring dispatch corrupts no state and must not demand a restart.
+    An injected ``device_error`` has already marked the node unhealthy;
+    an injected ``dispatch_error`` has not, and stays a breaker matter."""
+    from .faults import InjectedDeviceError
+
     try:
         yield
     except ClusterHealthError:
         raise
+    except InjectedDeviceError as e:
+        if healthy():
+            raise ClusterHealthError(
+                f"{desc}: {e} — transient dispatch failure (circuit "
+                "breaker territory, node not locked)") from e
+        raise ClusterHealthError(
+            f"{desc}: {e} — restart the serving process") from e
     except Exception as e:
         if not is_device_error(e):
             raise
@@ -152,3 +185,35 @@ def reset() -> None:
     with _lock:
         _state.update(healthy=True, error="", last_beat=None, beats=0)
         _probe_thread = None
+
+
+def start_heartbeat(interval: float = 30.0, timeout: float = 60.0,
+                    device=None) -> None:
+    """Background heartbeat loop on ``device`` (None = the card): one
+    probe every ``interval`` seconds. Idempotent while it runs."""
+    global _thread
+    from .backend import resolve_device
+
+    dev = resolve_device(device)
+    if _thread is not None and _thread.is_alive():
+        return
+    _stop.clear()
+
+    def loop():
+        while not _stop.wait(interval):
+            heartbeat(dev, timeout=timeout)
+
+    _thread = threading.Thread(target=loop, name="h2o-torch-heartbeat",
+                               daemon=True)
+    _thread.start()
+
+
+def stop_heartbeat(join: bool = False, timeout: float = 5.0) -> None:
+    """Stop the background loop. The drain path passes ``join=True`` so
+    interpreter exit never races a probe; the join is bounded (a probe
+    wedged on the device cannot be joined and must not block the
+    drain)."""
+    _stop.set()
+    t = _thread
+    if join and t is not None and t.is_alive():
+        t.join(timeout)

@@ -2,9 +2,14 @@
 
 - a **lifecycle state machine** — STARTING → SERVING → DRAINING →
   TERMINATED — with a SIGTERM drain path: stop admitting new work, let
-  the REST micro-batcher flush its in-flight scoring requests (up to
-  ``H2O_TPU_DRAIN_TIMEOUT`` seconds), run registered shutdown hooks
+  the REST micro-batcher flush its in-flight scoring requests, wait for
+  RUNNING jobs up to ``H2O_TPU_DRAIN_TIMEOUT`` seconds (then fail them
+  cleanly), join the heartbeat thread, run registered shutdown hooks
   (the REST server), and only then terminate.
+- a **cordon** (``cordon``/``uncordon``/``cordoned``): readiness off
+  while admission stays open, so routers drop the replica and requests
+  already routed to it still score (the rolling-update step before a
+  drain).
 - a **circuit breaker** (closed / open / half-open) over device
   dispatch: ``H2O_TPU_BREAKER_FAILURES`` *consecutive* device-dispatch
   errors trip it open; while open every guarded dispatch is rejected
@@ -15,9 +20,14 @@
   with a fresh cooldown.
 
 Readiness (rest.py ``/readyz``) is the conjunction: state == SERVING
-∧ breaker not open ∧ node healthy. Liveness
-(``/healthz``) stays true through DRAINING so the kubelet does not
-kill a draining pod early.
+∧ breaker not open ∧ node healthy ∧ not cordoned (∧ rest.py's
+readiness gates). Liveness (``/healthz``) stays true through DRAINING
+so the kubelet does not kill a draining pod early.
+
+Fault points: ``lifecycle.drain`` fires at drain entry (kinds ``hang``
+and ``error``: a slow or failing drain step never leaves the node
+undrained); ``score.dispatch`` (``models/base.py``) feeds the breaker
+through kind ``dispatch_error``.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ __all__ = [
     "breaker_guard", "state", "accepting", "mark_serving", "begin_drain",
     "drain", "install_sigterm", "remaining_drain_budget", "status",
     "register_shutdown", "terminated", "wait_terminated", "reset",
+    "cordon", "uncordon", "cordoned",
 ]
 
 log = logging.getLogger("h2o_kubernetes_tpu_torch")
@@ -226,6 +237,9 @@ class _Lifecycle:
         # bumped by reset(): a drain still in flight from the previous
         # epoch abandons instead of clobbering the restarted node
         self._epoch = 0
+        # cordon = endpoint removal WITHOUT draining: /readyz goes 503
+        # while admission stays open
+        self._cordoned: str | None = None
 
     def state(self) -> str:
         with self._lock:
@@ -250,6 +264,25 @@ class _Lifecycle:
             if self._state == STARTING:
                 self._state = SERVING
 
+    def cordon(self, reason: str = "operator") -> None:
+        """Readiness off WITHOUT refusing work: the operator cordons a
+        replica, waits for the routers to drop it, then drains it."""
+        with self._lock:
+            self._cordoned = reason or "cordoned"
+        from ..diagnostics import timeline
+
+        timeline.record("cordon", reason)
+        log.warning("lifecycle: cordoned (%s) — readiness off, "
+                    "admission still open", reason)
+
+    def uncordon(self) -> None:
+        with self._lock:
+            self._cordoned = None
+
+    def cordoned(self) -> str | None:
+        with self._lock:
+            return self._cordoned
+
     def register_shutdown(self, cb: Callable[[], None]) -> None:
         """Hook run at the END of the drain; idempotent by identity."""
         with self._lock:
@@ -268,7 +301,7 @@ class _Lifecycle:
             self._state = DRAINING
             self._drain_deadline = time.monotonic() + max(0.0, timeout)
             t = threading.Thread(target=self._drain,
-                                 args=(reason, self._epoch,
+                                 args=(reason, timeout, self._epoch,
                                        self._terminated),
                                  name="h2o-torch-drain", daemon=True)
             self._drain_thread = t
@@ -276,10 +309,29 @@ class _Lifecycle:
         t.start()
         return t
 
-    def _drain(self, reason: str, epoch: int,
+    def _stale(self, epoch: int, reason: str) -> bool:
+        """True when reset() started a new epoch while this drain was
+        in flight: the drain abandons instead of touching the new
+        node."""
+        with self._lock:
+            stale = self._epoch != epoch
+        if stale:
+            log.warning("lifecycle: drain (%s) abandoned — reset() "
+                        "started a new epoch mid-drain", reason)
+        return stale
+
+    def _drain(self, reason: str, timeout: float, epoch: int,
                term_event: threading.Event) -> None:
+        from ..diagnostics import timeline
+        from . import faults
+
         with self._lock:
             deadline = self._drain_deadline
+        try:
+            faults.fire("lifecycle.drain")
+        except Exception as e:  # noqa: BLE001 — an injected drain fault
+            # is logged; it never leaves the node undrained
+            log.error("lifecycle.drain fault during drain: %r", e)
         # 1. flush the scoring micro-batcher: in-flight waiters get
         # their terminal responses; new submits are already refused
         try:
@@ -288,12 +340,38 @@ class _Lifecycle:
             rest.BATCHER.stop(timeout=max(0.0, deadline - time.monotonic()))
         except Exception as e:  # noqa: BLE001
             log.error("drain: batcher flush failed: %r", e)
-        # 2. shutdown hooks (REST server stops accepting connections)
+        if self._stale(epoch, reason):
+            return
+        # 2. wait for RUNNING jobs, then fail the stragglers cleanly
+        try:
+            from ..automl import JOBS
+
+            while time.monotonic() < deadline:
+                if not any(j.status == "RUNNING" for j in JOBS.values()):
+                    break
+                time.sleep(0.05)
+            for j in list(JOBS.values()):
+                if j.status == "RUNNING":
+                    j.failed(
+                        "node draining: job still RUNNING at the drain "
+                        f"deadline (H2O_TPU_DRAIN_TIMEOUT={timeout:g}s)"
+                        + (f"; reason: {reason}" if reason else ""))
+        except Exception as e:  # noqa: BLE001
+            log.error("drain: job settlement failed: %r", e)
+        if self._stale(epoch, reason):
+            return
+        # 3. stop + join the heartbeat thread
+        try:
+            from . import health
+
+            health.stop_heartbeat(join=True, timeout=5.0)
+        except Exception as e:  # noqa: BLE001
+            log.error("drain: heartbeat stop failed: %r", e)
+        # 4. shutdown hooks (REST server stops accepting connections)
         with self._lock:
             cbs = list(self._callbacks) if self._epoch == epoch else None
         if cbs is None:
-            log.warning("lifecycle: drain (%s) abandoned — reset() "
-                        "started a new epoch mid-drain", reason)
+            self._stale(epoch, reason)
             return
         for cb in cbs:
             try:
@@ -306,6 +384,7 @@ class _Lifecycle:
             self._state = TERMINATED
             exit_on_drain = self._exit_on_drain
             exit_code = self._exit_code
+        timeline.record("drain_complete", reason)
         log.warning("lifecycle: TERMINATED (drain complete)")
         term_event.set()
         if exit_on_drain:
@@ -356,6 +435,7 @@ class _Lifecycle:
             self._drain_thread = None
             self._callbacks.clear()
             self._exit_on_drain = False
+            self._cordoned = None
             self._terminated = threading.Event()
         BREAKER.reset()
 
@@ -412,6 +492,18 @@ def reset() -> None:
     LIFECYCLE.reset()
 
 
+def cordon(reason: str = "operator") -> None:
+    LIFECYCLE.cordon(reason)
+
+
+def uncordon() -> None:
+    LIFECYCLE.uncordon()
+
+
+def cordoned() -> str | None:
+    return LIFECYCLE.cordoned()
+
+
 def status() -> dict:
     """One JSON-able snapshot for /healthz and operators."""
     from . import health
@@ -419,4 +511,12 @@ def status() -> dict:
     return {"state": LIFECYCLE.state(),
             "healthy": health.healthy(),
             "breaker": BREAKER.status(),
+            "cordoned": LIFECYCLE.cordoned(),
             "drain_budget_s": LIFECYCLE.remaining_drain_budget()}
+
+
+# node state + breaker as a telemetry stat group: GET /metrics flattens
+# it (trip counters, consecutive failures, the state as an info sample)
+from .telemetry import register_group as _register_tel_group  # noqa: E402
+
+_register_tel_group("lifecycle", status)

@@ -61,7 +61,7 @@ class HostStream:
     mirroring the serial loop where a failed step never kills the run.
     """
 
-    def __init__(self, name: str = "h2o-automl-host",
+    def __init__(self, name: str = "h2o-torch-automl-host",
                  max_pending: int | None = None):
         self._cond = threading.Condition()
         self._tasks: dict[int, tuple[Callable[[], None], str]] = {}

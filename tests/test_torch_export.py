@@ -50,6 +50,7 @@ from h2o_kubernetes_tpu_torch import (MOJO_FORMAT, GBM, Frame,
                                       read_mojo_parts, save_model,
                                       start_server)
 from h2o_kubernetes_tpu_torch import metrics as M
+from h2o_kubernetes_tpu_torch.rest import stop_server
 from h2o_kubernetes_tpu_torch.models.tree import core as tcore
 from test_torch_distributions import carry, dist_cols, train_kw
 from test_torch_gbm import bench_cols
@@ -209,8 +210,7 @@ def test_registry_publish_fetch_push(models, tmp_path, root):
                           {"rows": rows})
         assert pr2["pontime"] == pr["pontime"]
     finally:
-        srv.shutdown()
-        srv.server_close()
+        stop_server(srv)
     if root == "file":
         path = reg.artifact_path("late", 1)
         persist.write_bytes(path, blob[:-1] + bytes([blob[-1] ^ 1]))
@@ -244,7 +244,8 @@ def test_push_retries_a_transient_failure(first):
             pass
 
     srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     try:
         if first == 400:
@@ -259,6 +260,7 @@ def test_push_retries_a_transient_failure(first):
     finally:
         srv.shutdown()
         srv.server_close()
+        th.join(10)
 
 
 @pytest.mark.parametrize("which", ["tm", "pois", "lap"])

@@ -52,8 +52,9 @@ def test_imports_without_jax():
         "runtime.scheduler", "models.cv", "models.stackedensemble",
         "automl", "grid", "estimators", "models.targetencoder",
         "models.naivebayes", "models.pca", "models.kmeans", "models.glrm",
-        "models.coxph", "models.isolationforest", "models.aggregator")} \
-        <= names
+        "models.coxph", "models.isolationforest", "models.aggregator",
+        "runtime.telemetry", "runtime.health", "runtime.lifecycle",
+        "rest")} <= names
 
 
 def test_no_source_imports_jax_or_reference():

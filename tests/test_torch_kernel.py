@@ -38,7 +38,7 @@ def _card():
 def test_cpu_wrapper_is_plain_and_launches_nothing(case):
     blob, X = case
     m = load_artifact(blob, device="cpu")
-    groups, ctabs = m._contrib_prepare()
+    groups, ctabs, _ = m._contrib_prepare()
     assert len(groups) > 1 and all(c is not None for c in ctabs)
     em = m._contrib_enum_mask()
     Xt = torch.as_tensor(X)
@@ -64,7 +64,7 @@ def test_kernel_bitwise_vs_plain_on_card(case):
     dev = _card()
     blob, X = case
     m = load_artifact(blob, device=dev)
-    groups, ctabs = m._contrib_prepare()
+    groups, ctabs, _ = m._contrib_prepare()
     em = m._contrib_enum_mask()
     Xd = torch.as_tensor(X, device=dev)
     for g, ct in zip(groups, ctabs):
@@ -80,7 +80,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     dev = _card()
     blob, X = case
     m = load_artifact(blob, device=dev)
-    groups, ctabs = m._contrib_prepare()
+    groups, ctabs, _ = m._contrib_prepare()
     g, ct = groups[-1], ctabs[-1]
     em = m._contrib_enum_mask()
     Xd = torch.as_tensor(X, device=dev)
@@ -145,7 +145,7 @@ def test_every_variant_bitwise_vs_plain_on_card(F, depth, ntrees):
     X = random_rows(72, max(_VARIANT_ROWS), F, nan_frac=0.02,
                     enum_features=_VARIANT_ENUMS)
     m = load_artifact(blob, device=dev)
-    groups, ctabs = m._contrib_prepare()
+    groups, ctabs, _ = m._contrib_prepare()
     em = m._contrib_enum_mask()
     Xd = torch.as_tensor(X, device=dev)
     chosen = set()
@@ -174,3 +174,67 @@ def test_every_variant_bitwise_vs_plain_on_card(F, depth, ntrees):
             shap_kernel.flat_shap_tab_plain(g, ct, Xn, em))
     assert chosen == ({"staged", "unstaged"} if F == 28 else
                       {"global_phi"})
+
+
+@pytest.mark.cuda
+def test_score_graphs_bitwise_and_evicted_with_the_model(case):
+    """On the card ``score_numpy`` replays one CUDA graph of the descent
+    per batch bucket: the same bits as the eager descent (and within
+    the serving contract's 1e-6 of the CPU's probabilities: the card's
+    sigmoid may differ by an ulp); an eviction drops the graphs and the
+    promotion recaptures them."""
+    from h2o_kubernetes_tpu_torch.models.base import (_batch_bucket,
+                                                      evict_scorer_cache)
+
+    dev = _card()
+    blob, X = case
+    m = load_artifact(blob, device=dev)
+    cpu = load_artifact(blob, device="cpu")
+    outs = {}
+    for n in (1, 128, 129, 777):
+        b = _batch_bucket(n)
+        Xp = np.zeros((b, X.shape[1]), np.float32)
+        Xp[:n] = X[:n]
+        m._cached("score")
+        eager = m._score_matrix(torch.as_tensor(Xp, device=dev),
+                                None)[:n].cpu().numpy()
+        outs[n] = m.score_numpy(X[:n])
+        np.testing.assert_array_equal(outs[n], eager)
+        np.testing.assert_allclose(outs[n], cpu.score_numpy(X[:n]),
+                                   rtol=0, atol=1e-6)
+    buckets = [(128, False), (256, False), (1024, False)]
+    assert sorted(m._score_graphs) == buckets
+    charge = m._serving_resident_bytes()
+    assert charge > sum(e.nbytes for e in m._score_graphs.values()) > 0
+    assert evict_scorer_cache(m) == 1
+    assert "_score_graphs" not in m.__dict__
+    np.testing.assert_array_equal(m.score_numpy(X[:129]), outs[129])
+    assert sorted(m._score_graphs) == buckets
+    for n, want in outs.items():
+        np.testing.assert_array_equal(m.score_numpy(X[:n]), want)
+
+
+@pytest.mark.cuda
+def test_score_graphs_with_offset_bitwise(case):
+    """A per-row offset is an input of its own graph: the replay equals
+    the eager descent with the same offsets bitwise, and the graph
+    without an offset stays as it was."""
+    dev = _card()
+    blob, X = case
+    m = load_artifact(blob, device=dev)
+    off = np.random.default_rng(3).normal(size=X.shape[0]).astype(np.float32)
+    plain = m.score_numpy(X)
+    for n in (1, 300, 777):
+        b = 128
+        while b < n:
+            b *= 2
+        Xp = np.zeros((b, X.shape[1]), np.float32)
+        Xp[:n] = X[:n]
+        op = np.zeros(b, np.float32)
+        op[:n] = off[:n]
+        eager = m._score_matrix(torch.as_tensor(Xp, device=dev),
+                                torch.as_tensor(op, device=dev))
+        got = m.score_numpy(X[:n], offset=off[:n])
+        np.testing.assert_array_equal(got, eager[:n].cpu().numpy())
+        assert (b, True) in m._score_graphs
+    np.testing.assert_array_equal(m.score_numpy(X), plain)

@@ -123,7 +123,8 @@ def test_executor_device_token_and_stats():
     finally:
         assert ex.shutdown(timeout=10.0)
     names = {t.name for t in threading.enumerate()}
-    assert "h2o-automl-host" not in names and "h2o-cv-host" not in names
+    assert "h2o-torch-automl-host" not in names and \
+        "h2o-torch-cv-host" not in names
 
 
 def _serial_cv(est, y, frame, nfolds):
@@ -171,4 +172,4 @@ def test_pipelined_fold_loop_equals_serial_bitwise(case):
     assert torch.equal(m.cv.holdout_predictions, preds)
     assert m.cv.fold_metrics == fms
     assert not [t for t in threading.enumerate()
-                if t.name == "h2o-cv-host"]
+                if t.name == "h2o-torch-cv-host"]

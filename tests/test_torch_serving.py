@@ -27,6 +27,7 @@ from h2o_kubernetes_tpu.mojo import export_mojo
 from h2o_kubernetes_tpu.operator.registry import load_artifact as jax_load
 from h2o_kubernetes_tpu_torch import (FlatTreeScorer, load_artifact,
                                       start_server)
+from h2o_kubernetes_tpu_torch.rest import stop_server
 from h2o_kubernetes_tpu_torch.models.tree import core as tcore
 from h2o_kubernetes_tpu_torch.models.tree.synthetic import (
     random_rows, random_tree_artifact)
@@ -265,5 +266,4 @@ def test_rest_server_end_to_end(served, monkeypatch):
                         {"rows": [{"x0": 1.0}]})
         assert code == 400
     finally:
-        srv.shutdown()
-        srv.server_close()
+        stop_server(srv)

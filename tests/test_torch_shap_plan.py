@@ -112,7 +112,7 @@ def test_slot_records_pack_the_tables_bits():
     blob = random_tree_artifact(61, n_features=6, ntrees=6, max_depth=4,
                                 enum_features=(2,))
     m = load_artifact(blob, device="cpu")
-    groups, _ = m._contrib_prepare()
+    groups, _, _ = m._contrib_prepare()
     assert any(bool((g.feat < 0).any()) for g in groups)
     for g, rec in zip(groups, m._shap_slots):
         assert rec.dtype == torch.int32 and rec.is_contiguous()

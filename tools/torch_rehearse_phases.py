@@ -1,6 +1,6 @@
-"""Rehearse chip_smoke.py's phases 18-28 (xgboost, lambdarank, glm,
-efb, goss, ooc, deeplearning, word2vec, frame, automl, learners) on the
-CPU, without a card, at small sizes: the entry
+"""Rehearse chip_smoke.py's phases 18-29 (xgboost, lambdarank, glm,
+efb, goss, ooc, deeplearning, word2vec, frame, automl, learners,
+serving_remainder) on the CPU, without a card, at small sizes: the entry
 points' default device resolves to
 the CPU, the histogram and TreeSHAP kernels are replaced by counting
 fakes over their plain versions (the histogram fake sums in float64 and
@@ -17,6 +17,7 @@ are the CPU's and say nothing of the card.
         [--frame-rows 100000]
         [--aml-wall-rows 20000 --aml-rows 30000 --aml-parity-rows 1500]
         [--learner-rows 200000 --learner-parity-rows 20000]
+        [--sr-train-rows 20000 --sr-aml-rows 20000]
 
 With ``--card`` it installs no fakes and runs the phases on the card at
 the given sizes (kernels built on first use): a short check of new
@@ -40,6 +41,11 @@ first and takes ~4-8 min at any row count (the depth-12 forests).
 ``--phases learners`` trains the eight other learners at
 ``--learner-rows`` (first and warm trains, artifacts) and card against
 CPU at ``--learner-parity-rows`` (both the CPU here).
+``--phases serving_remainder`` (phase 29) trains its four base models
+at ``--sr-train-rows``, imports the airlines CSV of ``--frame-rows``
+(written first unless ``frame`` ran before it) over REST and runs
+AutoML on its first ``--sr-aml-rows``; ~2 min at the defaults, its
+sweep, explain and storm legs at their full lengths.
 """
 
 from __future__ import annotations
@@ -130,6 +136,8 @@ def main() -> int:
     ap.add_argument("--aml-parity-rows", type=int, default=1_500)
     ap.add_argument("--learner-rows", type=int, default=200_000)
     ap.add_argument("--learner-parity-rows", type=int, default=20_000)
+    ap.add_argument("--sr-train-rows", type=int, default=20_000)
+    ap.add_argument("--sr-aml-rows", type=int, default=20_000)
     ap.add_argument("--efb-hist-budget", type=int, default=None,
                     help="H2O_TPU_HIST_BYTES_BUDGET for the efb phase, so "
                          "that a small unbundled frame goes out of core "
@@ -160,6 +168,8 @@ def main() -> int:
     cs._LEARNER_ROWS = args.learner_rows
     cs._LEARNER_PARITY_ROWS = args.learner_parity_rows
     cs._LEARNER_MOJO_ROWS = min(cs._LEARNER_MOJO_ROWS, args.learner_rows)
+    cs._SR_TRAIN_ROWS = args.sr_train_rows
+    cs._SR_AML_ROWS = min(args.sr_aml_rows, args.frame_rows)
     if not args.card:
         cs._upload_gbs = lambda torch, nbytes: {"pinned": 0.0,
                                                 "pageable": 0.0}
@@ -175,6 +185,16 @@ def main() -> int:
         book=cs._LevelBook(torch, H, "rehearsal", 2),
         profile_counts=cs._profile_counts if args.card else
         (lambda torch, fn: (fn(), (0, 0.0, 1.0))[1]))
+    ctx.seed = 0
+    ctx.frame_work = str(Path(__file__).resolve().parent.parent / "build"
+                         / "frame")
+    Path(ctx.frame_work).mkdir(parents=True, exist_ok=True)
+    phases = args.phases.split(",")
+    if "serving_remainder" in phases and "frame" not in phases:
+        from tools.datasets import airlines_csv
+
+        airlines_csv(str(Path(ctx.frame_work) / "airlines.csv"),
+                     args.frame_rows, seed=0)
     if "automl" in args.phases.split(","):
         # phase 27c's CPU leg, started first as chip_smoke.py starts it
         ctx.aml_cpu_leg = cs._start_automl_cpu_leg()

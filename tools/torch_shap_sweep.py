@@ -128,8 +128,7 @@ def main() -> int:
     ok = True
     for name in args.model:
         model, X = _model(port, name)
-        groups, ctabs = model._contrib_prepare()
-        slots = model.__dict__.get("_shap_slots") or [None] * len(groups)
+        groups, ctabs, slots = model._contrib_prepare()
         em = model._contrib_enum_mask()
         Xd = torch.as_tensor(X, device=model.device)
         flush = torch.empty(_L2_FLUSH_BYTES, dtype=torch.uint8,
