@@ -257,14 +257,45 @@ Phases, in order; any failure exits non-zero:
    concurrency 6, 16 rows, 10 s: p50/p99, per-decile p99, rows/s, 5xx,
    shed, every /3/Stats sample within the budget), a 5 s explain leg
    (contributions through B4 and promotions), evict -> promote
-   bitwise, the storm fair and unfair (tools/score_load._storm_leg;
-   the fair tail's SLO gated), then /3/ImportFiles of phase 26's CSV,
+   bitwise, the storm fair and unfair (tools/score_load._storm_leg,
+   its clients in a process of their own; the fair tail's SLO gated;
+   the server-side spans of both models' requests), then /3/ImportFiles of phase 26's CSV,
    /3/ModelBuilders/gbm at phase 26's parameters against an in-process
    train on the same frame, the frame predictions route,
    contributions of 1,000 rows, /3/Parse and /3/AutoML at
    automl_wall_100k's shape against the in-process leaderboard,
    /3/Stats and a timed /metrics; B1-B4 launches per leg;
-30. report — one JSON line of kernel records (B4 with its variants,
+30. fleet — the operator's fleet on the card (tools/bench_suite.py
+   config #5d's layout at the serving model's width): three of phase
+   29's base GBMs published to a ModelRegistry on s3:// (a local fake
+   object store this script starts: persist_cloud on the path) for 120
+   tenant keys; a ShardedPool of 3 shards x 1 port pod
+   (``python -m h2o_kubernetes_tpu_torch.operator.pod``, each a REST
+   replica on the card), the first 8 tenants on every shard, each pod
+   under a quarter of the catalog's measured charge; the front-door
+   router as a process of its own
+   (``python -m h2o_kubernetes_tpu_torch.operator.router --store --pool``)
+   off the store's routing table. a. tools/score_load.run_load_zipf
+   through the router (Zipf 1.1, concurrency 6, 16 rows, 10 s): rows/s,
+   p50/p99, head and tail decile p99, 5xx (gated 0), every pod's
+   /3/Stats resident_bytes within its budget; b. the same load straight
+   at 3 pods that each hold the whole catalog under the same budget
+   (head_p99_ratio against a, the reference's 1.3x line beside it);
+   c. 8 tenants, head and tail, through the router: predictions bitwise
+   to the in-process card scorer of the same artifact, contributions
+   (B4 in the pods, counted through each pod's /3/Kernels) against
+   in-process contrib_numpy at the same rows, every pod's build.device
+   the card; d. one shard's pod SIGKILLed mid-storm (router-shard-kill's
+   gates: no 5xx on the head, no client error, retries token-backed,
+   the victim's tenants served again and the pod replaced; the router
+   at the reference's settings, its forward timeout 30 s as the load
+   generator's; the router's and the pods' routes and requests slower
+   than 5 s are reported from their logs); e. profile() around
+   one contrib_numpy (the trace names shap_tab), device_memory() and
+   cluster_status(), in a process of its own (``--fleet-surfaces``:
+   after phases 1-29 this process's profiler sessions record no device
+   activity, and profile() raises there);
+31. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
    row partition; the launches of phases 15-23 beside each, B1's levels
    including the xgboost_hist, lambdarank, bundled, compacted and chunk
@@ -273,7 +304,8 @@ Phases, in order; any failure exits non-zero:
    learner numbers, one of phase 26's, one of phase 27's and one of
    phase 28's (they add no kernel; phase 27's B1-B3 launches also stand
    in the records), one of phase 29's (its B1-B4 launches per leg also
-   stand in the records), the card line, and as the last line
+   stand in the records), one of phase 30's (the pods' B4 launches per
+   contributions request stand in B4's record), the card line, and as the last line
    {"ok": true, "device": {...}}.
 
 ``--profile`` adds torch.profiler breakdowns of one warm score_numpy,
@@ -326,13 +358,14 @@ _PARITY_ROWS = 65_536
 # 10 features, 4 classes, 5 rounds of depth 5
 _DRF_ROWS = 1_000_000
 # card vs CPU of the forest on the frame's first rows: the CPU's train
-# of all 1,000,000 takes ~110-140 s
-_DRF_PARITY_ROWS = 25_000
+# of all 1,000,000 takes ~110-140 s (25,000 until phase 30 was added)
+_DRF_PARITY_ROWS = 10_000
 _DRF_TREES = 10
 _DRF_DEPTH = 8
 _MN_ROWS = 500_000
 _MN_TREES = 5
-_WARM_TRAINS = 5                # timed warm trains; the median is reported
+# timed warm trains; the median is reported (5 until phase 30 was added)
+_WARM_TRAINS = 3
 # xgboost_hist (tools/bench_suite.py:234-241): 10 trees of depth 6 on the
 # HIGGS frame; xgboost_lambdarank (:267-279): mslr_arrays(200,000,
 # seed=4, n_features=20) with the same trees; requests of this many rows
@@ -368,10 +401,11 @@ _OOC_DEEP = 10
 # on its first rows; a short train of each step count gives the
 # launches per step; two warm trains (three until phase 29 was added:
 # a warm train is 9.5-20 s of host-bound steps), the default width and
-# the autoencoder on the first _DL_SIDE_ROWS rows (200,000 until then)
+# the autoencoder on the first _DL_SIDE_ROWS rows (200,000 until then);
+# one warm train since phase 30 was added
 _DL_ROWS = 200_000
 _DL_HIDDEN = [64, 64]
-_DL_WARM = 2
+_DL_WARM = 1
 _DL_SIDE_ROWS = 50_000
 _DL_PARITY_ROWS = 5_000
 _DL_PROBE_STEPS = (200, 400)
@@ -384,7 +418,7 @@ _DL_PRED_LIMIT = 1e-5
 # corpus (text8: 17,005,207 tokens, 71,290 words of at least 5)
 _W2V_TOKENS = 200_000
 _W2V_VOCAB = 5_000
-_W2V_WARM = 3
+_W2V_WARM = 2                   # 3 until phase 30 was added
 _W2V_PARITY_TOKENS = 20_000
 _TEXT8_TOKENS = 17_005_207
 _TEXT8_VOCAB = 71_290
@@ -420,10 +454,11 @@ _AML_LEG_TIMEOUT = 900
 
 
 # phase 28: the eight other learners (tools/torch_learners.py); card vs
-# CPU on the first _LEARNER_PARITY_ROWS rows of each table
+# CPU on the first _LEARNER_PARITY_ROWS rows of each table (100,000 and
+# three warm trains until phase 30 was added)
 _LEARNER_ROWS = 1_000_000
-_LEARNER_PARITY_ROWS = 100_000
-_LEARNER_WARM = 3
+_LEARNER_PARITY_ROWS = 50_000
+_LEARNER_WARM = 2
 _LEARNER_MOJO_ROWS = 20_000
 _LEARNER_MOJO_LIMIT = 1e-6
 
@@ -446,9 +481,28 @@ _SR_SWEEP_S = 10.0
 _SR_EXPLAIN_WORKERS = 4
 _SR_EXPLAIN_S = 5.0
 _SR_STORM_S = 6.0
+# where the storm's clients run: "process" (one process of their own, as
+# a replica's clients do) or "threads" (in this process, beside the
+# server; tools/torch_rehearse_phases.py --storm-clients threads)
+_SR_STORM_CLIENTS = "process"
 _SR_CONTRIB_ROWS = 1_000
 _SR_AML_ROWS = 100_000
 _SR_GBM_LIMIT = 1e-4
+
+# phase 30: the fleet at config #5d's layout (tools/bench_suite.py:571-603,
+# tools/score_load.py:897-970): 120 tenants over 3 of phase 29's base
+# models, 3 shards x 1 pod, the first 8 tenants on every shard, a
+# quarter of the catalog's charge as each pod's budget, the sweep's
+# load for 10 s a leg; the drill's storm runs until its checks end
+_FL_TENANTS = 120
+_FL_BASES = 3
+_FL_SHARDS = 3
+_FL_HEAD = 8
+_FL_LEG_S = 10.0
+_FL_CHECK_KEYS = 4            # head and tail tenants each in leg c
+_FL_STARTUP_S = 300.0         # H2O_TPU_POOL_STARTUP_DEADLINE of the pods
+_FL_CONVERGE_S = 240.0
+_FL_HEAD_P99_LINE = 1.3       # the reference bench's acceptance line
 
 _T0 = time.perf_counter()
 
@@ -3396,6 +3450,78 @@ def _rest_rows(model, X: np.ndarray) -> list:
     return rows
 
 
+def _serving_bases(n: int) -> list:
+    """``n`` GBMs of the serving model's shape (28 features, 20 trees of
+    depth 5, sample_rate 0.8, seeds 1..n) on one frame of _SR_TRAIN_ROWS
+    HIGGS-shaped rows (its bins fit once, a row sample per seed)."""
+    from h2o_kubernetes_tpu_torch import GBM, Frame
+
+    cols, dom = _higgs_cols(_SR_TRAIN_ROWS, 290)
+    bframe = Frame.from_arrays(cols, domains=dom)
+    return [GBM(ntrees=20, max_depth=5, sample_rate=0.8, seed=b + 1).train(
+        y="y", training_frame=bframe) for b in range(n)]
+
+
+def _storm(url: str, hot_key: str, tail_key: str, columns: list,
+           fair: bool, seed: int) -> dict:
+    """One ``tools/score_load._storm_leg`` (_SR_STORM_S long) against the
+    replica at ``url``, its clients where _SR_STORM_CLIENTS says, with
+    the server-side spans of its admitted requests from the trace ring
+    (``_storm_spans``). The leg's 17 client threads in the server's own
+    interpreter contend with its batcher for the GIL, which stretches
+    the dispatch the tail's deadline waits on (ROADMAP C11); a replica's
+    clients never share its interpreter, so by default they run in a
+    process of their own. The leg sets its admission knobs in the
+    process it runs in: they are set here too, in the server's, to the
+    values it sets."""
+    from h2o_kubernetes_tpu_torch.runtime import telemetry
+    from tools import score_load
+
+    kw = dict(url=url, hot_key=hot_key, tail_key=tail_key,
+              columns=columns, fair=fair, seconds=_SR_STORM_S, seed=seed)
+    telemetry.TRACER.clear()
+    if _SR_STORM_CLIENTS == "threads":
+        res = score_load._storm_leg(**kw)
+    else:
+        os.environ.update(H2O_TPU_SCORE_FAIRNESS="1" if fair else "0",
+                          H2O_TPU_SCORE_QUEUE_MAX="8",
+                          H2O_TPU_SCORE_BATCH_US="20000")
+        code = ("import json, sys; from tools import score_load; "
+                "print(json.dumps(score_load._storm_leg("
+                "**json.loads(sys.argv[1]))))")
+        r = subprocess.run(
+            [sys.executable, "-c", code, json.dumps(kw)],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True,
+            text=True, timeout=_SR_STORM_S + 120)
+        if r.returncode:
+            raise RuntimeError(f"the storm's client process exited "
+                               f"{r.returncode}: {r.stderr[-2000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+    res["clients"] = _SR_STORM_CLIENTS
+    res["spans"] = _storm_spans(telemetry.TRACER.records(),
+                                {"hot": hot_key, "tail": tail_key})
+    return res
+
+
+def _storm_spans(records: list, models: dict) -> dict:
+    """Per role in ``models`` (role -> model key), the count of that
+    model's requests in ``records`` that were admitted (not shed: 504s
+    count) and each of their server-side spans (admission, queue,
+    assemble, dispatch, total) as [median, max] ms."""
+    out = {}
+    for role, key in models.items():
+        spans: dict = {}
+        admitted = [rec for rec in records if rec.get("model") == key
+                    and rec.get("outcome") != "QueueFullError"]
+        for rec in admitted:
+            for s in rec["spans"]:
+                spans.setdefault(s["name"], []).append(s["ms"])
+        out[role] = {"admitted": len(admitted), **{
+            name: [round(statistics.median(v), 3), max(v)]
+            for name, v in spans.items()}}
+    return out
+
+
 def _phase_serving_remainder(c) -> dict:
     """29. serving remainder (ROADMAP item 7b-2): the multi-tenant
     replica and the H2O REST API on the card, through ``start_server()``.
@@ -3408,7 +3534,8 @@ def _phase_serving_remainder(c) -> dict:
     bench's settings (stdlib and numpy only: checked that it reaches
     nothing of the JAX package); b. an explain leg; c. one tenant
     evicted and scored again, bitwise; d. ``tools/score_load._storm_leg``
-    with fairness on, then off; e. ``/3/ImportFiles`` + ``/3/Parse`` of
+    with fairness on, then off (``_storm``: its clients in a process of
+    their own); e. ``/3/ImportFiles`` + ``/3/Parse`` of
     phase 26's CSV, ``/3/ModelBuilders/gbm`` at phase 26's parameters
     polled through ``/3/Jobs`` and held against an in-process train on
     the same frame (metrics within _SR_GBM_LIMIT, trees up to float64
@@ -3429,7 +3556,7 @@ def _phase_serving_remainder(c) -> dict:
 
     from tools import score_load
 
-    from h2o_kubernetes_tpu_torch import GBM, AutoML, Frame, ModelRegistry
+    from h2o_kubernetes_tpu_torch import GBM, AutoML, ModelRegistry
     from h2o_kubernetes_tpu_torch.models.base import (evict_scorer_cache,
                                                       scorer_cache_stats)
 
@@ -3452,14 +3579,9 @@ def _phase_serving_remainder(c) -> dict:
         # -- a. the tenants and the Zipf sweep ------------------------------
         t0 = time.perf_counter()
         reg = ModelRegistry(str(regdir))
-        cols, dom = _higgs_cols(_SR_TRAIN_ROWS, 290)
-        bframe = Frame.from_arrays(cols, domains=dom)
-        for b in range(_SR_BASES):
-            # one frame (its bins fit once), a row sample per seed
-            m = GBM(ntrees=20, max_depth=5, sample_rate=0.8,
-                    seed=b + 1).train(y="y", training_frame=bframe)
+        c.sr_bases = _serving_bases(_SR_BASES)    # phase 30 serves them too
+        for b, m in enumerate(c.sr_bases):
             reg.publish(m, f"base{b}")
-        del bframe
         columns = list(m.feature_names)
         keys = [f"m{i:03d}" for i in range(_SR_TENANTS)]
         legs["train_bases_s"] = time.perf_counter() - t0
@@ -3486,6 +3608,9 @@ def _phase_serving_remainder(c) -> dict:
         legs["score_all_s"] = time.perf_counter() - t0
         launches["a_tenants"] = _launch_counts(hist_op, shap_kernel)
         charge = sum(rest.MODELS[k]._serving_resident_bytes() for k in keys)
+        # each base's charge (tenant b serves base b), for phase 30
+        c.sr_base_charge = [rest.MODELS[keys[b]]._serving_resident_bytes()
+                            for b in range(_SR_BASES)]
         budget = charge // 4
         os.environ["H2O_TPU_SCORER_CACHE_BYTES"] = str(budget)
         # the lowered budget holds from the next call on
@@ -3581,18 +3706,19 @@ def _phase_serving_remainder(c) -> dict:
         _reset_counts(hist_op, shap_kernel)
         storm = {}
         for fair in (True, False):
-            storm["fair" if fair else "unfair"] = score_load._storm_leg(
-                url, keys[0], keys[-1], columns, fair=fair,
-                seconds=_SR_STORM_S, seed=c.seed)
-        for k in knobs[1:]:                  # _storm_leg leaves them set
+            storm["fair" if fair else "unfair"] = _storm(
+                url, keys[0], keys[-1], columns, fair, c.seed)
+        for k in knobs[1:]:                  # the storm leaves them set
             if saved[k] is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = saved[k]
         launches["d_storm"] = _launch_counts(hist_op, shap_kernel)
         for leg, r in storm.items():
-            _log(f"[serving] storm {leg}: hot {r['hot']}, tail {r['tail']}, "
-                 f"tail SLO met {r['tail_slo_met']} [{card}]")
+            _log(f"[serving] storm {leg} (clients: {r['clients']}): hot "
+                 f"{r['hot']}, tail {r['tail']}, tail SLO met "
+                 f"{r['tail_slo_met']}; server-side spans [median, max] ms "
+                 f"{r['spans']} [{card}]")
         if not storm["fair"]["tail_slo_met"]:
             raise RuntimeError("serving remainder: the fair storm missed "
                                "the tail's SLO")
@@ -3782,6 +3908,631 @@ def _phase_serving_remainder(c) -> dict:
     return out
 
 
+def _sigv4_expected(method: str, path_qs: str, headers, payload: bytes,
+                    secret: str) -> str:
+    """The SigV4 signature recomputed from a request as a server sees
+    it (what minio and localstack verify), from the AWS specification."""
+    import hashlib
+    import hmac
+
+    auth = headers.get("Authorization", "")
+    cred = auth.split("Credential=")[1].split(",")[0]
+    signed = auth.split("SignedHeaders=")[1].split(",")[0]
+    _akid, datestamp, region, service, _term = cred.split("/")
+    path, _, query = path_qs.partition("?")
+    canon = "".join(f"{h}:{headers.get(h).strip()}\n"
+                    for h in signed.split(";"))
+    canonical = "\n".join([method, path, query, canon, signed,
+                           hashlib.sha256(payload).hexdigest()])
+    scope = f"{datestamp}/{region}/{service}/aws4_request"
+    to_sign = "\n".join(["AWS4-HMAC-SHA256", headers["x-amz-date"], scope,
+                         hashlib.sha256(canonical.encode()).hexdigest()])
+
+    def _k(key, msg):
+        return hmac.new(key, msg.encode(), hashlib.sha256).digest()
+
+    k = _k(_k(_k(_k(b"AWS4" + secret.encode(), datestamp), region),
+               service), "aws4_request")
+    return hmac.new(k, to_sign.encode(), hashlib.sha256).hexdigest()
+
+
+def _fake_s3(secret: str):
+    """A local S3 (path-style GET and PUT) that verifies every request's
+    SigV4 signature, as the persist tests' fake does: (server, url,
+    counts of verified and refused requests). No network."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    objects: dict = {}
+    counts = {"verified": 0, "refused": 0, "get": 0, "put": 0}
+    lock = threading.Lock()
+
+    class H(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _signed(self, payload: bytes) -> bool:
+            auth = self.headers.get("Authorization", "")
+            ok = auth.startswith("AWS4-HMAC-SHA256") and _sigv4_expected(
+                self.command, self.path, self.headers, payload,
+                secret) == auth.split("Signature=")[1]
+            with lock:
+                counts["verified" if ok else "refused"] += 1
+            return ok
+
+        def do_GET(self):
+            key = self.path.split("?", 1)[0]
+            if not self._signed(b""):
+                self.send_response(403)
+                self.end_headers()
+                return
+            with lock:
+                body = objects.get(key)
+                counts["get"] += 1
+            if body is None:
+                self.send_response(404)
+                self.end_headers()
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_PUT(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length",
+                                                        0)))
+            ok = self._signed(body)
+            if ok:
+                with lock:
+                    objects[self.path.split("?", 1)[0]] = body
+                    counts["put"] += 1
+            self.send_response(200 if ok else 403)
+            self.end_headers()
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), H)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}", counts
+
+
+def _pod_urls(pool) -> list:
+    """The READY replicas' URLs of every shard of ``pool``."""
+    urls = []
+    for rec in pool.recs.values():
+        with rec._lock:
+            urls.extend(r.url for r in rec.replicas if r.state == "READY")
+    return urls
+
+
+def _pods_kernels(urls: list, reset: bool = False) -> dict:
+    """B1-B4 launches summed over the pods at ``urls`` (each pod's
+    ``/3/Kernels``; ``reset`` sets them to 0 first)."""
+    from tools.score_load import _get_json
+
+    tot = {"b1": 0, "b2": 0, "b3": 0, "b4": 0, "pods": 0}
+    for u in urls:
+        if reset:
+            code, out = _post(int(u.rsplit(":", 1)[1]), "/3/Kernels/reset",
+                              {})
+            out = out if code == 200 else None
+        else:
+            out = _get_json(u + "/3/Kernels", timeout=10.0)
+        if out is None:
+            raise RuntimeError(f"fleet: {u}/3/Kernels unreachable")
+        for k in ("b1", "b2", "b3", "b4"):
+            tot[k] += int(out["launches"][k])
+        tot["pods"] += 1
+    return tot
+
+
+def _pods_poller(urls_fn, budget: int, stop):
+    """Samples every pod's GET /3/Stats each 0.5 s until ``stop``:
+    (thread, record of samples, the largest resident_bytes and the
+    samples over ``budget``)."""
+    from tools.score_load import _get_json
+
+    rec = {"samples": 0, "over_budget": 0, "max_resident_bytes": 0,
+           "evictions": {}, "promotions": {}}
+
+    def run():
+        while not stop.is_set():
+            for u in urls_fn():
+                st = _get_json(u + "/3/Stats", timeout=5.0)
+                if not st:
+                    continue
+                sc = st["scorer_cache"]
+                rb = int(sc["resident_bytes"])
+                rec["samples"] += 1
+                rec["max_resident_bytes"] = max(rec["max_resident_bytes"],
+                                                rb)
+                rec["over_budget"] += rb > budget
+                rec["evictions"][u] = sc["evictions"]
+                rec["promotions"][u] = sc["promotions"]
+            stop.wait(0.5)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, rec
+
+
+def _zipf_leg(targets, keys, columns, seconds, seed, router, stop=None):
+    """tools/score_load.run_load_zipf at the sweep's settings, reduced
+    to the figures phase 30 reports."""
+    from tools.score_load import run_load_zipf
+
+    out = run_load_zipf(targets, keys, columns, concurrency=_SR_CONCURRENCY,
+                        rows_per_request=_SR_REQ_ROWS, seconds=seconds,
+                        zipf_s=_SR_ZIPF_S, seed=seed, router=router,
+                        stop_event=stop)
+    dec = out.get("deciles") or [{}]
+    return {"rows_per_s": out["value"], "requests": out["requests"],
+            "p50_ms": out["p50_ms"], "p99_ms": out["p99_ms"],
+            "head_p99_ms": dec[0].get("p99_ms"),
+            "tail_p99_ms": dec[-1].get("p99_ms"),
+            "fivexx": out["fivexx"], "fivexx_sample": out["fivexx_sample"],
+            "errors": out["errors"], "error_sample": out["error_sample"],
+            "degraded": out.get("degraded", 0), "shed": out.get("shed", 0),
+            "target_failovers": out.get("target_failovers", 0),
+            "by_model": out["by_model"]}
+
+
+def _route_post(url: str, key: str, body: dict, route: str = "",
+                attempts: int = 60, sleep: float = 0.25):
+    """POST one request through the router, retrying a typed 503 or a
+    transport error (a re-placement may still be landing): (status,
+    JSON)."""
+    import urllib.error
+    import urllib.request
+
+    code, out = None, None
+    for _ in range(attempts):
+        req = urllib.request.Request(
+            f"{url}/3/Predictions/models/{key}{route}",
+            data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, out = e.code, e.read()
+            if code != 503:
+                return code, out
+        except OSError as e:
+            code, out = -1, repr(e)
+        time.sleep(sleep)
+    return code, out
+
+
+def _phase_fleet(c) -> dict:
+    """30. the fleet (ROADMAP item 13): the operator, the sharded pool and
+    the front-door router over port pods that serve B4 on the card
+    (``c.fleet_device``: None, the card; the CPU rehearsal passes "cpu").
+    See the module docstring's phase 30 for the legs and their gates.
+    The pods and the router are processes of their own, so none shares
+    the load generator's interpreter; their kernels are counted through
+    each pod's ``/3/Kernels``, set to 0 just before a leg and read just
+    after it. Every pod, the router and the fake object store are
+    stopped before the phase returns."""
+    import re
+
+    from h2o_kubernetes_tpu_torch import ModelRegistry
+    from h2o_kubernetes_tpu_torch.models.base import evict_scorer_cache
+    from h2o_kubernetes_tpu_torch.operator import (DurablePoolStore,
+                                                   ScorerPoolSpec,
+                                                   ShardedPool, load_artifact)
+    from tools.score_load import _get_json, _make_bodies
+
+    torch, card = c.torch, c.card
+    hist_op, shap_kernel = c.hist_op, c.shap_kernel
+    device = getattr(c, "fleet_device", None)
+    on_card = device is None or str(device).startswith("cuda")
+    repo = Path(__file__).resolve().parent
+    work = repo / "build" / "fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    legs_s: dict = {}
+    secret = "fleet-secret"
+    s3, s3_url, s3_counts = _fake_s3(secret)
+    knobs = {"AWS_ENDPOINT_URL": s3_url, "AWS_ACCESS_KEY_ID": "AKIDFLEET",
+             "AWS_SECRET_ACCESS_KEY": secret, "AWS_REGION": "us-east-1",
+             "H2O_TPU_POOL_STARTUP_DEADLINE": str(_FL_STARTUP_S)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    pools: dict = {}
+    runs: list = []
+    router = None
+    out: dict = {}
+    evict_scorer_cache()
+    if on_card:
+        torch.cuda.empty_cache()    # the earlier phases' cached blocks
+    try:
+        # -- the catalog on s3://, its charge measured on the device ------
+        t0 = time.perf_counter()
+        bases = (getattr(c, "sr_bases", None) or
+                 _serving_bases(_FL_BASES))[:_FL_BASES]
+        reg = ModelRegistry("s3://fleet/registry")
+        for b, m in enumerate(bases):
+            reg.publish(m, f"base{b}")
+        columns = list(bases[0].feature_names)
+        keys = [f"m{i:03d}" for i in range(_FL_TENANTS)]
+        entries = [(f"base{i % _FL_BASES}", 1, k) for i, k in
+                   enumerate(keys)]
+        served = {}
+
+        def serve_bases(bases=range(_FL_BASES)):
+            """Each base in-process on the device, warmed as a pod's push
+            warms it and scored once: the reference of leg c."""
+            for b in bases:
+                if f"base{b}" in served:
+                    continue
+                m = load_artifact(reg.fetch(f"base{b}", 1), device=device)
+                m.warm_up([128], contributions=True)
+                m.score_numpy(np.zeros((_SR_REQ_ROWS, len(columns)),
+                                       np.float32))
+                served[f"base{b}"] = m
+
+        # a base's charge: phase 29 measured it on its replica (tenant b
+        # served base b there), else it is measured here
+        per = list(getattr(c, "sr_base_charge", None) or [])[:_FL_BASES]
+        if len(per) < _FL_BASES:
+            serve_bases()
+            per = [served[f"base{b}"]._serving_resident_bytes()
+                   for b in range(_FL_BASES)]
+        charge = sum(per[i % _FL_BASES] for i in range(_FL_TENANTS))
+        budget = charge // 4
+        legs_s["catalog_s"] = time.perf_counter() - t0
+
+        # -- e. profile, device memory, cluster status: in a process of
+        # its own (started now, read after leg d), since this long-lived
+        # process's later torch.profiler sessions record no device
+        # activity (PERF.md §7) -------------------------------------------
+        t0 = time.perf_counter()
+        dev_name = torch.cuda.get_device_name(0) if on_card else "cpu"
+        X = np.random.default_rng(c.seed + 30).normal(
+            size=(_SR_REQ_ROWS, len(columns))).astype(np.float32)
+        np.save(work / "surfaces_x.npy", X)
+        surf_proc = subprocess.Popen(
+            [sys.executable, str(repo / "chip_smoke.py"), "--fleet-surfaces",
+             str(work), "cuda" if on_card else "cpu"],
+            cwd=str(repo), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        legs_s["surfaces_start_s"] = time.perf_counter() - t0
+
+        # -- the sharded fleet, the direct pool and the router ------------
+        t0 = time.perf_counter()
+        store = DurablePoolStore(str(work / "store"))
+        env = {"H2O_TPU_SCORER_CACHE_BYTES": str(budget)}
+        for name, shards, replicas, head in (
+                ("fleet", _FL_SHARDS, 1, _FL_HEAD),
+                ("direct", 1, _FL_SHARDS, 1)):
+            store.apply(ScorerPoolSpec(
+                name=name, artifact="base0", version=1, model_key=keys[0],
+                replicas=replicas, shards=shards, head_models=head,
+                tail_replicas=1, warm_buckets=(128,),
+                extra_artifacts=tuple(entries[1:]), env=env))
+            pool = ShardedPool(store, reg, name, device=device,
+                               workdir=str(work / "pods" / name),
+                               log_dir=str(work / "logs" / name))
+            stop = threading.Event()
+            th = threading.Thread(target=pool.run, args=(stop,),
+                                  kwargs={"interval": 0.25}, daemon=True)
+            th.start()
+            pools[name] = pool
+            runs.append((pool, stop, th))
+        rlog = work / "router.log"
+        with open(rlog, "ab") as lf:
+            router = subprocess.Popen(
+                [sys.executable, "-m",
+                 "h2o_kubernetes_tpu_torch.operator.router",
+                 "--store", str(work / "store"), "--pool", "fleet",
+                 "--port", "0"], cwd=str(repo), stdout=lf,
+                stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(os.environ, H2O_TPU_ROUTER_RETRY_BUDGET="20",
+                         H2O_TPU_ROUTER_HEALTH_INTERVAL="0.25",
+                         H2O_TPU_ROUTER_TABLE_INTERVAL="0.25"))
+        serve_bases()                    # while the pods start
+        for name, pool in pools.items():
+            if not pool.wait_converged(timeout=_FL_CONVERGE_S):
+                raise RuntimeError(f"fleet: pool {name} never converged: "
+                                   f"{store.get_status(name)}")
+        url = None
+        deadline = time.monotonic() + 60
+        while url is None and time.monotonic() < deadline:
+            mm = re.search(r"ROUTER_UP port=(\d+)", rlog.read_text())
+            if mm:
+                url = f"http://127.0.0.1:{mm.group(1)}"
+            elif router.poll() is not None:
+                raise RuntimeError(f"fleet: the router exited: "
+                                   f"{rlog.read_text()[-400:]}")
+            else:
+                time.sleep(0.2)
+        body = _make_bodies(columns, _SR_REQ_ROWS, 30, pool=1)[0]
+        code, _ = _route_post(url, keys[0], body)
+        if code != 200:
+            raise RuntimeError(f"fleet: the router does not serve "
+                               f"{keys[0]}: {code}")
+        fleet_urls = _pod_urls(pools["fleet"])
+        direct_urls = _pod_urls(pools["direct"])
+        legs_s["converge_s"] = time.perf_counter() - t0
+        _log(f"[fleet] {_FL_TENANTS} tenants over {_FL_BASES} bases "
+             f"(28 features, 20 trees of depth 5) on s3:// (fake store: "
+             f"{s3_counts}); charge {charge} bytes ({per} a base), budget "
+             f"{budget} bytes a pod; {_FL_SHARDS} shards x 1 pod + "
+             f"{_FL_SHARDS} direct pods converged and the router ({url}) "
+             f"serving in {legs_s['converge_s']:.1f}s [{card}]")
+
+        # -- a. routed ------------------------------------------------------
+        t0 = time.perf_counter()
+        stop = threading.Event()
+        poll, resid = _pods_poller(lambda: _pod_urls(pools["fleet"]),
+                                   budget, stop)
+        _pods_kernels(fleet_urls, reset=True)
+        _reset_counts(hist_op, shap_kernel)
+        routed = _zipf_leg([url], keys, columns, _FL_LEG_S, c.seed, True)
+        routed["pod_launches"] = _pods_kernels(fleet_urls)
+        routed["local_launches"] = _launch_counts(hist_op, shap_kernel)
+        routed["router_stats"] = (_get_json(url + "/3/Stats") or
+                                  {}).get("stats")
+        stop.set()
+        poll.join(10)
+        routed["residency"] = resid
+        routed.pop("by_model")
+        # -- b. direct --------------------------------------------------------
+        stop = threading.Event()
+        poll, dresid = _pods_poller(lambda: direct_urls, budget, stop)
+        direct = _zipf_leg(direct_urls, keys, columns, _FL_LEG_S, c.seed,
+                           False)
+        stop.set()
+        poll.join(10)
+        direct["residency"] = dresid
+        direct.pop("by_model")
+        legs_s["routed_direct_s"] = time.perf_counter() - t0
+        ratio = None
+        if routed["head_p99_ms"] and direct["head_p99_ms"]:
+            ratio = routed["head_p99_ms"] / direct["head_p99_ms"]
+        _log(f"[fleet] a. routed: {json.dumps(routed)} [{card}]")
+        _log(f"[fleet] b. direct: {json.dumps(direct)}; head_p99_ratio "
+             f"{ratio} (the reference's line {_FL_HEAD_P99_LINE}x) "
+             f"[{card}]")
+        if routed["fivexx"] or routed["errors"] or not resid["samples"] \
+                or resid["over_budget"] or \
+                resid["max_resident_bytes"] > budget:
+            raise RuntimeError("fleet: the routed leg served 5xx or a pod "
+                               "exceeded its byte budget")
+
+        # -- c. correctness through the router ------------------------------
+        t0 = time.perf_counter()
+        check = keys[:_FL_CHECK_KEYS] + keys[-_FL_CHECK_KEYS:]
+        rows = {"rows": _json_rows(X), "columns": columns}
+        pred_equal, phi_bitwise, phi_gap = True, True, 0.0
+        _pods_kernels(fleet_urls, reset=True)
+        _reset_counts(hist_op, shap_kernel)
+        for k in check:
+            m = served[entries[keys.index(k)][0]]
+            code, pr = _route_post(url, k, rows)
+            code2, cr = _route_post(url, k, rows, "/contributions")
+            if code != 200 or code2 != 200:
+                raise RuntimeError(f"fleet: {k} through the router: "
+                                   f"{code} {code2}")
+            want = m.score_numpy(X)
+            p1 = np.asarray(pr[f"p{m.response_domain[1]}"], np.float32)
+            pred_equal &= bool(np.array_equal(p1, want[:, 1]))
+            phi = np.asarray(cr["contributions"], np.float32)
+            mine = m.contrib_numpy(X)
+            phi_bitwise &= bool(np.array_equal(phi, mine))
+            phi_gap = max(phi_gap, float(np.max(
+                np.abs(phi - mine) - 1e-5 * np.abs(mine))))
+        pod_b4 = _pods_kernels(fleet_urls)
+        local_b4 = _launch_counts(hist_op, shap_kernel)["b4"]
+        devices = {u: ((_get_json(u + "/3/Stats") or {}).get("build") or
+                       {}).get("device") for u in fleet_urls}
+        correct = {"tenants": check, "predictions_bitwise": pred_equal,
+                   "contributions_bitwise": phi_bitwise,
+                   "contributions_excess_over_rtol": phi_gap,
+                   "pod_launches": pod_b4, "local_b4": local_b4,
+                   "b4_per_contrib_request": pod_b4["b4"] / len(check),
+                   "pod_devices": devices}
+        legs_s["correct_s"] = time.perf_counter() - t0
+        _log(f"[fleet] c. {json.dumps(correct)} [{card}]")
+        if not pred_equal or not (phi_bitwise or phi_gap <= 1e-6) or \
+                any(dev_name not in str(d) for d in devices.values()) or \
+                (on_card and not 0 < pod_b4["b4"] == local_b4):
+            raise RuntimeError("fleet: routed answers disagree with the "
+                               "in-process scorer, or a pod is off the "
+                               "card, or the pods' B4 launches are not "
+                               "the in-process calls'")
+
+        # -- d. a shard's pod SIGKILLed mid-storm ---------------------------
+        t0 = time.perf_counter()
+        fpool = pools["fleet"]
+        head = set(keys[:_FL_HEAD])
+        victim = next(sid for sid in sorted(fpool.recs)
+                      if set(fpool.plan.keys_for(sid)) - head)
+        orphans = sorted(set(fpool.plan.keys_for(victim)) - head)
+        storm_stop, storm = threading.Event(), {}
+        th = threading.Thread(target=lambda: storm.update(_zipf_leg(
+            [url], keys, columns, 600.0, c.seed + 1, True, storm_stop)),
+            daemon=True)
+        th.start()
+        time.sleep(0.5)                  # the storm under way
+        with fpool.recs[victim]._lock:
+            vpids = [r.pid() for r in fpool.recs[victim].replicas
+                     if r.pid()]
+        for pid in vpids:
+            os.kill(pid, signal.SIGKILL)
+        deadline = time.monotonic() + 30
+        while fpool.shard_healthy(victim) and time.monotonic() < deadline:
+            time.sleep(0.05)             # the death observed
+        failed = []
+        for k in orphans:
+            code, _ = _route_post(url, k, body)
+            if code != 200:
+                failed.append((k, code))
+        replaced = fpool.wait_converged(timeout=_FL_CONVERGE_S)
+        storm_stop.set()
+        th.join(60)
+        rst = _get_json(url + "/3/Stats") or {}
+        head_5xx = sum(storm["by_model"][k]["fivexx"] for k in head)
+        kinds = [e["kind"] for e in store.events("fleet")]
+        new_pids = [r.pid() for r in fpool.recs[victim].replicas
+                    if r.state == "READY"]
+        drill = {"victim": victim, "killed_pids": vpids,
+                 "replacement_pids": new_pids, "orphans": len(orphans),
+                 "orphans_not_served": failed, "replaced": replaced,
+                 "head_5xx": head_5xx, "fivexx": storm["fivexx"],
+                 "fivexx_sample": storm["fivexx_sample"][:3],
+                 "errors": storm["errors"],
+                 "error_sample": storm["error_sample"][:3],
+                 "degraded": storm["degraded"],
+                 "requests": storm["requests"],
+                 "p99_ms": storm["p99_ms"],
+                 "router_stats": rst.get("stats"),
+                 "retry_budget": rst.get("retry_budget"),
+                 "events": sorted(set(kinds) & {
+                     "shard_down", "tenant_replaced", "shard_recovered",
+                     "replica_died", "replica_ready"}),
+                 "seconds": time.perf_counter() - t0}
+        # the router's and the pods' slow routes and requests (>= 5 s) of
+        # the whole phase, with the hops, attempts and spans they logged
+        slow = [ln for f in [rlog, *sorted((work / "logs").rglob("*.log"))]
+                for ln in f.read_text(errors="replace").splitlines()
+                if "slow route:" in ln or "slow request:" in ln]
+        drill["slow_logged"] = len(slow)
+        drill["slow_sample"] = [ln[:600] for ln in slow[:6]]
+        _log(f"[fleet] d. shard kill: {json.dumps(drill)} [{card}]")
+        rs = rst.get("stats") or {}
+        if failed or not replaced or head_5xx or storm["errors"] or \
+                not new_pids or set(new_pids) & set(vpids) or \
+                rs.get("retries") != (rst.get("retry_budget") or
+                                      {}).get("granted"):
+            raise RuntimeError("fleet: the shard-kill drill failed")
+
+        t0 = time.perf_counter()
+        sout, serr = surf_proc.communicate(timeout=120)
+        if surf_proc.returncode != 0:
+            raise RuntimeError(f"fleet: the surfaces process failed: "
+                               f"{serr[-600:]}")
+        surfaces = json.loads(sout.strip().splitlines()[-1])
+        legs_s["surfaces_wait_s"] = time.perf_counter() - t0
+        _log(f"[fleet] e. {json.dumps(surfaces)} [{card}]")
+        mem, status = surfaces["device_memory"], surfaces["cluster_status"]
+        if on_card and (not surfaces["trace_names_shap_tab"]
+                        or not mem[0]["bytes_in_use"]
+                        or not mem[0]["bytes_limit"]
+                        or status["cloud_size"] != 1
+                        or dev_name not in status["devices"][0]):
+            raise RuntimeError("fleet: profile, device_memory or "
+                               "cluster_status")
+        out = {"tenants": _FL_TENANTS, "bases": _FL_BASES,
+               "shards": _FL_SHARDS, "head": _FL_HEAD,
+               "charge_bytes": charge, "budget_bytes": budget,
+               "routed": routed, "direct": direct,
+               "head_p99_ratio": ratio,
+               "head_p99_line": _FL_HEAD_P99_LINE,
+               "correct": correct, "drill": drill, "surfaces": surfaces,
+               "s3": dict(s3_counts), "legs_s": legs_s}
+    finally:
+        t0 = time.perf_counter()
+        surf = locals().get("surf_proc")
+        if surf is not None and surf.poll() is None:
+            surf.kill()
+            surf.wait(15)
+        if router is not None:
+            router.terminate()
+        for pool, stop, th in runs:
+            stop.set()
+        for pool, stop, th in runs:
+            th.join(30)
+        downs = [threading.Thread(target=pool.shutdown,
+                                  kwargs={"timeout": 60})
+                 for pool, _, _ in runs]
+        for t in downs:
+            t.start()
+        for t in downs:
+            t.join(90)
+        if router is not None:
+            try:
+                router.wait(15)
+            except subprocess.TimeoutExpired:
+                router.kill()
+                router.wait(15)
+        _reap_pods(str(work))
+        s3.shutdown()
+        s3.server_close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for m in locals().get("served", {}).values():
+            m._serving_evict()
+        shutil.rmtree(work, ignore_errors=True)
+        legs_s["teardown_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"[fleet] phase 30 {out['phase_s']:.1f}s [{card}]")
+    return out
+
+
+def _surfaces(model, X, logdir, device) -> dict:
+    """Leg e: ``profile(logdir)`` around one ``contrib_numpy`` (the
+    trace's size, whether it names the TreeSHAP kernel, its first
+    device-side keys), then ``device_memory()`` and ``cluster_status()``."""
+    from torch.autograd import DeviceType
+
+    from h2o_kubernetes_tpu_torch import (cluster_status, device_memory,
+                                          profile)
+
+    with profile(str(logdir), device=device) as prof:
+        model.contrib_numpy(X)
+    trace = (Path(logdir) / "trace.json").read_text()
+    dev_keys = sorted({a.key[:60] for a in prof.key_averages()
+                       if a.device_type == DeviceType.CUDA})
+    return {"trace_bytes": len(trace),
+            "trace_names_shap_tab": "shap_tab" in trace,
+            "device_keys": dev_keys[:6],
+            "device_memory": device_memory(device),
+            "cluster_status": cluster_status(device)}
+
+
+def _fleet_surfaces(work: str, device: str) -> int:
+    """Phase 30e in a process of its own (``chip_smoke.py
+    --fleet-surfaces DIR DEVICE``): base0 from the fleet's s3:// registry
+    (the fake store's address and keys come in the environment) on
+    ``device``, contributions warmed once, then ``_surfaces`` on phase
+    30's rows; prints one JSON line."""
+    from h2o_kubernetes_tpu_torch import ModelRegistry, load_artifact
+
+    X = np.load(Path(work) / "surfaces_x.npy")
+    dev = None if device == "cuda" else device
+    m = load_artifact(ModelRegistry("s3://fleet/registry").fetch("base0", 1),
+                      device=dev)
+    m.contrib_numpy(X)
+    out = _surfaces(m, X, Path(work) / "profile", dev)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _reap_pods(workdir: str) -> list:
+    """SIGKILL every pod process whose command line names ``workdir``
+    (a pool whose shutdown failed leaves them in sessions of their own);
+    returns their pids."""
+    killed = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if "operator.pod" in cmd and workdir in cmd:
+            try:
+                os.killpg(int(d), signal.SIGKILL)
+                killed.append(int(d))
+            except OSError:
+                pass
+    return killed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3792,10 +4543,15 @@ def main() -> int:
     ap.add_argument("--automl-cpu-leg", nargs=2, metavar=("DIR", "ROWS"),
                     help="run phase 27c's CPU leg alone (main() starts it "
                          "in a process of its own)")
+    ap.add_argument("--fleet-surfaces", nargs=2, metavar=("DIR", "DEVICE"),
+                    help="run phase 30e alone (phase 30 starts it in a "
+                         "process of its own)")
     args = ap.parse_args()
     if args.automl_cpu_leg:
         return _automl_cpu_leg(args.automl_cpu_leg[0],
                                int(args.automl_cpu_leg[1]))
+    if args.fleet_surfaces:
+        return _fleet_surfaces(*args.fleet_surfaces)
 
     import torch
 
@@ -4584,7 +5340,11 @@ def main() -> int:
     shutil.rmtree(ctx.frame_work, ignore_errors=True)
 
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 30 starts")
-    # -- 30. report ----------------------------------------------------------
+    # -- 30. the fleet: operator, sharded pool, router over pods on the card -
+    fleet_res = _phase_fleet(ctx)
+
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 31 starts")
+    # -- 31. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -4737,6 +5497,14 @@ def main() -> int:
         records[i]["serving_remainder_launches"] = {
             leg: n[k] for leg, n in sr_res["launches"].items()}
     _log(json.dumps({"serving_remainder": sr_res}))
+    # phase 30 adds no kernel; B4 runs in the pods (counted through each
+    # pod's /3/Kernels around leg c's contributions requests)
+    records[0]["fleet_pod_launches"] = {
+        "routed_leg": fleet_res["routed"]["pod_launches"],
+        "correctness_leg": fleet_res["correct"]["pod_launches"],
+        "b4_per_contrib_request":
+            fleet_res["correct"]["b4_per_contrib_request"]}
+    _log(json.dumps({"fleet": fleet_res}))
     _log(json.dumps({"kernels": records}))
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: the whole run")
     _log(card)

@@ -46,10 +46,23 @@ model file (``save_model``/``load_model``). Entry points take
 ``device=None``, meaning the CUDA card; without one they raise unless
 the caller passes ``device="cpu"``.
 
+Fleet: ``operator/`` turns replicas into a fleet — a reconciler that
+spawns scorer pods (``python -m h2o_kubernetes_tpu_torch.operator.pod``,
+each the REST replica on the card), places a tenant catalog across
+shards (``ShardedPool``) and a front-door router
+(``operator/router.py``) that forwards scoring to them, over a durable
+pool store on any persist backend (local, ``mem://``, ``s3://``,
+``gs://``, ``hdfs://``: ``persist_cloud.py``). ``init()``,
+``cluster_status()``, ``profile()``, ``device_memory()``,
+``get_config()`` and ``set_config()`` are the JAX package's runtime
+surface.
+
 This package imports torch and never jax or h2o_kubernetes_tpu.
 """
 
 from .automl import AutoML, Job, Leaderboard, jobs
+from .config import get_config, set_config
+from .diagnostics import device_memory, log, profile, timeline
 from .frame import Frame, Vec, import_file, parse_setup
 from .grid import GridSearch, H2OGridSearch
 from .models.deeplearning import DeepLearning, DeepLearningModel
@@ -77,6 +90,31 @@ from .runtime.backend import resolve_device
 
 __version__ = "0.1.0"
 
+
+def init(device=None):
+    """Resolve the device this process computes on (``None``: the CUDA
+    card, raising without one; ``"cpu"`` the CPU) and return it. The
+    port is one process on one device and eager torch compiles nothing,
+    so there is no cluster to join and no compile cache to enable."""
+    return resolve_device(device)
+
+
+def cluster_status(device=None) -> dict:
+    """``GET /3/Cloud``'s body for this process: the JAX package's keys,
+    one process on one device, ``devices`` naming the card."""
+    import torch
+
+    from .runtime.health import health_status
+
+    dev = resolve_device(device)
+    name = str(dev) if dev.type == "cpu" else \
+        f"{dev} ({torch.cuda.get_device_name(dev)})"
+    return {"version": __version__,
+            "cloud_healthy": bool(health_status()["healthy"]),
+            "cloud_size": 1, "mesh_shape": {"rows": 1},
+            "process_count": 1, "devices": [name]}
+
+
 __all__ = ["GBM", "GBMModel", "DRF", "DRFModel", "XGBoost", "XGBoostModel",
            "GLM", "GLMModel", "DeepLearning", "DeepLearningModel",
            "Word2Vec", "Word2VecModel", "Frame", "FlatTreeScorer",
@@ -90,4 +128,5 @@ __all__ = ["GBM", "GBMModel", "DRF", "DRFModel", "XGBoost", "XGBoostModel",
            "PCAModel", "GLRM", "GLRMModel", "NaiveBayes", "NaiveBayesModel",
            "IsolationForest", "IsolationForestModel", "CoxPH", "CoxPHModel",
            "Aggregator", "AggregatorModel", "TargetEncoder",
-           "TargetEncoderModel"]
+           "TargetEncoderModel", "init", "cluster_status", "get_config",
+           "set_config", "profile", "device_memory", "log", "timeline"]

@@ -1,13 +1,21 @@
-"""Environment knobs read by the port.
+"""Configuration: two tiers for ``log_level`` and ``nbins``, and the
+environment knobs read by the port.
 
-Each knob is read at USE time by the module that owns it, so a live
-server can be re-tuned without a restart. Names and defaults are the
-JAX package's, so one deployment manifest configures either package.
-The port has no histogram-implementation switch: the histogram build
-dispatches on the tensor's device (ops/histogram.py).
+``get_config(key)`` / ``set_config(key, value)`` are the JAX package's
+programmatic tier (``h2o.set_config``): a value set there wins over the
+environment (``H2O_TPU_LOG_LEVEL``, ``H2O_TPU_NBINS``), which wins over
+the default; both tiers share one validation (``_validate``), and a bad
+value is refused before it is stored. The environment tier is read at
+USE time, like every other knob here, so a live server can be re-tuned
+without a restart. Names and defaults are the JAX package's, so one
+deployment manifest configures either package. The JAX package's third
+key, ``hist_impl`` (Pallas or segment-sum histograms), is not ported:
+the port's histogram build dispatches on the tensor's device
+(ops/histogram.py) and has no switch.
 
 | env var | default | meaning |
 |---|---|---|
+| H2O_TPU_LOG_LEVEL | WARNING | level of the ``h2o_kubernetes_tpu_torch`` logger (``diagnostics.log``) |
 | H2O_TPU_NBINS | 256 | default histogram bins per feature (incl. the NA bin) for the tree learners, in [4, 256] (models/gbm.py) |
 | H2O_TPU_HIST_BYTES_BUDGET | 2³⁰ | deep-tree level-histogram memory budget: a GBM whose deepest level's histograms need more raises up front (models/gbm.py) |
 | H2O_TPU_EFB | auto | Exclusive Feature Bundling: 0 off, 1 plan at any width and keep any shrink, auto plan frames of >= H2O_TPU_EFB_MIN_F features and keep a plan whose bundled width Fb <= H2O_TPU_EFB_MIN_SHRINK · F (models/tree/efb.py) |
@@ -37,23 +45,71 @@ dispatches on the tensor's device (ops/histogram.py).
 
 from __future__ import annotations
 
+import logging
 import os
+from typing import Any
 
-__all__ = ["default_nbins", "hist_bytes_budget", "arrow_csv_enabled",
-           "ingest_chunk_bytes", "svmlight_dense_budget"]
+__all__ = ["get_config", "set_config", "CONFIG", "default_nbins",
+           "hist_bytes_budget", "arrow_csv_enabled", "ingest_chunk_bytes",
+           "svmlight_dense_budget"]
+
+_DEFAULTS: dict[str, Any] = {"log_level": "WARNING", "nbins": 256}
+
+_ENV_KEYS = {"log_level": "H2O_TPU_LOG_LEVEL", "nbins": "H2O_TPU_NBINS"}
+
+# the programmatic tier: the values set_config stored
+CONFIG: dict[str, Any] = {}
+
+
+def _validate(key: str, value: Any) -> Any:
+    """One rule set for both tiers; returns the coerced value or raises
+    ValueError."""
+    if key == "nbins":
+        value = int(value)
+        if not 4 <= value <= 256:
+            raise ValueError("nbins must be in [4, 256]")
+    if key == "log_level" and not isinstance(
+            getattr(logging, str(value).upper(), None), int):
+        raise ValueError(f"unknown log level '{value}'")
+    return value
+
+
+def _known(key: str) -> None:
+    if key not in _DEFAULTS:
+        raise KeyError(f"unknown config key '{key}' "
+                       f"(known: {sorted(_DEFAULTS)})")
+
+
+def get_config(key: str) -> Any:
+    """The value set by ``set_config``, else the validated environment
+    value, else the default."""
+    _known(key)
+    if key in CONFIG:
+        return CONFIG[key]
+    raw = os.environ.get(_ENV_KEYS[key])
+    if raw is None:
+        return _DEFAULTS[key]
+    try:
+        return _validate(key, raw)
+    except (ValueError, TypeError) as e:
+        raise ValueError(f"bad {_ENV_KEYS[key]}={raw!r}: {e}") from None
+
+
+def set_config(key: str, value: Any) -> None:
+    """Programmatic tier: applies at once (and re-levels the package
+    logger for ``log_level``); a bad value raises before it is stored."""
+    _known(key)
+    value = _validate(key, value)
+    CONFIG[key] = value
+    if key == "log_level":
+        from .diagnostics import log
+
+        log.setLevel(getattr(logging, str(value).upper()))
 
 
 def default_nbins() -> int:
-    """H2O_TPU_NBINS (default 256), validated to [4, 256]."""
-    raw = os.environ.get("H2O_TPU_NBINS", "256")
-    try:
-        n = int(raw)
-    except ValueError:
-        raise ValueError(f"bad H2O_TPU_NBINS={raw!r}: not an int") from None
-    if not 4 <= n <= 256:
-        raise ValueError(f"bad H2O_TPU_NBINS={raw!r}: nbins must be in "
-                         "[4, 256]")
-    return n
+    """Default histogram bins per feature, in [4, 256]: ``nbins``."""
+    return get_config("nbins")
 
 
 def hist_bytes_budget() -> float:

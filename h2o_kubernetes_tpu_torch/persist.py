@@ -5,9 +5,10 @@ an aggregator keeps its exemplar rows), and frame files
 metadata, both the JAX package's formats).
 
 Backends (the JAX package's ``PERSIST_SCHEMES`` registry): bare paths
-are the local file system, ``mem://`` an in-process object store.
-HTTP(S) and the cloud stores (``s3://``, ``gs://``, ``hdfs://``) raise,
-naming ROADMAP Queue 1 item 13, which ports them.
+are the local file system, ``mem://`` an in-process object store,
+``http(s)://`` a read-only remote fetch, and ``s3://``, ``gs://`` (or
+``gcs://``) and ``hdfs://`` the cloud stores (``persist_cloud.py``:
+stdlib REST clients, no SDK).
 
 A model file holds plain data only: numpy arrays, numbers, strings,
 lists and dicts, pickled from the CPU behind a magic line; the loader
@@ -48,19 +49,27 @@ def _mem_write(path: str, data: bytes) -> None:
     _MEM_STORE[path] = data
 
 
-def _unported_scheme(scheme: str):
-    def refuse(path: str, *_):
-        raise NotImplementedError(
-            f"the {scheme}:// persist backend is not ported (ROADMAP "
-            "Queue 1 item 13); use a local path or mem://")
-    return refuse
+def _http_read(path: str) -> bytes:
+    # retries 429/5xx (honouring Retry-After), timeouts, resets and
+    # truncation; a 404 is FileNotFoundError; the persist.http fault
+    # point fires inside
+    from .persist_cloud import _http
+
+    return _http("GET", path)
+
+
+def _http_write(path: str, data: bytes) -> None:
+    raise ValueError("http(s):// is a read-only persist backend")
 
 
 # scheme -> (reader: path -> bytes, writer: path, bytes -> None)
 PERSIST_SCHEMES: dict[str, tuple[Callable, Callable]] = {
-    "mem": (_mem_read, _mem_write)}
-for _s in ("http", "https", "s3", "gs", "hdfs"):
-    PERSIST_SCHEMES[_s] = (_unported_scheme(_s), _unported_scheme(_s))
+    "mem": (_mem_read, _mem_write), "http": (_http_read, _http_write),
+    "https": (_http_read, _http_write)}
+
+from . import persist_cloud as _persist_cloud  # noqa: E402
+
+_persist_cloud.register(PERSIST_SCHEMES)
 
 
 def _scheme(path: str) -> str:

@@ -21,6 +21,9 @@ Replica surface (what the operator's pods, router and autoscaler read):
   ``warm_buckets`` and a default ``slo``), ``POST
   /3/ModelRegistry/require`` (the tenant set readiness waits for);
 - ``POST /3/Cordon``, ``POST /3/Uncordon``;
+- ``GET /3/Kernels`` and ``POST /3/Kernels/reset`` — the process's
+  launches of the hand-written kernels (B1-B4), so a caller counts
+  what a pod ran;
 - ``POST /3/Predictions/models/{key}`` and ``.../contributions`` —
   JSON rows in, predictions or per-row TreeSHAP out, through the
   micro-batcher under an SLO class (``X-H2O-SLO``), a per-model queue
@@ -73,7 +76,7 @@ from .runtime.retry import _env_float
 __all__ = ["ScoreBatcher", "BATCHER", "MODELS", "FRAMES", "AUTOML", "GRIDS",
            "REGISTRY_MODELS", "REQUIRED_MODEL_IDS", "READINESS_GATES",
            "IDENTITY", "SLO_CLASSES", "STATS", "MODEL_STATS",
-           "QueueFullError", "install_pool_replica_gate",
+           "JsonHttpHandler", "QueueFullError", "install_pool_replica_gate",
            "reset_rate_buckets", "start_server", "stop_server"]
 
 
@@ -828,6 +831,29 @@ def _rows_to_matrix(model, rows, columns=None):
     return X
 
 
+def _kernel_launches(reset: bool = False) -> dict:
+    """GET /3/Kernels: this process's launches of the hand-written
+    kernels since it started or since ``POST /3/Kernels/reset`` — B1 the
+    single-tree histograms outside the partitioned regime, B2 the
+    partitioned ones, B3 every launch over K > 1 trees, B4 the TreeSHAP
+    kernel, and each by regime or variant. A fleet's pods are processes
+    of their own, so this is how a caller counts the kernels they ran."""
+    from .ops import histogram as hist_op
+    from .ops import shap_kernel
+
+    if reset:
+        hist_op.reset_launches()
+        shap_kernel.reset_launches()
+    lau, bat = dict(hist_op.LAUNCHES), dict(hist_op.BATCHED_LAUNCHES)
+    return {"b1": sum(lau[r] - bat[r] for r in lau if r != "partitioned"),
+            "b2": lau["partitioned"] - bat["partitioned"],
+            "b3": sum(bat.values()),
+            "b4": shap_kernel.flat_shap_tab_kernel.launches,
+            "histogram": lau, "histogram_batched": bat,
+            "row_partition": hist_op.PARTITION_LAUNCHES["row_partition"],
+            "shap_tab": dict(shap_kernel.LAUNCHES)}
+
+
 def _is_leader() -> bool:
     """True on the leader (process 0). The operator injects
     H2O_TPU_PROCESS_ID into every pod; a one-process node is its own
@@ -919,7 +945,11 @@ def _frame_schema(key: str, fr) -> dict:
                         for n in fr.names]}
 
 
-class _Handler(BaseHTTPRequestHandler):
+class JsonHttpHandler(BaseHTTPRequestHandler):
+    """The JSON plumbing the REST node and the front-door scoring router
+    (``operator/router.py``) share, so their error shapes, Retry-After
+    semantics and drain-safe body discard cannot drift apart."""
+
     server_version = "h2o-torch-rest/1"
 
     def log_message(self, *a):       # quiet by default
@@ -957,6 +987,9 @@ class _Handler(BaseHTTPRequestHandler):
             if not chunk:
                 break
             n -= len(chunk)
+
+
+class _Handler(JsonHttpHandler):
 
     def _unhealthy_503(self) -> bool:
         """Send 503 + the health error on an unhealthy node (no doomed
@@ -1057,6 +1090,8 @@ class _Handler(BaseHTTPRequestHandler):
                 if _is_leader():
                     return self._json({"leader": True})
                 return self._error(503, "not the leader node")
+            if path == "/3/Kernels":
+                return self._json({"launches": _kernel_launches()})
             if path == "/3/Timeline":
                 from .diagnostics import timeline
 
@@ -1182,6 +1217,8 @@ class _Handler(BaseHTTPRequestHandler):
                 params = self._params()
             except ValueError as e:
                 return self._error(400, str(e))
+            if path == "/3/Kernels/reset":
+                return self._json({"launches": _kernel_launches(True)})
             if path in ("/3/Cordon", "/3/Uncordon"):
                 # device-free ops verbs, allowed on an unhealthy node
                 if path == "/3/Cordon":
@@ -1675,6 +1712,8 @@ _JOB_THREADS: "weakref.WeakSet[threading.Thread]" = weakref.WeakSet()
 class _Server(ThreadingHTTPServer):
     """One REST server on ``device``; its request threads are named
     ``h2o-torch-rest-req``."""
+
+    request_queue_size = lifecycle.LISTEN_BACKLOG
 
     def __init__(self, addr, handler, device):
         super().__init__(addr, handler)

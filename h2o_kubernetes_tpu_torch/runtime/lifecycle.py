@@ -49,7 +49,7 @@ __all__ = [
     "breaker_guard", "state", "accepting", "mark_serving", "begin_drain",
     "drain", "install_sigterm", "remaining_drain_budget", "status",
     "register_shutdown", "terminated", "wait_terminated", "reset",
-    "cordon", "uncordon", "cordoned",
+    "cordon", "uncordon", "cordoned", "LISTEN_BACKLOG",
 ]
 
 log = logging.getLogger("h2o_kubernetes_tpu_torch")
@@ -58,6 +58,15 @@ STARTING = "STARTING"
 SERVING = "SERVING"
 DRAINING = "DRAINING"
 TERMINATED = "TERMINATED"
+
+# the listen backlog of a serving process's HTTP sockets (a pod's REST
+# server, a router). socketserver's default of 5 overflows once the
+# accept loop falls six connects behind, as a busy pod's may while it
+# waits for the interpreter lock under a router's forwards, probes and
+# pushes. The kernel then drops the connect and its resends back off
+# exponentially: one that meets a full queue at each resend waits tens
+# of seconds, past a client's 30 s, while the pod answers everyone else
+LISTEN_BACKLOG = 1024
 
 
 class CircuitOpenError(ClusterHealthError):

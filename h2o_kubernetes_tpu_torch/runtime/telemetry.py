@@ -35,12 +35,18 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import logging
 import os
 import threading
 import time
 import uuid
 
 from .retry import _env_float
+
+log = logging.getLogger("h2o_kubernetes_tpu_torch")
+
+# a served request at least this slow is logged with its phase spans
+_SLOW_REQUEST_S = 5.0
 
 __all__ = [
     "REGISTRY", "TRACER", "MetricsRegistry", "TraceRing",
@@ -160,8 +166,11 @@ class _LabeledMetric:
         t = self._traffic
         t[value] = t.get(value, 0) + 1
         if len(t) > 8 * k:
+            # the value being counted keeps its rank even when it is
+            # among the coldest (a newcomer): the comparison below
+            # reads it
             for v in sorted(t, key=t.get)[: len(t) - 4 * k]:
-                if v not in self._series:
+                if v not in self._series and v != value:
                     del t[v]
         s = self._series.get(value)
         if s is not None:
@@ -730,6 +739,12 @@ class TraceRing:
             return None if rec is None else {
                 **rec, "spans": list(rec["spans"])}
 
+    def records(self) -> list[dict]:
+        """Every record in the ring, oldest first (copies)."""
+        with self._lock:
+            return [{**rec, "spans": list(rec["spans"])}
+                    for rec in self._ring.values()]
+
     def clear(self) -> None:
         with self._lock:
             self._ring.clear()
@@ -777,6 +792,10 @@ def record_request_phases(trace_id: str | None, marks: dict,
              marks.get("dispatch_end")),
         span("total", t_start, t_end),
     ) if s is not None]
+    if t_start is not None and t_end - t_start >= _SLOW_REQUEST_S:
+        log.warning("slow request: model %s (%s) %s after %.1f s; spans "
+                    "%s; trace %s", model, kind, outcome or "answered",
+                    t_end - t_start, spans, trace_id)
     if t_start is not None:
         REGISTRY.histogram(
             "h2o_request_seconds",

@@ -290,8 +290,12 @@ def test_model_file_refuses_code(tmp_path):
     p.write_bytes(b"H2OTPU-TORCH1\n" + pickle.dumps({"x": Evil()}))
     with pytest.raises(pickle.UnpicklingError, match="not plain data"):
         load_model(str(p), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        persist.read_bytes("s3://bucket/m.model")
+    # a scheme with no backend, and a write to the read-only http(s)://
+    # backend, are refused before any byte moves
+    with pytest.raises(ValueError, match="no persist backend"):
+        persist.read_bytes("ftp://bucket/m.model")
+    with pytest.raises(ValueError, match="read-only"):
+        persist.write_bytes("https://example.invalid/m.model", b"x")
 
 
 def test_binomial_stats_match_reference():

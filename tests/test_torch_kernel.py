@@ -238,3 +238,31 @@ def test_score_graphs_with_offset_bitwise(case):
         np.testing.assert_array_equal(got, eager[:n].cpu().numpy())
         assert (b, True) in m._score_graphs
     np.testing.assert_array_equal(m.score_numpy(X), plain)
+
+
+@pytest.mark.cuda
+def test_profile_names_the_kernel_and_device_memory_reads_the_card(
+        case, tmp_path):
+    """``diagnostics.profile`` on the card records the TreeSHAP kernel
+    by name; ``device_memory`` and ``cluster_status`` read the card."""
+    import json
+
+    import h2o_kubernetes_tpu_torch as port
+    from h2o_kubernetes_tpu_torch.diagnostics import device_memory, profile
+
+    blob, X = case
+    dev = _card()
+    m = load_artifact(blob, device=dev)
+    m.contrib_numpy(X)
+    with profile(str(tmp_path)) as prof:
+        m.contrib_numpy(X)
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    assert any("shap_tab" in str(ev.get("name"))
+               for ev in trace["traceEvents"])
+    assert any("shap_tab" in a.key for a in prof.key_averages())
+    mem = device_memory()
+    assert mem[0]["bytes_in_use"] > 0
+    assert 0 < mem[0]["bytes_free"] < mem[0]["bytes_limit"]
+    st = port.cluster_status()
+    assert st["cloud_size"] == 1 and \
+        torch.cuda.get_device_name(0) in st["devices"][0]

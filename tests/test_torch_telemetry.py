@@ -178,6 +178,20 @@ def test_trace_ids_and_ring(monkeypatch):
     assert len(rec["spans"]) == ring.MAX_SPANS and rec["truncated"]
 
 
+def test_trace_ring_records_oldest_first_as_copies():
+    ring = telemetry.TraceRing(capacity=3)
+    for i in range(5):
+        ring.record(f"t{i}", [{"name": "total", "ms": float(i)}],
+                    model=f"m{i}")
+    recs = ring.records()
+    assert [r["trace_id"] for r in recs] == ["t2", "t3", "t4"]
+    assert [r["model"] for r in recs] == ["m2", "m3", "m4"]
+    recs[0]["spans"].append({"name": "x", "ms": 0.0})
+    assert len(ring.get("t2")["spans"]) == 1
+    ring.clear()
+    assert ring.records() == []
+
+
 def test_phase_span_feeds_histogram_and_timeline():
     from h2o_kubernetes_tpu_torch.diagnostics import timeline
 

@@ -1,4 +1,4 @@
-"""Rehearse chip_smoke.py's phases 18-29 (xgboost, lambdarank, glm,
+"""Rehearse chip_smoke.py's phases 18-30 (xgboost, lambdarank, glm,
 efb, goss, ooc, deeplearning, word2vec, frame, automl, learners,
 serving_remainder) on the CPU, without a card, at small sizes: the entry
 points' default device resolves to
@@ -18,6 +18,7 @@ are the CPU's and say nothing of the card.
         [--aml-wall-rows 20000 --aml-rows 30000 --aml-parity-rows 1500]
         [--learner-rows 200000 --learner-parity-rows 20000]
         [--sr-train-rows 20000 --sr-aml-rows 20000]
+        [--storm-clients process|threads]
 
 With ``--card`` it installs no fakes and runs the phases on the card at
 the given sizes (kernels built on first use): a short check of new
@@ -45,7 +46,15 @@ CPU at ``--learner-parity-rows`` (both the CPU here).
 at ``--sr-train-rows``, imports the airlines CSV of ``--frame-rows``
 (written first unless ``frame`` ran before it) over REST and runs
 AutoML on its first ``--sr-aml-rows``; ~2 min at the defaults, its
-sweep, explain and storm legs at their full lengths.
+sweep, explain and storm legs at their full lengths;
+``--storm-clients threads`` runs the storm's clients in the server's
+process (its tail then misses its deadline on a busy interpreter: the
+spans line says where the time went).
+``--phases fleet`` (phase 30) trains three base models at
+``--sr-train-rows`` (phase 29's when it ran first) and drives the whole
+fleet — a fake s3:// store, 3 shards and 3 direct pods as processes
+(``--device cpu`` here, the card with ``--card``), the router process,
+the five legs — at full size: 120 tenants, 10 s legs.
 """
 
 from __future__ import annotations
@@ -142,6 +151,10 @@ def main() -> int:
                     help="H2O_TPU_HIST_BYTES_BUDGET for the efb phase, so "
                          "that a small unbundled frame goes out of core "
                          "under the defaults as the full one does")
+    ap.add_argument("--storm-clients", choices=("process", "threads"),
+                    default="process",
+                    help="where phase 29's storm clients run: a process "
+                         "of their own, or threads beside the server")
     ap.add_argument("--card", action="store_true",
                     help="run on the card, with the real kernels")
     args = ap.parse_args()
@@ -169,6 +182,7 @@ def main() -> int:
     cs._LEARNER_PARITY_ROWS = args.learner_parity_rows
     cs._LEARNER_MOJO_ROWS = min(cs._LEARNER_MOJO_ROWS, args.learner_rows)
     cs._SR_TRAIN_ROWS = args.sr_train_rows
+    cs._SR_STORM_CLIENTS = args.storm_clients
     cs._SR_AML_ROWS = min(args.sr_aml_rows, args.frame_rows)
     if not args.card:
         cs._upload_gbs = lambda torch, nbytes: {"pinned": 0.0,
@@ -186,6 +200,7 @@ def main() -> int:
         profile_counts=cs._profile_counts if args.card else
         (lambda torch, fn: (fn(), (0, 0.0, 1.0))[1]))
     ctx.seed = 0
+    ctx.fleet_device = None if args.card else "cpu"
     ctx.frame_work = str(Path(__file__).resolve().parent.parent / "build"
                          / "frame")
     Path(ctx.frame_work).mkdir(parents=True, exist_ok=True)
