@@ -295,7 +295,24 @@ Phases, in order; any failure exits non-zero:
    cluster_status(), in a process of its own (``--fleet-surfaces``:
    after phases 1-29 this process's profiler sessions record no device
    activity, and profile() raises there);
-31. report — one JSON line of kernel records (B4 with its variants,
+31. ranks — rows across ranks (runtime/mesh.py, runtime/mrtask.py):
+   a. two rank processes (``--rank-leg``) share the card in one gloo
+   group and train, each on its half of the rows, bench.py's GBM
+   (1,000,000 rows, 10 trees of depth 5, no row sampling), drf_higgs's
+   forest (B3), glm_binomial_irlsm's GLM and deeplearning_mlp's width
+   for one epoch (on 50,000 rows); the ranks' trees, metrics, coefficients and averaged
+   weights must be bitwise equal, the two-rank GBM equal to the
+   one-rank GBM this process trains up to float64 near-ties
+   (tools/torch_tree_parity.py) with metrics within 1e-4, the GLM
+   coefficients within 1e-4 of the one-rank fit, and each rank's B1
+   and B3 launches equal to the one-rank train's; it prints the
+   histogram all-reduce's time per tree level and each train's wall
+   against the one-rank train's; b. where the host has two cards or
+   more, one rank per card over NCCL trains GBM at gbm_higgs_10m's
+   shape split over the cards: rows·trees/s per chip against one card
+   and the histogram all-reduce's share of a level (on one card it
+   prints that it did not run, and why);
+32. report — one JSON line of kernel records (B4 with its variants,
    B1, B2, B3, each histogram record with the regimes it ran in, and the
    row partition; the launches of phases 15-23 beside each, B1's levels
    including the xgboost_hist, lambdarank, bundled, compacted and chunk
@@ -503,6 +520,27 @@ _FL_CHECK_KEYS = 4            # head and tail tenants each in leg c
 _FL_STARTUP_S = 300.0         # H2O_TPU_POOL_STARTUP_DEADLINE of the pods
 _FL_CONVERGE_S = 240.0
 _FL_HEAD_P99_LINE = 1.3       # the reference bench's acceptance line
+# phase 31, rows across ranks: leg a's two ranks share the card over
+# gloo (NCCL refuses two ranks on one device) and train bench.py's GBM
+# (unsampled), drf_higgs's forest, glm_binomial_irlsm's GLM and
+# deeplearning_mlp's network; leg b (two cards or more) one rank per
+# card over NCCL, GBM at gbm_higgs_10m's shape (10,000,000 HIGGS rows,
+# 5 trees of depth 6), against one card
+_RK_WORLD = 2
+_RK_GLM = dict(family="binomial", solver="IRLSM", lambda_=0.0,
+               max_iterations=50, objective_epsilon=0.0, beta_epsilon=0.0,
+               seed=1)
+_RK_METRIC_LIMIT = 1e-4
+_RK_GLM_LIMIT = 1e-4
+_RK_TIMEOUT_S = 300.0
+# DeepLearning's epoch on a rank pair is host-bound (each step waits
+# for its gradient all-reduce through host memory: 26.6 s a rank at
+# 200,000 rows on an H100), so it runs on phase 24's side rows at
+# deeplearning_mlp's width
+_RK_DL_ROWS = _DL_SIDE_ROWS
+_RK_B_ROWS = 10_000_000
+_RK_B_TREES = 5
+_RK_B_DEPTH = 6
 
 _T0 = time.perf_counter()
 
@@ -4533,6 +4571,378 @@ def _reap_pods(workdir: str) -> list:
     return killed
 
 
+def _split_launches(hist_op) -> dict:
+    """The histogram launches since the last reset, by TPU kernel: B3
+    the launches over K > 1 trees, B2 the other partitioned ones, B1
+    the rest; and the row partitions."""
+    allk, bat = hist_op.LAUNCHES, hist_op.BATCHED_LAUNCHES
+    b3 = sum(bat.values())
+    b2 = allk["partitioned"] - bat["partitioned"]
+    return {"b1": sum(allk.values()) - b3 - b2, "b2": b2, "b3": b3,
+            "partitions": hist_op.PARTITION_LAUNCHES["row_partition"]}
+
+
+def _tree_arrays(trees) -> dict:
+    return {f: getattr(trees, f).cpu().numpy() for f in trees._fields}
+
+
+def _rank_leg(out: str, rank: int, world: int, port: int) -> int:
+    """Phase 31's rank (``chip_smoke.py --rank-leg DIR RANK WORLD PORT``,
+    a process of its own): join the group of DIR/spec.json's leg (a: the
+    card over gloo; b: card ``rank`` over NCCL; WORLD 1 forms none),
+    train the leg's models on this rank's rows with the collectives
+    timed, and pickle what the main process checks to
+    DIR/rankRANK.pkl."""
+    import pickle
+
+    import torch
+
+    from h2o_kubernetes_tpu_torch import (DRF, GBM, GLM, DeepLearning,
+                                          Frame, init)
+    from h2o_kubernetes_tpu_torch.ops import histogram as hist_op
+    from h2o_kubernetes_tpu_torch.runtime import mrtask
+    from tools.datasets import higgs_arrays
+
+    spec = json.loads((Path(out) / "spec.json").read_text())
+    leg, dev = spec["leg"], spec["device"].format(rank=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks share the host's cores: oversubscribed intra-op threads
+    # spin against each other between a collective's two ends
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    sync = torch.cuda.synchronize if dev.startswith("cuda") else \
+        (lambda: None)
+    t0 = time.perf_counter()
+    init(dev, coordinator=f"localhost:{port}", num_processes=world,
+         process_id=rank, backend=spec["backend"])
+    mrtask.set_collective_timing(True)
+    res = {"join_s": time.perf_counter() - t0}
+
+    def run(name, fit, **extra):
+        hist_op.reset_launches()
+        mrtask.reset_collectives()
+        sync()
+        t = time.perf_counter()
+        m = fit()
+        sync()
+        res[name] = dict(s=time.perf_counter() - t,
+                         launches=_split_launches(hist_op),
+                         collectives={k: dict(v) for k, v in
+                                      mrtask.COLLECTIVES.items()}, **extra)
+        return m
+
+    if leg == "b":
+        cols, dom = higgs_arrays(spec["rows"], seed=3)
+        fr = Frame.from_arrays(cols, domains=dom, device=dev)
+        del cols
+
+        def gbm():
+            return GBM(ntrees=_RK_B_TREES, max_depth=_RK_B_DEPTH,
+                       learn_rate=0.2, seed=1).train(y="y", training_frame=fr)
+
+        run("gbm_first", gbm)
+        m = run("gbm", gbm)
+        res["gbm"].update(history=m.scoring_history,
+                          local_rows=fr.local_rows)
+    else:
+        fr = Frame.from_arrays(_bench_cols(spec["rows"], 0), device=dev)
+
+        def gbm():
+            return GBM(ntrees=_TRAIN_TREES, max_depth=5, learn_rate=0.2,
+                       seed=1).train(y="y", training_frame=fr)
+
+        run("gbm_first", gbm)
+        m = run("gbm", gbm)
+        res["gbm"].update(trees=_tree_arrays(m.trees),
+                          history=m.scoring_history,
+                          init=np.asarray(m.init_score))
+        hcols, hdom = _higgs_cols(spec["drf_rows"], 0)
+        hf = Frame.from_arrays(hcols, domains=hdom, device=dev)
+        m = run("drf", lambda: DRF(ntrees=_DRF_TREES, max_depth=_DRF_DEPTH,
+                                   seed=1).train(y="y", training_frame=hf))
+        res["drf"].update(trees=_tree_arrays(m.trees),
+                          history=m.scoring_history)
+        m = run("glm", lambda: GLM(**_RK_GLM).train(y="y",
+                                                    training_frame=hf))
+        res["glm"].update(coef=m.coef(), iterations=m.n_iterations)
+        dcols, ddom = higgs_arrays(spec["dl_rows"], seed=2)
+        df = Frame.from_arrays(dcols, domains=ddom, device=dev)
+        m = run("dl", lambda: DeepLearning(hidden=_DL_HIDDEN, epochs=1,
+                                           seed=1).train(
+            y="y", training_frame=df))
+        res["dl"].update(net=m.net_numpy())
+    path = Path(out) / f"rank{rank}.pkl"
+    with open(str(path) + ".tmp", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(str(path) + ".tmp", path)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _run_ranks(out: str, spec: dict, world: int, env=None) -> list:
+    """Run ``world`` rank processes of the leg ``spec`` describes (leg,
+    device — ``{rank}`` formatted per rank —, backend and row counts)
+    to their end (killed past _RK_TIMEOUT_S); their pickled results, in
+    rank order."""
+    import pickle
+
+    os.makedirs(out, exist_ok=True)
+    (Path(out) / "spec.json").write_text(json.dumps(spec))
+    leg = spec["leg"]
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank-leg", out,
+         str(r), str(world), str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, **(env or {})),
+        cwd=str(Path(__file__).resolve().parent)) for r in range(world)]
+    deadline = time.monotonic() + _RK_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"leg {leg}: rank(s) {bad} failed:\n" +
+                           "\n".join(log[-3000:] for log in logs))
+    return [pickle.load(open(Path(out) / f"rank{r}.pkl", "rb"))
+            for r in range(world)]
+
+
+def _same_bits(a, b, path: str = "") -> list:
+    """The paths where two pickled results differ in any bit."""
+    if isinstance(a, dict):
+        return [d for k in a for d in _same_bits(a[k], b.get(k),
+                                                 f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _same_bits(x, y, f"{path}[{i}]")]
+    if isinstance(a, np.ndarray):
+        ok = isinstance(b, np.ndarray) and a.dtype == b.dtype and \
+            a.shape == b.shape and a.tobytes() == b.tobytes()
+        return [] if ok else [path]
+    if isinstance(a, float):
+        return [] if np.float64(a).tobytes() == np.float64(b).tobytes() \
+            else [path]
+    return [] if a == b else [path]
+
+
+def _per_level(st: dict, site: str = "hist") -> float:
+    """ms of one collective at ``site`` (0 when it never ran)."""
+    c = st["collectives"].get(site)
+    return 1e3 * c["seconds"] / c["calls"] if c and c["calls"] else 0.0
+
+
+def _phase_ranks(c) -> dict:
+    """31. ranks: see the module docstring's phase 31."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from h2o_kubernetes_tpu_torch import DRF, GBM, GLM, Frame
+
+    hist_op, card = c.hist_op, c.card
+    # the CPU rehearsal (tools/torch_rehearse_phases.py) sets
+    # c.rank_device "cpu" and smaller c.rank_rows
+    dev = getattr(c, "rank_device", "cuda:0")
+    rows = getattr(c, "rank_rows", {"rows": _TRAIN_ROWS,
+                                    "drf_rows": _DRF_ROWS,
+                                    "dl_rows": _RK_DL_ROWS})
+    card_leg = dev.startswith("cuda")
+    work = Path(__file__).resolve().parent / "build" / "ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    atexit.register(shutil.rmtree, str(work), True)
+    # the earlier phases' cached blocks go back to the card for the ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_ranks(str(work / "a"), dict(rows, leg="a", device=dev,
+                                             backend="gloo"), _RK_WORLD)
+    wall_a = time.perf_counter() - t0
+    # the ranks agree bit for bit on everything but their own timings
+    keep = {"gbm": ("trees", "history", "init", "launches"),
+            "drf": ("trees", "history", "launches"),
+            "glm": ("coef", "iterations", "launches"),
+            "dl": ("net", "launches")}
+    for r in ranks[1:]:
+        diff = [d for k, fs in keep.items() for f in fs
+                for d in _same_bits(ranks[0][k][f], r[k][f], f"{k}/{f}")]
+        if diff:
+            raise RuntimeError(f"the ranks disagree at {diff}")
+    # the one-rank trains on this card, timed warm as the ranks' were
+    fr = Frame.from_arrays(_bench_cols(rows["rows"], 0))
+    kw = dict(ntrees=_TRAIN_TREES, max_depth=5, learn_rate=0.2, seed=1)
+
+    def one(fit):
+        hist_op.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = fit()
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t, _split_launches(hist_op)
+
+    one(lambda: GBM(**kw).train(y="y", training_frame=fr))
+    gbm1, gbm1_s, gbm1_l = one(lambda: GBM(**kw).train(y="y",
+                                                       training_frame=fr))
+    hcols, hdom = _higgs_cols(rows["drf_rows"], 0)
+    hframe = Frame.from_arrays(hcols, domains=hdom)
+    del hcols
+    drf1, drf1_s, drf1_l = one(lambda: DRF(
+        ntrees=_DRF_TREES, max_depth=_DRF_DEPTH, seed=1).train(
+        y="y", training_frame=hframe))
+    glm1, glm1_s, glm1_l = one(lambda: GLM(**_RK_GLM).train(
+        y="y", training_frame=hframe))
+    r0 = ranks[0]
+    g2 = r0["gbm"]
+    other = SimpleNamespace(trees=SimpleNamespace(**g2["trees"]))
+    compared, ties, gap = _near_ties(gbm1, other, fr, "y", {})
+    h1, h2 = gbm1.scoring_history[-1], g2["history"][-1]
+    metric_gap = max(abs(h1[k] - h2[k]) for k in h1 if k != "ntrees")
+    coef1 = glm1.coef()
+    coef_gap = max(abs(coef1[k] - r0["glm"]["coef"][k]) for k in coef1)
+    launches = {"gbm": (g2["launches"], gbm1_l),
+                "drf": (r0["drf"]["launches"], drf1_l),
+                "glm": (r0["glm"]["launches"], glm1_l)}
+    per_level = _per_level(g2)
+    levels = g2["collectives"].get("hist", {}).get("calls", 0)
+    out = {
+        "leg_a": {
+            "world": _RK_WORLD, "backend": "gloo", "wall_s": wall_a,
+            "join_s": [r["join_s"] for r in ranks],
+            "gbm_s": [r["gbm"]["s"] for r in ranks], "gbm_one_rank_s":
+                gbm1_s,
+            "drf_s": [r["drf"]["s"] for r in ranks], "drf_one_rank_s":
+                drf1_s,
+            "glm_s": [r["glm"]["s"] for r in ranks], "glm_one_rank_s":
+                glm1_s,
+            "dl_s": [r["dl"]["s"] for r in ranks],
+            "hist_allreduce_ms_per_level": [_per_level(r["gbm"])
+                                            for r in ranks],
+            "hist_allreduce_levels": levels,
+            "hist_allreduce_bytes": g2["collectives"].get(
+                "hist", {}).get("bytes", 0),
+            "drf_allreduce_ms_per_level": [_per_level(r["drf"])
+                                           for r in ranks],
+            "dl_grad_allreduce_ms": [_per_level(r["dl"], "dl_grad")
+                                     for r in ranks],
+            "launches_per_rank": {k: [r[k]["launches"] for r in ranks]
+                                  for k in ("gbm", "drf", "glm", "dl")},
+            "launches_one_rank": {k: v[1] for k, v in launches.items()},
+            "gbm_nodes_compared": compared, "gbm_ties": len(ties),
+            "gbm_leaf_gap": gap, "gbm_metric_gap": metric_gap,
+            "glm_coef_gap": coef_gap,
+            "glm_iterations": r0["glm"]["iterations"]}}
+    a = out["leg_a"]
+
+    def r4(xs, n=4):
+        return [round(x, n) for x in xs]
+
+    _log(f"[ranks] leg a: {_RK_WORLD} ranks on one card over gloo, "
+         f"{wall_a:.1f}s for the processes (join {r4(a['join_s'], 2)} s); "
+         f"GBM 10x5 warm {r4(a['gbm_s'])} s per rank against "
+         f"{gbm1_s:.4f}s one rank; histogram all-reduce "
+         f"{r4(a['hist_allreduce_ms_per_level'])} ms per level over "
+         f"{levels} levels; DRF {r4(a['drf_s'], 3)} s against "
+         f"{drf1_s:.3f}s; GLM {r4(a['glm_s'])} s against {glm1_s:.4f}s; "
+         f"DL one epoch {r4(a['dl_s'], 2)} s (gradient all-reduce "
+         f"{r4(a['dl_grad_allreduce_ms'])} ms a step); GBM vs one rank: "
+         f"{compared} nodes, {len(ties)} near-ties, leaf gap {gap:.2e}, "
+         f"metric gap {metric_gap:.2e}; GLM coefficient gap "
+         f"{coef_gap:.2e}; launches per rank {a['launches_per_rank']} one "
+         f"rank {a['launches_one_rank']} [{card}]")
+    for k, (got, want) in launches.items():
+        if card_leg and (got["b1"], got["b3"]) != (want["b1"], want["b3"]):
+            raise RuntimeError(f"{k}: a rank's launches {got} differ from "
+                               f"the one-rank train's {want}")
+    if card_leg and (launches["gbm"][0]["b1"] != 5 * _TRAIN_TREES + 1 or
+                     launches["drf"][0]["b3"] < 1):
+        raise RuntimeError(f"a rank missed its kernels: {launches}")
+    if metric_gap > _RK_METRIC_LIMIT or coef_gap > _RK_GLM_LIMIT or \
+            levels != 5 * _TRAIN_TREES:
+        raise RuntimeError(f"two ranks against one: metric gap "
+                           f"{metric_gap}, GLM gap {coef_gap}, {levels} "
+                           "all-reduced levels")
+    if not all(np.isfinite(v["w"]).all() for v in r0["dl"]["net"]):
+        raise RuntimeError("the averaged network is not finite")
+    out["leg_b"] = _phase_ranks_b(c)
+    return out
+
+
+def _phase_ranks_b(c) -> dict:
+    """31b: one rank per card over NCCL, GBM at gbm_higgs_10m's shape
+    split over the cards, against one card (a rank process of its own,
+    in device memory); on one card, a record that it did not run. The
+    CPU rehearsal sets c.rank_device "cpu" and c.rank_b_world: CPU
+    ranks over gloo on c.rank_rows["b_rows"] rows."""
+    import torch
+
+    card = c.card
+    cpu = getattr(c, "rank_device", "cuda:0") == "cpu"
+    world = getattr(c, "rank_b_world", 4) if cpu else \
+        torch.cuda.device_count()
+    if world < 2:
+        reason = f"{world} card on this host: one rank per card needs two " \
+            "or more"
+        _log(f"[ranks] leg b did not run: {reason} (not counted as passed)")
+        return {"ran": False, "reason": reason}
+    rows = getattr(c, "rank_rows", {}).get("b_rows", _RK_B_ROWS)
+    spec_b = dict(leg="b", device="cpu" if cpu else "cuda:{rank}",
+                  backend="gloo" if cpu else "nccl", rows=rows)
+    work = Path(__file__).resolve().parent / "build" / "ranks"
+    t0 = time.perf_counter()
+    ranks_b = _run_ranks(str(work / "b"), spec_b, world)
+    wall_b = time.perf_counter() - t0
+    # one card, in device memory (10,000,000 rows would stream out of
+    # core under the default budget)
+    one_b = _run_ranks(str(work / "b1"), spec_b, 1,
+                       env={"H2O_TPU_OOC": "0"})
+    diff = [d for r in ranks_b[1:] for d in
+            _same_bits(ranks_b[0]["gbm"]["history"], r["gbm"]["history"])]
+    if diff:
+        raise RuntimeError(f"leg b's ranks disagree: {diff}")
+    gs = max(r["gbm"]["s"] for r in ranks_b)
+    g1 = one_b[0]["gbm"]["s"]
+    rate = rows * _RK_B_TREES / gs / world
+    rate1 = rows * _RK_B_TREES / g1
+    share = [r["gbm"]["collectives"].get("hist", {}).get("seconds", 0.0)
+             / r["gbm"]["s"] for r in ranks_b]
+    hb, h1b = ranks_b[0]["gbm"]["history"][-1], \
+        one_b[0]["gbm"]["history"][-1]
+    b = {"ran": True, "world": world, "backend": spec_b["backend"],
+         "rows": rows, "wall_s": wall_b,
+         "gbm_s": [r["gbm"]["s"] for r in ranks_b], "one_card_s": g1,
+         "rows_trees_per_s_per_chip": rate,
+         "one_card_rows_trees_per_s": rate1,
+         "hist_allreduce_ms_per_level": [_per_level(r["gbm"])
+                                         for r in ranks_b],
+         "hist_allreduce_share": share,
+         "launches_per_rank": [r["gbm"]["launches"] for r in ranks_b],
+         "auc": hb["train_auc"], "one_card_auc": h1b["train_auc"]}
+    _log(f"[ranks] leg b: {world} ranks over {spec_b['backend']}, GBM "
+         f"{_RK_B_TREES}x{_RK_B_DEPTH} on {rows} HIGGS rows: warm "
+         f"{[round(x, 4) for x in b['gbm_s']]} s per rank = {rate:.0f} "
+         f"rows·trees/s per chip against {rate1:.0f} on one card "
+         f"({g1:.4f}s); histogram all-reduce "
+         f"{[round(x, 4) for x in b['hist_allreduce_ms_per_level']]} ms "
+         f"per level, {[round(x, 4) for x in share]} of the train; train "
+         f"AUC {hb['train_auc']} against {h1b['train_auc']}; launches per "
+         f"rank {b['launches_per_rank']} [{card}]")
+    if abs(hb["train_auc"] - h1b["train_auc"]) > 1e-3:
+        raise RuntimeError("leg b's train AUC is off the one-card train's")
+    return b
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4546,7 +4956,14 @@ def main() -> int:
     ap.add_argument("--fleet-surfaces", nargs=2, metavar=("DIR", "DEVICE"),
                     help="run phase 30e alone (phase 30 starts it in a "
                          "process of its own)")
+    ap.add_argument("--rank-leg", nargs=4,
+                    metavar=("DIR", "RANK", "WORLD", "PORT"),
+                    help="run one rank of phase 31's leg (phase 31 starts "
+                         "each in a process of its own)")
     args = ap.parse_args()
+    if args.rank_leg:
+        d, rank, world, port = args.rank_leg
+        return _rank_leg(d, int(rank), int(world), int(port))
     if args.automl_cpu_leg:
         return _automl_cpu_leg(args.automl_cpu_leg[0],
                                int(args.automl_cpu_leg[1]))
@@ -5344,7 +5761,11 @@ def main() -> int:
     fleet_res = _phase_fleet(ctx)
 
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 31 starts")
-    # -- 31. report ----------------------------------------------------------
+    # -- 31. ranks: rows across ranks on the card (and across cards) ---------
+    ranks_res = _phase_ranks(ctx)
+
+    _log(f"[time] {time.perf_counter() - _T0:.1f}s: phase 32 starts")
+    # -- 32. report ----------------------------------------------------------
     sv = shap["serving"]
     record = {
         "name": "shap_tab", "route": "cuda",
@@ -5505,6 +5926,13 @@ def main() -> int:
         "b4_per_contrib_request":
             fleet_res["correct"]["b4_per_contrib_request"]}
     _log(json.dumps({"fleet": fleet_res}))
+    # phase 31 adds no kernel; each rank's B1 and B3 launches stand in
+    # their records beside the one-rank train's
+    records[1]["ranks_leg_a_launches"] = {
+        k: ranks_res["leg_a"]["launches_per_rank"][k] for k in ("gbm", "glm")}
+    records[3]["ranks_leg_a_launches"] = \
+        ranks_res["leg_a"]["launches_per_rank"]["drf"]
+    _log(json.dumps({"ranks": ranks_res}))
     _log(json.dumps({"kernels": records}))
     _log(f"[time] {time.perf_counter() - _T0:.1f}s: the whole run")
     _log(card)

@@ -52,8 +52,9 @@ each the REST replica on the card), places a tenant catalog across
 shards (``ShardedPool``) and a front-door router
 (``operator/router.py``) that forwards scoring to them, over a durable
 pool store on any persist backend (local, ``mem://``, ``s3://``,
-``gs://``, ``hdfs://``: ``persist_cloud.py``). ``init()``,
-``cluster_status()``, ``profile()``, ``device_memory()``,
+``gs://``, ``hdfs://``: ``persist_cloud.py``). ``init()``
+(which joins a row group of one process per card when given a
+coordinator), ``cluster_status()``, ``profile()``, ``device_memory()``,
 ``get_config()`` and ``set_config()`` are the JAX package's runtime
 surface.
 
@@ -91,28 +92,49 @@ from .runtime.backend import resolve_device
 __version__ = "0.1.0"
 
 
-def init(device=None):
+def init(device=None, coordinator: str | None = None, **kw):
     """Resolve the device this process computes on (``None``: the CUDA
-    card, raising without one; ``"cpu"`` the CPU) and return it. The
-    port is one process on one device and eager torch compiles nothing,
-    so there is no cluster to join and no compile cache to enable."""
-    return resolve_device(device)
+    card, raising without one; ``"cpu"`` the CPU) and return it; eager
+    torch compiles nothing, so there is no compile cache to enable.
+
+    With a ``coordinator`` (``host:port``; or ``H2O_TPU_COORDINATOR``
+    with ``H2O_TPU_NUM_PROCESSES`` and ``H2O_TPU_PROCESS_ID``) the
+    process first joins the row group (``runtime/mesh.
+    initialize_distributed``; ``kw``: ``num_processes``,
+    ``process_id``, ``backend``), one process per rank, and the rank's
+    device is the group's: ``cuda:{process_id mod cards}`` by default,
+    or ``device``."""
+    from .runtime.mesh import initialize_distributed
+
+    g = initialize_distributed(coordinator, device=device, **kw)
+    return g.device if g.device is not None else resolve_device(device)
 
 
 def cluster_status(device=None) -> dict:
-    """``GET /3/Cloud``'s body for this process: the JAX package's keys,
-    one process on one device, ``devices`` naming the card."""
+    """``GET /3/Cloud``'s body for this process: the JAX package's keys.
+    On a row group ``cloud_size`` and ``process_count`` are the world
+    size and ``devices`` names every rank's device (gathered); alone,
+    one process on one device."""
     import torch
 
     from .runtime.health import health_status
+    from .runtime.mesh import global_mesh
 
-    dev = resolve_device(device)
+    g = global_mesh()
+    dev = g.device if g.device is not None else resolve_device(device)
     name = str(dev) if dev.type == "cpu" else \
         f"{dev} ({torch.cuda.get_device_name(dev)})"
+    names = [name]
+    if g.world_size > 1:
+        import torch.distributed as dist
+
+        names = [None] * g.world_size
+        dist.all_gather_object(names, f"rank {g.rank}: {name}",
+                               group=g.pg)
     return {"version": __version__,
             "cloud_healthy": bool(health_status()["healthy"]),
-            "cloud_size": 1, "mesh_shape": {"rows": 1},
-            "process_count": 1, "devices": [name]}
+            "cloud_size": g.world_size, "mesh_shape": dict(g.shape),
+            "process_count": g.world_size, "devices": names}
 
 
 __all__ = ["GBM", "GBMModel", "DRF", "DRFModel", "XGBoost", "XGBoostModel",

@@ -1,10 +1,22 @@
 """Frame: a columnar table whose columns are tensors on one device.
 
 The JAX package keeps each column as one row-sharded ``jax.Array``
-padded to the mesh's ROWS axis. The port holds the whole frame on one
-device — the CUDA card unless the caller asks for the CPU — so a column
-is one unpadded tensor and ``nrows`` is its length. Every Vec an
-operation makes lives on its source's device.
+padded to the mesh's ROWS axis. The port holds a frame on one device —
+the CUDA card unless the caller asks for the CPU — so a column is one
+unpadded tensor and ``nrows`` is its length. Every Vec an operation
+makes lives on its source's device.
+
+On a row group (``runtime/mesh.py``, world size > 1) a frame is built
+from the same host data on every rank and each rank keeps only its own
+padded row shard (``runtime/mrtask.shard_rows``: rank r holds padded
+rows [r·m, (r+1)·m)); ``nrows`` stays the global row count. Padding
+rows are NA (NaN, or -1 for enum codes), so NA-aware reductions skip
+them and training gives them weight 0 (``Frame.valid_mask``). Rollups
+reduce through ``mrtask.doall`` and the numpy accessors gather the
+shards and drop the padding; elementwise algebra stays on the shard.
+Row operations that move rows between ranks (selection, sorting,
+splits, joins, group-by, factoring) raise ``NotImplementedError`` on a
+sharded frame.
 
 Column kinds (the JAX package's, minus its host-only string kind):
   numeric — float32, NA = NaN
@@ -28,7 +40,9 @@ from typing import Any, Iterable, Mapping, Sequence
 import numpy as np
 import torch
 
+from ..runtime import mrtask
 from ..runtime.backend import resolve_device
+from ..runtime.mesh import n_row_shards
 
 __all__ = ["Frame", "Vec", "NA_ENUM"]
 
@@ -81,18 +95,46 @@ def _time_vec(ms: torch.Tensor, name: str) -> "Vec":
                origin=origin)
 
 
+def _rollup_map(x: torch.Tensor) -> dict:
+    """One shard's float64 count and sum of the non-NA values, its
+    extremes and its zero count."""
+    ok = ~torch.isnan(x)
+    return {"cnt": ok.sum(dtype=torch.float64),
+            "sum": torch.where(ok, x.double(), 0.0).sum(),
+            "min": torch.where(ok, x, float("inf")).min(),
+            "max": torch.where(ok, x, float("-inf")).max(),
+            "zeros": (ok & (x == 0.0)).sum(dtype=torch.float64)}
+
+
+def _rollup_ss(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """One shard's float64 Σ(x − mean)² over the non-NA values."""
+    ok = ~torch.isnan(x)
+    return torch.where(ok, (x.double() - mean) ** 2, 0.0).sum()
+
+
+def _local_only(sharded: bool, what: str) -> None:
+    """Refuse a row operation on a row-sharded column."""
+    if sharded:
+        raise NotImplementedError(
+            f"{what} on a row-sharded Frame is not ported (ROADMAP.md, "
+            "item 14's Queue 1: munging on a group)")
+
+
 def _num_str(v) -> str:
     return str(int(v)) if float(v).is_integer() else str(v)
 
 
 class Vec:
-    """One column: a device tensor plus host-side metadata."""
+    """One column: a device tensor plus host-side metadata. ``nrows``
+    given makes it a row shard: ``data`` is this rank's padded shard and
+    ``nrows`` the global row count."""
 
     def __init__(self, data: torch.Tensor, kind: str = "numeric",
                  domain: list[str] | None = None, name: str = "",
-                 origin: float = 0.0):
+                 origin: float = 0.0, nrows: int | None = None):
         self.data = data
-        self.nrows = int(data.shape[0])
+        self.sharded = nrows is not None
+        self.nrows = int(data.shape[0]) if nrows is None else int(nrows)
         self.kind = kind          # numeric | enum | time
         self.domain = domain
         self.name = name
@@ -103,7 +145,8 @@ class Vec:
     def from_numpy(x, name: str = "", domain=None, kind: str | None = None,
                    device=None) -> "Vec":
         """Host array -> Vec on ``device`` (None = the CUDA card).
-        ``datetime64`` arrays become time columns."""
+        ``datetime64`` arrays become time columns. On a row group, this
+        rank's padded shard of it."""
         x = np.asarray(x)
         dev = resolve_device(device)
         if kind is None:
@@ -115,7 +158,7 @@ class Vec:
         if kind == "enum":
             if x.dtype.kind == "f":  # pre-encoded float codes: NaN is NA
                 x = np.where(np.isnan(x), NA_ENUM, x)
-            data = torch.as_tensor(x.astype(np.int32), device=dev)
+            arr, pad = x.astype(np.int32), NA_ENUM
         elif kind == "time":
             if x.dtype.kind == "M":
                 ms = x.astype("datetime64[ms]").astype(np.float64)
@@ -123,11 +166,15 @@ class Vec:
             else:
                 ms = x.astype(np.float64)
             origin = float(np.nanmin(ms)) if len(ms) else 0.0
-            data = torch.as_tensor((ms - origin).astype(np.float32),
-                                   device=dev)
+            arr, pad = (ms - origin).astype(np.float32), np.nan
         else:
-            data = torch.as_tensor(x.astype(np.float32), device=dev)
-        return Vec(data, kind=kind, domain=domain, name=name, origin=origin)
+            arr, pad = x.astype(np.float32), np.nan
+        if n_row_shards() > 1:
+            return Vec(mrtask.shard_rows(arr, pad, device=dev), kind=kind,
+                       domain=domain, name=name, origin=origin,
+                       nrows=len(arr))
+        return Vec(torch.as_tensor(arr, device=dev), kind=kind,
+                   domain=domain, name=name, origin=origin)
 
     # -- basics ---------------------------------------------------------------
 
@@ -160,14 +207,24 @@ class Vec:
         return self.data.double() + self.origin
 
     def to_numpy(self) -> np.ndarray:
-        if self.kind == "time":
-            return self._abs_ms().cpu().numpy()
-        return self.data.cpu().numpy()
+        """The whole column on the host (a sharded one gathered from
+        every rank, its padding dropped)."""
+        d = self._abs_ms() if self.kind == "time" else self.data
+        if self.sharded:
+            d = mrtask.gather_rows(d)[: self.nrows]
+        return d.cpu().numpy()
 
     def _like(self, data: torch.Tensor) -> "Vec":
-        """A Vec of this one's kind, domain, name and origin."""
+        """A Vec of this one's kind, domain, name, origin and row
+        layout."""
         return Vec(data, kind=self.kind, domain=self.domain, name=self.name,
-                   origin=self.origin)
+                   origin=self.origin,
+                   nrows=self.nrows if self.sharded else None)
+
+    def _new(self, data: torch.Tensor, **kw) -> "Vec":
+        """A Vec of ``data`` in this one's row layout (an elementwise
+        result)."""
+        return Vec(data, nrows=self.nrows if self.sharded else None, **kw)
 
     # -- rollups --------------------------------------------------------------
 
@@ -188,16 +245,17 @@ class Vec:
                                  zeros=0, rows=0)
             return self._rollups
         x = self.data if self.kind == "time" else self.as_float()
-        ok = ~torch.isnan(x)
-        xd = torch.where(ok, x.double(), 0.0)
-        cnt = ok.sum(dtype=torch.float64)
-        mean = xd.sum() / cnt
-        ss = torch.where(ok, (xd - mean) ** 2, 0.0).sum()
+        # two doall passes (one on a single process): the counts, sums
+        # and extremes, then Σ(x − mean)² about the global mean
+        first = mrtask.doall(_rollup_map, x, reduce={
+            "cnt": "sum", "sum": "sum", "min": "min", "max": "max",
+            "zeros": "sum"})
+        cnt = first["cnt"]
+        mean = first["sum"] / cnt
+        ss = mrtask.doall(lambda c: _rollup_ss(c, mean), x)
         stats = torch.stack([
-            cnt, mean, ss,
-            torch.where(ok, x, float("inf")).min().double(),
-            torch.where(ok, x, float("-inf")).max().double(),
-            (ok & (x == 0.0)).sum(dtype=torch.float64)]).cpu().tolist()
+            cnt, mean, ss, first["min"].double(), first["max"].double(),
+            first["zeros"]]).cpu().tolist()
         n, mean, ss, lo, hi, zeros = stats
         shift = self.origin if (self.kind == "time" and n) else 0.0
         self._rollups = dict(
@@ -224,6 +282,7 @@ class Vec:
                                             device=self.device))
 
     def _gather(self, idx: torch.Tensor) -> "Vec":
+        _local_only(self.sharded, "select_rows")
         out = self._like(self.data.index_select(0, idx))
         if idx.numel() == 0 and self.kind == "time":
             out.origin = 0.0        # an empty time column's origin
@@ -234,6 +293,7 @@ class Vec:
         asfactor); time columns factor their exact epoch-ms."""
         if self.is_enum():
             return self
+        _local_only(self.sharded, "asfactor")
         x = self._abs_ms() if self.kind == "time" else self.data
         ok = ~torch.isnan(x)
         vals, inv = torch.unique(x[ok], sorted=True, return_inverse=True)
@@ -249,8 +309,9 @@ class Vec:
         if not self.is_enum():
             return self
         if not self.domain:  # all-NA enum column
-            return Vec(torch.full((self.nrows,), float("nan"),
-                                  device=self.device), name=self.name)
+            return self._new(torch.full_like(self.data, float("nan"),
+                                             dtype=torch.float32),
+                             name=self.name)
         try:
             lut = np.array([float(d) for d in self.domain], dtype=np.float32)
         except ValueError:
@@ -258,7 +319,7 @@ class Vec:
         lut = torch.as_tensor(lut, device=self.device)
         a = self.data.long()
         out = torch.where(a >= 0, lut[a.clamp(min=0)], float("nan"))
-        return Vec(out, name=self.name)
+        return self._new(out, name=self.name)
 
     # -- elementwise algebra (the Rapids expression surface) ------------------
 
@@ -282,7 +343,7 @@ class Vec:
                             f"'{self.name}' (use asnumeric() first)")
         a, b = self.as_float(), self._operand(other)
         out = fn(a, b.expand_as(a))
-        return Vec(out.to(torch.float32), name=name or self.name)
+        return self._new(out.to(torch.float32), name=name or self.name)
 
     def __add__(self, o): return self._arith(o, torch.add)
     def __radd__(self, o): return self._arith(o, lambda a, b: b + a)
@@ -317,8 +378,8 @@ class Vec:
             a, b = self.as_float(), self._operand(other, "comparison")
         res = fn(a, b).to(torch.float32)
         bad = torch.isnan(a) | torch.isnan(b)
-        return Vec(torch.where(bad, float("nan"), res),   # NA is NA (h2o)
-                   name=self.name)
+        return self._new(torch.where(bad, float("nan"), res),  # NA is NA
+                         name=self.name)
 
     def __lt__(self, o): return self._cmp(o, torch.lt)
     def __le__(self, o): return self._cmp(o, torch.le)
@@ -336,23 +397,24 @@ class Vec:
     def __and__(self, o):
         if not isinstance(o, Vec):
             raise TypeError("& needs two Vecs")
-        return Vec((self._bool() & o._bool().to(self.device)).float(),
-                   name=self.name)
+        return self._new((self._bool() & o._bool().to(self.device)).float(),
+                         name=self.name)
 
     def __or__(self, o):
         if not isinstance(o, Vec):
             raise TypeError("| needs two Vecs")
-        return Vec((self._bool() | o._bool().to(self.device)).float(),
-                   name=self.name)
+        return self._new((self._bool() | o._bool().to(self.device)).float(),
+                         name=self.name)
 
     def __invert__(self):
-        return Vec((~self._bool()).float(), name=self.name)
+        return self._new((~self._bool()).float(), name=self.name)
 
     def _math(self, fn) -> "Vec":
         if self.is_enum():
             raise TypeError(f"math is not applicable to enum column "
                             f"'{self.name}' (use asnumeric() first)")
-        return Vec(fn(self.as_float()).to(torch.float32), name=self.name)
+        return self._new(fn(self.as_float()).to(torch.float32),
+                         name=self.name)
 
     def log(self): return self._math(torch.log)
     def log1p(self): return self._math(torch.log1p)
@@ -366,13 +428,14 @@ class Vec:
     def unique(self):
         """Distinct non-NA values as a 1-column Frame (h2o unique)."""
         from .munge import unique as _unique
+        _local_only(self.sharded, "unique")
         return _unique(self)
 
     def isna(self) -> "Vec":
         """1.0 where the value is NA (h2o isna)."""
         na = (self.data == NA_ENUM) if self.kind == "enum" \
             else torch.isnan(self.data)
-        return Vec(na.float(), name=self.name)
+        return self._new(na.float(), name=self.name)
 
 
 def _check_index(idx, nrows: int) -> np.ndarray:
@@ -462,6 +525,26 @@ class Frame:
     def device(self) -> torch.device:
         return next(iter(self._vecs.values())).device
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the columns are this rank's row shards."""
+        return bool(self._vecs) and next(iter(self._vecs.values())).sharded
+
+    @property
+    def local_rows(self) -> int:
+        """Rows this process holds: ``nrows``, or its padded shard's."""
+        return int(next(iter(self._vecs.values())).data.shape[0]) \
+            if self._vecs else 0
+
+    def valid_mask(self) -> torch.Tensor:
+        """float32 [local_rows] on the frame's device: 1 for a logical
+        row, 0 for a shard's padding."""
+        if not self._vecs:
+            raise ValueError("valid_mask() on an empty Frame")
+        lo = mrtask.shard_bounds(self.nrows)[0] if self.sharded else 0
+        return (torch.arange(lo, lo + self.local_rows, device=self.device)
+                < self.nrows).to(torch.float32)
+
     def vec(self, name: str) -> Vec:
         return self._vecs[name]
 
@@ -497,8 +580,7 @@ class Frame:
     def _to(self, device) -> "Frame":
         """This frame's columns copied to ``device``."""
         dev = torch.device(device)
-        return Frame({n: Vec(v.data.to(dev), kind=v.kind, domain=v.domain,
-                             name=v.name, origin=v.origin)
+        return Frame({n: v._like(v.data.to(dev))
                       for n, v in self._vecs.items()})
 
     # -- device views ---------------------------------------------------------
@@ -585,6 +667,7 @@ class Frame:
         one uniform draw per row from numpy's ``default_rng(seed)`` on
         the host against the cumulative ratio boundaries, as the JAX
         package draws them, so the parts are the same rows."""
+        _local_only(self.sharded, "split_frame")
         if sum(ratios) >= 1.0:
             raise ValueError("ratios must sum to < 1")
         rng = np.random.default_rng(None if seed < 0 else seed)
@@ -597,6 +680,7 @@ class Frame:
     def rbind(self, other: "Frame") -> "Frame":
         """Stack the rows of two column-compatible frames. Enum domains
         merge sorted; time columns re-derive their origin."""
+        _local_only(self.sharded or other.sharded, "rbind")
         if self.names != other.names:
             raise ValueError("rbind: column names differ")
         out: dict[str, Vec] = {}
@@ -629,26 +713,31 @@ class Frame:
     def group_by(self, by) -> "Any":
         """h2o-py GroupBy builder: fr.group_by("c").sum("x").get_frame()."""
         from .munge import GroupBy
+        _local_only(self.sharded, "group_by")
         return GroupBy(self, by)
 
     def merge(self, other: "Frame", by=None, all_x: bool = False) -> "Frame":
         """Join on key columns (h2o merge: inner, or left when all_x)."""
         from .munge import merge as _merge
+        _local_only(self.sharded or other.sharded, "merge")
         return _merge(self, other, by=by, all_x=all_x)
 
     def impute(self, column: str, method: str = "mean", by=None):
         """Fill NAs in place (h2o.impute: mean/median/mode, by-groups)."""
         from .munge import impute as _impute
+        _local_only(self.sharded, "impute")
         return _impute(self, column, method=method, by=by)
 
     def table(self, col: str, col2: str | None = None) -> "Frame":
         """Frequency table of 1-2 categorical columns (h2o table)."""
         from .munge import table as _table
+        _local_only(self.sharded, "table")
         return _table(self, col, col2)
 
     def quantile(self, prob=None) -> "Frame":
         """Per-numeric-column quantiles (h2o quantile defaults)."""
         from .munge import quantile as _quantile
+        _local_only(self.sharded, "quantile")
         return _quantile(self) if prob is None else _quantile(self, prob)
 
     def sort(self, by, ascending: bool = True) -> "Frame":
@@ -656,6 +745,7 @@ class Frame:
         package's ``np.lexsort`` permutation — stable, NA rows last in
         either direction, descending by negated keys — as one stable
         device sort per key from the last key to the first."""
+        _local_only(self.sharded, "sort")
         keys = [by] if isinstance(by, str) else list(by)
         perm = torch.arange(self.nrows, device=self.device)
         for k in reversed(keys):

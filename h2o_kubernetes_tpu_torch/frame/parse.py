@@ -876,11 +876,21 @@ def import_file(path: str | Sequence[str], sep: str | None = None,
     """h2o.import_file analog: parse CSV/Parquet/ORC/Avro/SVMLight/ARFF
     file(s) into a Frame on ``device`` (None = the CUDA card; raises
     without one unless ``device="cpu"``). The format is sniffed per file
-    set, like the reference's parser-provider guess."""
+    set, like the reference's parser-provider guess. On a row group
+    every rank parses the whole file on its host, then keeps its row
+    shard."""
+    from ..runtime.mesh import RowGroup, n_row_shards, use_mesh
+
     dev = resolve_device(device)
-    host = _import_host(path, sep, header, col_names, col_types,
-                        na_strings, skipped_columns)
-    out = host._to(dev)
+    with use_mesh(RowGroup()):          # the host frame is whole
+        host = _import_host(path, sep, header, col_names, col_types,
+                            na_strings, skipped_columns)
+    if n_row_shards() == 1:
+        out = host._to(dev)
+    else:
+        out = Frame({n: Vec.from_numpy(v.to_numpy(), n, domain=v.domain,
+                                       kind=v.kind, device=dev)
+                     for n, v in host._vecs.items()})
     out.csv_path = host.csv_path
     return out
 

@@ -8,12 +8,22 @@ Inputs may be numpy arrays or tensors; the metric runs on the device
 of ``score``/``pred`` when that is a tensor (the CPU otherwise) and
 returns a Python float. Rows with weight 0 are excluded, and a NaN on a
 live row makes the metric NaN rather than a plausible number.
+
+On a row group (``runtime/mesh.py``) the inputs are this rank's rows
+and every metric is the global one, the same on every rank: weighted
+sums are all-reduced, the AUC's score histogram is built on the local
+rows (the CUDA kernel on a card) and all-reduced after a global min and
+max fix its bins, and the exact AUC (65,536 rows or fewer in all)
+gathers the rows. NDCG stays on the host, single-process.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .runtime import mrtask
+from .runtime.mesh import global_mesh
 
 __all__ = ["roc_auc", "binomial_stats", "binomial_auc_and_stats",
            "confusion_matrix", "logloss", "multinomial_logloss",
@@ -26,6 +36,29 @@ _AUC_EXACT_MAX = 65536  # above this many rows the histogram path is used
 # float32 running sum over n rows drifts by up to ~n·2^-24 of the total
 # with the summation order
 _ACC = torch.float64
+
+
+def _grouped() -> bool:
+    return global_mesh().world_size > 1
+
+
+def _gsum(t: torch.Tensor) -> torch.Tensor:
+    """A sum over the row group (the identity alone)."""
+    return mrtask.allreduce(t, "sum", site="metrics")
+
+
+def _gmean(t: torch.Tensor) -> torch.Tensor:
+    """The float64 mean of ``t``'s rows over the row group (alone,
+    ``torch.mean``)."""
+    if not _grouped():
+        return torch.mean(t, dtype=_ACC)
+    n = torch.tensor(float(t.shape[0]), dtype=_ACC, device=t.device)
+    return _gsum(torch.sum(t, dtype=_ACC)) / _gsum(n)
+
+
+def _grows(n: int) -> int:
+    """The row count over the row group."""
+    return int(_gsum(torch.tensor(n))) if _grouped() else n
 
 
 def _vec(x, device) -> torch.Tensor:
@@ -49,11 +82,14 @@ def roc_auc(y_true, score, w=None, exact: bool | None = None) -> float:
     ``ops/histogram.build_histogram`` (the CUDA kernel on a card)."""
     y, s, wt = _inputs(y_true, score, w)
     if exact is None:
-        exact = y.shape[0] <= _AUC_EXACT_MAX
+        exact = _grows(y.shape[0]) <= _AUC_EXACT_MAX
     return float(_auc_exact(y, s, wt) if exact else _auc_hist(y, s, wt))
 
 
 def _auc_exact(y, s, wt):
+    if _grouped():
+        y, s, wt = (mrtask.gather_rows(a, site="metrics")
+                    for a in (y, s, wt))
     live = wt > 0
     bad = (live & (torch.isnan(y) | torch.isnan(s))).any()
     wt = torch.where(live, wt, 0.0)
@@ -77,16 +113,21 @@ def _score_hist(y, s, wt):
     """([NB, 2] (pos, neg) weight per score bin, smin, smax, bad): bad
     flags a NaN on a live row.
     NaN scores park at 0 with ``bad`` set; ±inf scores pin to the end
-    bins and do not set the bin scale."""
+    bins and do not set the bin scale. On a row group the flag, the
+    bounds and the histogram are the group's."""
     from .ops.histogram import build_histogram
 
     live = wt > 0
-    bad = (live & (torch.isnan(y) | torch.isnan(s))).any()
+    bad = mrtask.allreduce(
+        (live & (torch.isnan(y) | torch.isnan(s))).any(), "max",
+        site="metrics")
     y = torch.where(live, torch.nan_to_num(y), 0.0)
     sx = torch.where(live & ~torch.isnan(s), s, 0.0)
     fin = live & torch.isfinite(sx)
-    smin = torch.where(fin, sx, float("inf")).min()
-    smax = torch.where(fin, sx, float("-inf")).max()
+    smin = mrtask.allreduce(torch.where(fin, sx, float("inf")).min(),
+                            "min", site="metrics")
+    smax = mrtask.allreduce(torch.where(fin, sx, float("-inf")).max(),
+                            "max", site="metrics")
     scale = (_AUC_BINS - 1) / torch.clamp(smax - smin, min=1e-30)
     idx = ((sx - smin) * scale).clamp(0, _AUC_BINS - 1).to(torch.int32)
     idx = torch.where(sx == float("inf"), _AUC_BINS - 1, idx)
@@ -94,7 +135,7 @@ def _score_hist(y, s, wt):
     rel = torch.where(live, 0, -1).to(torch.int32)
     codes = idx.to(torch.int16)[None, :]                      # [1, rows]
     hist = build_histogram(codes, rel, y, 1.0 - y, wt, 1, _AUC_BINS)[0, 0]
-    return hist[:, :2], smin, smax, bad
+    return _gsum(hist[:, :2]), smin, smax, bad
 
 
 def _auc_hist(y, s, wt):
@@ -127,7 +168,7 @@ def binomial_auc_and_stats(y_true, p1) -> tuple[float, dict | None]:
     table is swept over, so a card launches the kernel once."""
     y, s, wt = _inputs(y_true, p1, None)
     sh = _score_hist(y, s, wt)
-    auc = _auc_exact(y, s, wt) if y.shape[0] <= _AUC_EXACT_MAX \
+    auc = _auc_exact(y, s, wt) if _grows(y.shape[0]) <= _AUC_EXACT_MAX \
         else _auc_of_hist(sh[0], sh[3])
     try:
         stats = _stats_of_hist(*sh)
@@ -195,7 +236,8 @@ def confusion_matrix(y_true, p1, threshold: float | None = None,
     ``threshold``, or at the F1-optimal one when None."""
     if threshold is None:
         return binomial_stats(y_true, p1, w=w)["confusion"]
-    y, p, wt = (a.cpu().numpy() for a in _inputs(y_true, p1, w))
+    y, p, wt = (mrtask.gather_rows(a, site="metrics").cpu().numpy()
+                for a in _inputs(y_true, p1, w))
     pred = p >= threshold
     pos = y > 0
     tp = float(wt[pred & pos].sum())
@@ -209,14 +251,13 @@ def logloss(y_true, p, eps: float = 1e-7, w=None) -> float:
     y, p, wt = _inputs(y_true, p, w)
     p = torch.clamp(p, eps, 1 - eps)
     if w is None:
-        return float(-torch.mean(y * torch.log(p) + (1 - y) * torch.log1p(-p),
-                                 dtype=_ACC))
+        return float(-_gmean(y * torch.log(p) + (1 - y) * torch.log1p(-p)))
     live = wt > 0
-    bad = (live & torch.isnan(y)).any()
+    bad = _gsum((live & torch.isnan(y)).any().to(torch.int32)) > 0
     y = torch.where(live, torch.nan_to_num(y), 0.0)
     ll = y * torch.log(p) + (1 - y) * torch.log1p(-p)
-    out = -torch.sum(wt * torch.where(live, ll, 0.0), dtype=_ACC) \
-        / torch.sum(wt, dtype=_ACC)
+    out = -_gsum(torch.sum(wt * torch.where(live, ll, 0.0), dtype=_ACC)) \
+        / _gsum(torch.sum(wt, dtype=_ACC))
     return float(torch.where(bad, float("nan"), out))
 
 
@@ -230,12 +271,12 @@ def multinomial_logloss(y_true, probs, eps: float = 1e-7, w=None
     p = torch.as_tensor(probs, dtype=torch.float32, device=dev)
     ll = torch.log(torch.clamp(p, eps, 1.0).gather(1, y[:, None])[:, 0])
     if w is None:
-        return float(-torch.mean(ll, dtype=_ACC))
+        return float(-_gmean(ll))
     wt = _vec(w, dev)
     live = wt > 0
-    bad = (live & torch.isnan(yraw)).any()
-    out = -torch.sum(wt * torch.where(live, ll, 0.0), dtype=_ACC) \
-        / torch.sum(wt, dtype=_ACC)
+    bad = _gsum((live & torch.isnan(yraw)).any().to(torch.int32)) > 0
+    out = -_gsum(torch.sum(wt * torch.where(live, ll, 0.0), dtype=_ACC)) \
+        / _gsum(torch.sum(wt, dtype=_ACC))
     return float(torch.where(bad, float("nan"), out))
 
 
@@ -243,30 +284,30 @@ def accuracy(y_true, label) -> float:
     """Share of rows whose label equals the response."""
     dev = label.device if isinstance(label, torch.Tensor) else "cpu"
     y, lab = _vec(y_true, dev), _vec(label, dev)
-    return float(torch.mean((y == lab).to(_ACC)))
+    return float(_gmean((y == lab).to(_ACC)))
 
 
 def rmse(y_true, pred, w=None) -> float:
     y, p, wt = _inputs(y_true, pred, w)
     if w is None:
-        return float(torch.sqrt(torch.mean((y - p) ** 2, dtype=_ACC)))
+        return float(torch.sqrt(_gmean((y - p) ** 2)))
     live = wt > 0
-    bad = (live & torch.isnan(y - p)).any()
+    bad = _gsum((live & torch.isnan(y - p)).any().to(torch.int32)) > 0
     se = torch.where(live, torch.nan_to_num(y - p) ** 2, 0.0)
-    out = torch.sqrt(torch.sum(wt * se, dtype=_ACC)
-                     / torch.sum(wt, dtype=_ACC))
+    out = torch.sqrt(_gsum(torch.sum(wt * se, dtype=_ACC))
+                     / _gsum(torch.sum(wt, dtype=_ACC)))
     return float(torch.where(bad, float("nan"), out))
 
 
 def mae(y_true, pred) -> float:
     y, p, _ = _inputs(y_true, pred, None)
-    return float(torch.mean(torch.abs(y - p), dtype=_ACC))
+    return float(_gmean(torch.abs(y - p)))
 
 
 def r2(y_true, pred) -> float:
     y, p, _ = _inputs(y_true, pred, None)
-    ss_res = torch.sum((y - p) ** 2, dtype=_ACC)
-    ss_tot = torch.sum((y.double() - torch.mean(y, dtype=_ACC)) ** 2)
+    ss_res = _gsum(torch.sum((y - p) ** 2, dtype=_ACC))
+    ss_tot = _gsum(torch.sum((y.double() - _gmean(y)) ** 2))
     return float(1.0 - ss_res / ss_tot)
 
 
@@ -276,11 +317,11 @@ def mean_residual_deviance(y_true, pred, distribution: str = "gaussian"
     poisson, 2·mean(y·log(y/p) - (y - p)) with p clamped to 1e-10."""
     y, p, _ = _inputs(y_true, pred, None)
     if distribution == "gaussian":
-        return float(torch.mean((y - p) ** 2, dtype=_ACC))
+        return float(_gmean((y - p) ** 2))
     if distribution == "poisson":
         p = torch.clamp(p, min=1e-10)
         yl = torch.where(y > 0, y * torch.log(y / p), 0.0)
-        return float(2.0 * torch.mean(yl - (y - p), dtype=_ACC))
+        return float(2.0 * _gmean(yl - (y - p)))
     raise ValueError(distribution)
 
 

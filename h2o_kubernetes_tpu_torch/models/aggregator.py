@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..frame import Frame, Vec
+from ..runtime.mesh import single_process_only
 from .base import resolve_x
 from .datainfo import build_datainfo, design
 
@@ -130,6 +131,7 @@ class Aggregator:
               x: Sequence[str] | None = None,
               ignored_columns: Sequence[str] | None = None,
               y: str | None = None) -> AggregatorModel:
+        single_process_only("Aggregator")
         p = self.params
         if p.target_num_exemplars < 1:
             raise ValueError("target_num_exemplars must be >= 1")

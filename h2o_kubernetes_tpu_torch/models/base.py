@@ -58,6 +58,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..runtime import mrtask
+from ..runtime.mesh import single_process_only
+
 __all__ = ["Model", "TrainData", "resolve_xy", "resolve_x", "LearnerModel",
            "scorer_cache_stats", "model_scorer_counters",
            "evict_scorer_cache", "contrib_dispatch", "score_predictions"]
@@ -248,7 +251,7 @@ class TrainData:
     feature_names: list[str]
     y: torch.Tensor              # [rows] float32 (class id for enums)
     w: torch.Tensor              # [rows] float32 weights, 0 = dropped
-    nrows: int
+    nrows: int                   # the global count (rows: a shard's)
     nclasses: int                # 1 for regression
     response_domain: list[str] | None
     distribution: str
@@ -295,7 +298,8 @@ def resolve_xy(frame, y: str, x: Sequence[str] | None = None,
         raise ValueError(f"{distribution} needs a categorical response; "
                          f"'{y}' is numeric")
     y_arr = yv.as_float()
-    w = torch.ones_like(y_arr)
+    # a row shard's padding rows weigh 0
+    w = frame.valid_mask() if frame.sharded else torch.ones_like(y_arr)
     if weights_column:
         w = w * frame.vec(weights_column).as_float()
     w = torch.where(torch.isnan(y_arr), 0.0, w)
@@ -335,8 +339,10 @@ def resolve_x(frame, x: Sequence[str] | None = None,
     names = _feature_names(frame, x, set(ignored or []))
     fdoms = {n: list(frame.vec(n).domain) for n in names
              if frame.vec(n).is_enum()}
-    z = torch.zeros(frame.nrows, dtype=torch.float32, device=frame.device)
-    return TrainData(names, z, torch.ones_like(z), frame.nrows, 1, None,
+    z = torch.zeros(frame.local_rows, dtype=torch.float32,
+                    device=frame.device)
+    w = frame.valid_mask() if frame.sharded else torch.ones_like(z)
+    return TrainData(names, z, w, frame.nrows, 1, None,
                      "gaussian", fdoms)
 
 
@@ -881,12 +887,17 @@ class Model:
                                   self._offset_of(frame))
 
     def predict_raw(self, frame) -> np.ndarray:
-        """[n, K] class probabilities, or [n] regression predictions."""
-        return self._predict_device(frame).cpu().numpy()
+        """[n, K] class probabilities, or [n] regression predictions
+        (a row-sharded frame's gathered from every rank, padding
+        dropped)."""
+        out = self._predict_device(frame)
+        if frame.sharded:
+            out = mrtask.gather_rows(out)[: frame.nrows]
+        return out.cpu().numpy()
 
     def predict(self, frame):
         """H2O-style prediction frame: ``predict`` (+ per-class probs),
-        on the CPU."""
+        on the CPU (on a row group, sharded as ``frame`` is)."""
         return self._prediction_frame(self.predict_raw(frame))
 
     def _prediction_frame(self, out: np.ndarray):
@@ -927,6 +938,7 @@ class Model:
         Frame per column; ``plot`` is accepted and ignored."""
         from ..frame import Frame, Vec
 
+        single_process_only("partial_plot")
         if self.nclasses > 2:
             raise ValueError("partial_plot supports binomial and "
                              "regression models only")
@@ -984,6 +996,12 @@ class Model:
         from .. import metrics as M
 
         yv = frame.vec(y)
+        if self.nclasses == 2 and frame.sharded:
+            # this rank's rows: the metric reduces over the row group
+            p1 = self._predict_device(frame)[:, 1]
+            yl = yv.as_float().to(p1.device)          # enum NA -> NaN
+            ok = ~torch.isnan(yl)
+            return M.confusion_matrix(yl[ok], p1[ok], threshold=threshold)
         preds = self.predict_raw(frame)
         codes = yv.to_numpy()
         if self.nclasses == 2:
@@ -1072,13 +1090,14 @@ def score_predictions(nclasses: int, distribution: str | None,
     single-class holdout keeps the first three); multinomial logloss/
     accuracy/mean_per_class_error and the macro one-vs-rest auc;
     regression rmse/mae/r2/mean_residual_deviance (poisson's deviance
-    for poisson)."""
+    for poisson). On a row group the rows are this rank's and every
+    metric is the group's (``metrics``)."""
     from .. import metrics as M
 
     yt = y_true if isinstance(y_true, torch.Tensor) else \
         torch.as_tensor(np.asarray(y_true, dtype=np.float32))
     yt = yt.to(device=preds.device, dtype=torch.float32)
-    if yt.shape[0] == 0:
+    if M._grows(yt.shape[0]) == 0:
         raise ValueError("cannot score an empty holdout "
                          "(no rows with a valid response)")
     if nclasses == 2:
@@ -1094,10 +1113,12 @@ def score_predictions(nclasses: int, distribution: str | None,
     if nclasses > 2:
         lab = preds.argmax(dim=1)
         yc = yt.long()
-        present = [k for k in range(nclasses) if bool((yc == k).any())]
+        counts = M._gsum(torch.bincount(yc.clamp(0, nclasses - 1),
+                                        minlength=nclasses)[:nclasses])
+        present = [k for k in range(nclasses) if int(counts[k]) > 0]
         # mean per-class error: the mean of 1 - recall over the classes
         # present; auc: the macro one-vs-rest mean
-        errs = [float((lab[yc == k] != k).double().mean())
+        errs = [float(M._gmean((lab[yc == k] != k).double()))
                 for k in present]
         aucs = [M.roc_auc((yc == k).float(), preds[:, k])
                 for k in present]

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..frame import Frame
+from ..runtime.mesh import single_process_only
 from .base import LearnerModel, TrainData, resolve_x
 from .datainfo import DataInfo, build_datainfo, design
 
@@ -177,6 +178,7 @@ class CoxPH:
               x: Sequence[str] | None = None,
               ignored_columns: Sequence[str] | None = None,
               y: str | None = None) -> CoxPHModel:
+        single_process_only("CoxPH")
         p = self.params
         if not p.stop_column or not p.event_column:
             raise ValueError("CoxPH needs stop_column and event_column")

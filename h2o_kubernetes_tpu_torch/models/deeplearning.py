@@ -1,4 +1,5 @@
-"""DeepLearning — MLP classifier/regressor and autoencoder on one device.
+"""DeepLearning — MLP classifier/regressor and autoencoder on one device
+or on the rows of a row group.
 
 ``DeepLearning(...).train(y=..., training_frame=...)`` is the JAX
 package's entry point; it trains where the frame lives (the card by
@@ -15,16 +16,27 @@ inputs, the response and the weight.
 The random draws are the JAX package's, through the threefry twin
 (``runtime/prng.py``), in its order: ``key(seed)`` split once for the
 init (He-normal weights, zero biases, one split per layer), then per
-iteration one split, the row shard's ``fold_in`` (shard 0) and one key
-per step; per step one split into the minibatch rows (``randint``) and
+iteration one split, the row shard's ``fold_in`` (the rank) and one
+key per step; per step one split into the minibatch rows (``randint``) and
 the dropout keys (``bernoulli`` masks, one per masked layer). An
 iteration's draws are made before its steps, in batched twin calls over
 its step keys, in chunks, so the step loop itself makes no draw and no
 host sync.
 
-The reference averages the shards' weights after each iteration (its
-model-averaging allreduce); on one card that average is the identity,
-so there is none here, and multi-shard averaging is not ported.
+On a row group (``runtime/mesh.py``) every rank starts from the same
+network and takes an iteration's steps on its own rows, its minibatches
+drawn with the rank folded into the iteration key; an iteration takes
+``samples_per_iteration / (batch · ranks)`` steps per rank, as the JAX
+package's per-shard steps. Each step's gradient is summed over the
+ranks before the optimizer's update: that is what the JAX package
+computes, because under ``shard_map`` the cotangent of its replicated
+network is ``psum``-ed across the row shards (its ``jax.grad`` inside
+the scan), so its shards step in lock-step on the summed gradient.
+After each iteration the parameters and the optimizer's floating state
+(Adam's moments, SGD's momentum) are all-reduced and divided by the
+world size, the JAX package's model-averaging ``psum / n``; with the
+ranks in lock-step that average returns the same bits. Alone no
+collective runs.
 ``nfolds``/``fold_column`` cross-validate (``models/cv.py``); an
 autoencoder or a checkpoint continuation refuses them.
 """
@@ -38,7 +50,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..runtime import prng
+from ..runtime import mrtask, prng
+from ..runtime.mesh import global_mesh, single_process_only
 from .base import Model, TrainData, resolve_xy
 from .datainfo import DataInfo, build_datainfo, design, expand
 
@@ -149,16 +162,17 @@ def _dropout_plan(p: DeepLearningParams, n_layers: int) -> list:
 
 
 def iteration_draws(ki: torch.Tensor, steps: int, batch: int, rows: int,
-                    widths: Sequence[int], plan: Sequence, chunk: int):
+                    widths: Sequence[int], plan: Sequence, chunk: int,
+                    shard: int = 0):
     """The draws of one iteration, ``chunk`` steps at a time: yields
     (minibatch rows [c, batch] int64, per masked position the keep mask
     [c, batch, width] bool or None) for each chunk of its ``steps``
     step keys. ``widths`` are the masked positions' widths (the input,
     then each hidden layer), ``plan`` their drop ratios. The draws are
-    the reference's (``fold_in(ki, 0)``, one key per step, each split
-    into the rows' key and the dropout key; ``split(kdrop, n_layers +
-    1)``, one key per position)."""
-    ks = prng.split(prng.fold_in(ki, 0), steps)
+    the reference's (``fold_in(ki, shard)``, the row shard's index, one
+    key per step, each split into the rows' key and the dropout key;
+    ``split(kdrop, n_layers + 1)``, one key per position)."""
+    ks = prng.split(prng.fold_in(ki, shard), steps)
     dropout = any(r is not None for r in plan)
     for s0 in range(0, steps, chunk):
         kk = prng.split(ks[s0:s0 + chunk])         # [c, 2, 2]
@@ -291,13 +305,13 @@ class DeepLearningModel(Model):
             raise ValueError("anomaly() requires autoencoder=True")
         Xe = self._expanded(self._design_matrix(frame))
         rec = self.net(Xe)
-        return torch.mean((rec - Xe) ** 2, dim=1).cpu().numpy()
+        return _host_rows(frame, torch.mean((rec - Xe) ** 2, dim=1))
 
     @torch.no_grad()
     def deepfeatures(self, frame, layer: int) -> np.ndarray:
         """Hidden layer ``layer``'s activations (0-based)."""
         Xe = self._expanded(self._design_matrix(frame))
-        return self.net.hidden(Xe, layer).cpu().numpy()
+        return _host_rows(frame, self.net.hidden(Xe, layer))
 
     @property
     def _artifact_meta(self) -> dict:
@@ -355,6 +369,8 @@ class DeepLearning:
         if offset_column and p.autoencoder:
             raise ValueError(
                 "offset_column is not supported for autoencoders")
+        if self.cv_args.enabled:
+            single_process_only("cross-validation")
         if self.cv_args.fold_column:
             ignored_columns = list(ignored_columns or []) + \
                 [self.cv_args.fold_column]
@@ -419,11 +435,12 @@ class DeepLearning:
         else:
             net = _init_net(kinit, sizes, p.activation)
 
-        rows = Xe.shape[0]
+        g = global_mesh()
+        rows = Xe.shape[0]                  # this rank's (padded) rows
         batch = min(p.mini_batch_size, rows)
         samples_per_iter = p.train_samples_per_iteration \
             if p.train_samples_per_iteration > 0 else data.nrows
-        local_steps = max(1, samples_per_iter // batch)
+        local_steps = max(1, samples_per_iter // (batch * g.world_size))
         if ck is not None:
             prev_epochs = ck.params.epochs
             if p.epochs <= prev_epochs:
@@ -434,7 +451,8 @@ class DeepLearning:
             total_samples = (p.epochs - prev_epochs) * data.nrows
         else:
             total_samples = p.epochs * data.nrows
-        n_iters = max(1, int(round(total_samples / (local_steps * batch))))
+        n_iters = max(1, int(round(total_samples / (
+            local_steps * batch * g.world_size))))
         # one [rows, P + 2] table of inputs, response and weight, so a
         # step's minibatch is one gather (an autoencoder's response is
         # its input)
@@ -454,7 +472,7 @@ class DeepLearning:
         for _ in range(n_iters):
             key, ki = prng.split(key)
             for idx, masks in iteration_draws(ki, local_steps, batch, rows,
-                                              widths, plan, chunk):
+                                              widths, plan, chunk, g.rank):
                 for s in range(idx.shape[0]):
                     b = table.index_select(0, idx[s])
                     xb = b[:, :Pn]
@@ -466,9 +484,11 @@ class DeepLearning:
                                  b[:, Pn + 1], loss_kind, net, p.l1, p.l2)
                     opt.zero_grad(set_to_none=True)
                     loss.backward()
+                    if g.world_size > 1:
+                        _sum_grads(net)
                     opt.step()
-            # one row shard: the reference's average of the shards'
-            # weights (psum / n) is the identity here
+            if g.world_size > 1:
+                _average(net, opt, g.world_size)
 
         model = DeepLearningModel(data, p, dinfo, net, loss_kind)
         model.offset_column = offset_column
@@ -494,6 +514,44 @@ class DeepLearning:
              "weights_column": weights_column,
              "offset_column": offset_column},
             validation_frame)
+
+
+def _host_rows(frame, t: torch.Tensor) -> np.ndarray:
+    """Per-row results on the host: a row-sharded frame's gathered from
+    every rank, padding dropped."""
+    if frame.sharded:
+        t = mrtask.gather_rows(t)[: frame.nrows]
+    return t.cpu().numpy()
+
+
+@torch.no_grad()
+def _allreduce_(ts: list, site: str, n: int = 1) -> None:
+    """Each tensor of ``ts`` replaced in place by its sum over the row
+    group divided by ``n``, all in one collective."""
+    flat = mrtask.allreduce(torch.cat([t.reshape(-1) for t in ts]), "sum",
+                            site=site)
+    off = 0
+    for t in ts:
+        t.copy_((flat[off: off + t.numel()] / n).view_as(t))
+        off += t.numel()
+
+
+def _sum_grads(net: MLP) -> None:
+    """Every parameter's gradient summed over the row group (the JAX
+    package's shard_map transpose of its replicated network)."""
+    _allreduce_([q.grad for q in net.parameters()], "dl_grad")
+
+
+def _average(net: MLP, opt, n: int) -> None:
+    """The model-averaging all-reduce: every parameter and every
+    floating optimizer state tensor (not Adam's step count) replaced by
+    its sum over the row group divided by ``n``."""
+    ts = list(net.parameters())
+    for prm in net.parameters():
+        ts += [v for k, v in sorted(opt.state[prm].items())
+               if k != "step" and torch.is_tensor(v) and
+               v.is_floating_point()]
+    _allreduce_(ts, "dl_average", n)
 
 
 def _offset_has_na(frame, offset_column) -> bool:

@@ -12,7 +12,10 @@ Forest trees are independent, so the core grows them in groups of G
 (``core.drf_group_size``) through one batched histogram launch per
 level. Every draw comes from the tree's own threefry key, keyed by the
 JAX package's schedule: a seeded forest equals the JAX package's
-grown on a one-row-shard mesh, whatever G is. ``checkpoint=<forest>``
+grown on a mesh of as many row shards as the port has ranks (one
+process: one shard), whatever G is; on a row group the bootstrap folds
+in the rank, each rank draws its own rows, and the level histograms
+are all-reduced (``tree/core.py``). ``checkpoint=<forest>``
 grows a forest on to ``ntrees`` trees, walking the schedule from the
 checkpoint's tree count; an offset column is refused, as in the JAX
 package. Exclusive Feature Bundling (``H2O_TPU_EFB``) applies to forests

@@ -41,7 +41,8 @@ import torch
 
 from ..config import default_nbins, hist_bytes_budget
 from ..operator.registry import FlatTreeScorer
-from ..runtime import prng, xla_math
+from ..runtime import mrtask, prng, xla_math
+from ..runtime.mesh import n_row_shards, single_process_only
 from .base import TrainData, resolve_xy
 from .tree import efb as efb_mod
 from .tree.binning import BinSpec, fit_bins, fused_fit_bins
@@ -136,7 +137,8 @@ def _score_cadence(p: GBMParams) -> int:
 def _chunk_sizes(p: GBMParams, rows: int, F: int, K: int,
                  start_t: int = 0) -> list[int]:
     """Tree counts of the dispatches the JAX package's in-HBM loop
-    makes for this shape (its ``_chunk_sizes`` on one row shard), from
+    makes for this shape (its ``_chunk_sizes``; ``rows`` counts the
+    padded rows of every rank), from
     round ``start_t`` (a checkpoint's rounds) to ``ntrees``, stopping
     at ``score_every``'s boundaries: each chunk draws its own key, so
     the port walks the same schedule."""
@@ -216,35 +218,40 @@ def _init_margin(y, w, off, dist: str, K: int):
     the offset (3 Newton steps from logit(ȳ)), multinomial's log class
     priors ([K] init, [rows, K] margin), the log-link intercept MLEs
     (poisson/tweedie: e^b = Σwy / Σw·e^off; gamma: e^b = Σw·y·e^-off /
-    Σw), and otherwise the weighted mean of y - offset."""
-    w_sum = torch.sum(w)
+    Σw), and otherwise the weighted mean of y - offset. Every sum runs
+    over the row group."""
+    def gsum(t):
+        return mrtask.allreduce(torch.sum(t), "sum", site="init")
+
+    w_sum = gsum(w)
     if dist == "multinomial":
         cls = torch.where(w > 0, y, K).long()
-        cls_w = torch.zeros(K + 1, dtype=w.dtype, device=w.device
-                            ).index_add_(0, cls, w)[:K]
+        cls_w = mrtask.allreduce(torch.zeros(
+            K + 1, dtype=w.dtype, device=w.device).index_add_(0, cls, w)[:K],
+            "sum", site="init")
         # XLA's CPU log on the CPU: the priors' last bit decides f32
         # near-ties of round 0's zero-information nodes (every row one
         # gradient)
         init = xla_math.cpu_log(torch.clamp(cls_w / w_sum, min=1e-8))
         return init, init[None, :].expand(y.shape[0], K)
     if dist == "bernoulli":
-        p1 = torch.clamp(torch.sum(y * w) / w_sum, 1e-6, 1 - 1e-6)
+        p1 = torch.clamp(gsum(y * w) / w_sum, 1e-6, 1 - 1e-6)
         init = torch.log(p1 / (1 - p1))
         for _ in range(3):
             pr = torch.sigmoid(init + off)
-            num = torch.sum(w * (y - pr))
-            den = torch.clamp(torch.sum(w * pr * (1.0 - pr)), min=1e-10)
+            num = gsum(w * (y - pr))
+            den = torch.clamp(gsum(w * pr * (1.0 - pr)), min=1e-10)
             init = init + num / den
         return init, init + off
     if dist in ("poisson", "tweedie"):
-        den = torch.clamp(torch.sum(w * torch.exp(off)), min=1e-10)
-        init = torch.log(torch.clamp(torch.sum(y * w) / den, min=1e-8))
+        den = torch.clamp(gsum(w * torch.exp(off)), min=1e-10)
+        init = torch.log(torch.clamp(gsum(y * w) / den, min=1e-8))
         return init, init + off
     if dist == "gamma":
         init = torch.log(torch.clamp(
-            torch.sum(y * w * torch.exp(-off)) / w_sum, min=1e-8))
+            gsum(y * w * torch.exp(-off)) / w_sum, min=1e-8))
         return init, init + off
-    init = torch.sum((y - off) * w) / w_sum
+    init = gsum((y - off) * w) / w_sum
     return init, init + off
 
 
@@ -252,8 +259,9 @@ def _laplace_scale(y, w) -> tuple[float, float]:
     """(median, scale) of the live responses, on the host as the JAX
     package computes them: laplace fits in (y - median) / scale units,
     scale = 1.4826 · MAD, or the standard deviation where the MAD is 0
-    (zero-inflated data)."""
-    yv = y.cpu().numpy()[w.cpu().numpy() > 0]
+    (zero-inflated data). A row group gathers its ranks' rows first."""
+    yv = mrtask.gather_rows(y).cpu().numpy()[
+        mrtask.gather_rows(w).cpu().numpy() > 0]
     init = float(np.median(yv)) if len(yv) else 0.0
     mad = float(np.median(np.abs(yv - init))) if len(yv) else 1.0
     if mad * 1.4826 > 1e-8:
@@ -384,6 +392,7 @@ class GBMModel(FlatTreeScorer):
         root as an enum, ``Node_ID`` the dense-heap index."""
         from ..frame import Frame
 
+        single_process_only("predict_leaf_node_assignment")
         if type not in ("Node_ID", "Path"):
             raise ValueError("type must be 'Node_ID' or 'Path'")
         nodes = descend_trees(self.trees, self._binned_design(frame),
@@ -417,6 +426,7 @@ class GBMModel(FlatTreeScorer):
         from ..frame import Frame
         from .tree.shap import ensemble_shap
 
+        single_process_only("predict_contributions")
         reason = self.contrib_support()
         if reason:
             raise ValueError(reason)
@@ -500,6 +510,10 @@ class GBM:
         if self.cv_args.fold_column:
             ignored_columns = list(ignored_columns or []) + \
                 [self.cv_args.fold_column]
+        if p.checkpoint is not None:
+            single_process_only("a checkpoint continuation")
+        if self.cv_args.enabled:
+            single_process_only("cross-validation")
         data = resolve_xy(training_frame, y, x, ignored_columns,
                           weights_column, p.distribution, offset_column)
         dist = data.distribution
@@ -510,7 +524,8 @@ class GBM:
             raise ValueError("offset_column is not supported for "
                              f"{dist} GBM")
         if dist in _LOG_LINK_DISTS:
-            ymin = float(torch.where(data.w > 0, data.y, float("inf")).min())
+            ymin = float(mrtask.allreduce(torch.where(
+                data.w > 0, data.y, float("inf")).min(), "min"))
             if dist == "gamma" and ymin <= 0:
                 raise ValueError("gamma distribution needs a strictly "
                                  "positive response")
@@ -528,6 +543,8 @@ class GBM:
         # binning. Its per-round keys come from the seed outside the
         # round-key schedule, indexed by global round.
         bp = _make_boost_params(p, dist)
+        if bp.goss_b > 0:
+            single_process_only("GOSS")
         if bp.goss_b > 0 and p.sample_rate < 1.0:
             raise ValueError(
                 "H2O_TPU_GOSS replaces row subsampling — train with "
@@ -540,6 +557,8 @@ class GBM:
         bin_spec = efb_plan = efb = None
         F_eff = F
         if efb_mod.efb_eligible(F, ckpt):
+            single_process_only(f"EFB ({F} features; H2O_TPU_EFB=0 "
+                                "trains unbundled)")
             bin_spec, efb_plan = efb_mod.fit_plan_cached(
                 training_frame, data.feature_names, p.nbins)
             if efb_plan is not None:
@@ -559,6 +578,8 @@ class GBM:
                 "max_depth or nbins, drop features, or raise "
                 "H2O_TPU_HIST_BYTES_BUDGET if the device has room.")
         ooc_chunk = _ooc_chunk_rows(p, data, K, F_eff, need, budget, ckpt)
+        if ooc_chunk is not None:
+            single_process_only("out-of-core boosting")
         binned = None
         if ckpt is not None:
             # the checkpoint's bins, applied, so old and new trees compose
@@ -578,7 +599,9 @@ class GBM:
                                     p.nbins)
             if ooc_chunk is None:
                 binned = training_frame.binned(bin_spec)
-        rows = data.y.shape[0]
+        # the padded rows of every rank: the JAX package's dispatch
+        # schedule sizes its chunks by the global padded length
+        rows = data.y.shape[0] * n_row_shards()
         keys = _round_keys(p, rows, F_eff, K, dev, start_t) \
             if draws_random(tp, bp, F) else None
         n_new = p.ntrees - start_t

@@ -1,5 +1,5 @@
 """GLM — generalized linear models (IRLSM, L-BFGS, coordinate descent)
-on one device.
+on one device, or on the rows of a row group.
 
 ``GLM(family=..., solver=...).train(y=..., training_frame=...)`` is the
 JAX package's entry point; it trains where the frame lives (the card by
@@ -24,6 +24,13 @@ way. ``lambda_search`` fits a warm-started descending λ path;
 ``compute_p_values`` gives standard errors, z and p values from the
 inverse Fisher information (λ = 0, IRLSM only). ``nfolds``/
 ``fold_column`` cross-validate (``models/cv.py``).
+
+On a row group (``runtime/mesh.py``) each rank accumulates G, b and the
+deviance over its own rows and all-reduces them, as the JAX package
+psums them over its ROWS axis; the L-BFGS objective's value and
+gradient are all-reduced the same way. Every rank then solves the same
+[P, P] system. The JAX package's COLS axis (a feature-sharded Gram) is
+not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..runtime import mrtask
+from ..runtime.mesh import n_row_shards, single_process_only
 from .base import Model, TrainData, resolve_xy
 from .datainfo import DataInfo, build_datainfo, design, expand
 
@@ -194,9 +203,11 @@ def _irls_weights(fam: FamSpec, eta, mu, y):
 
 def _gram_task(Xe, wk, z, w):
     """(G = XeᵀWXe [P, P], b = XeᵀWz [P]), W = wk·w: one product,
-    Xeᵀ(W·[Xe | z])."""
+    Xeᵀ(W·[Xe | z]), on this rank's rows, then one all-reduce over the
+    row group (the JAX package's ``psum`` of G and b)."""
     P = Xe.shape[1]
     Gb = Xe.T @ ((wk * w)[:, None] * torch.cat([Xe, z[:, None]], dim=1))
+    Gb = mrtask.allreduce(Gb, "sum", site="gram")
     return Gb[:, :P], Gb[:, P]
 
 
@@ -211,10 +222,15 @@ def _softmax_irls_task(Xe, B, y, k: int):
     return wk, eta[:, k] + (yk - pk) / wk
 
 
-def _eta_dev_task(Xe, beta, y, w, off, fam: FamSpec):
-    """(Σ w·deviance, the linear predictor Xe·β + offset)."""
+def _eta_dev_task(Xe, beta, y, w, off, fam: FamSpec, reduce: bool = True):
+    """(Σ w·deviance over the row group — this rank's alone with
+    ``reduce=False`` — and this rank's linear predictor Xe·β +
+    offset)."""
     eta = Xe @ beta + off
-    return _family_deviance(fam, y, _linkinv(fam, eta), w), eta
+    dev = _family_deviance(fam, y, _linkinv(fam, eta), w)
+    if reduce:
+        dev = mrtask.allreduce(dev, "sum", site="deviance")
+    return dev, eta
 
 
 def _pen_mask(P: int, device) -> torch.Tensor:
@@ -285,12 +301,20 @@ def _solve_gram(G, b, beta0, lam_l1: float, lam_l2: float, solver: str):
 # -- L-BFGS ------------------------------------------------------------------
 
 def _value_grad(obj, x):
-    """(obj(x) as a float, ∇obj(x)) by ``torch.autograd``."""
+    """(obj(x) as a float, ∇obj(x)) by ``torch.autograd``. On a row
+    group ``obj`` is this rank's share of the objective (its rows'
+    term plus its 1/n of the penalty) and the value and gradient are
+    all-reduced together (the JAX package's ``psum`` of them)."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         v = obj(x)
         (g,) = torch.autograd.grad(v, x)
-    return float(v.detach()), g.detach()
+    v, g = v.detach(), g.detach()
+    if n_row_shards() > 1:
+        vg = mrtask.allreduce(torch.cat([v.reshape(1).to(g.dtype), g]),
+                              "sum", site="lbfgs")
+        v, g = vg[0], vg[1:]
+    return float(v), g
 
 
 def _cubicmin(a, fa, ga, b, fb, c, fc):
@@ -554,13 +578,14 @@ class GLMModel(Model):
         mu = _linkinv(fam, eta)
         wk, _ = _irls_weights(fam, eta, mu, data.y)
         G, _ = _gram_task(Xe, wk, torch.zeros_like(eta), data.w)
-        n = float(torch.sum(data.w))
+        n = float(mrtask.allreduce(torch.sum(data.w), "sum"))
         Pn = G.shape[0]
         if fam.family in ("gaussian", "gamma", "tweedie"):
             # the dispersion's moment estimate (Pearson X²/(n - P))
             V = _variance_fn(fam, mu)
-            pearson = float(torch.sum(
-                data.w * (data.y - mu) ** 2 / torch.clamp(V, min=1e-10)))
+            pearson = float(mrtask.allreduce(torch.sum(
+                data.w * (data.y - mu) ** 2 / torch.clamp(V, min=1e-10)),
+                "sum"))
             phi = pearson / max(n - Pn, 1.0)
         else:
             phi = 1.0
@@ -616,7 +641,7 @@ class GLM:
         p = self.params
         fam = _famspec(p)
         lam_l1, lam_l2 = lam * p.alpha, lam * (1 - p.alpha)
-        n_obs = torch.sum(data.w)
+        n_obs = mrtask.allreduce(torch.sum(data.w), "sum")
         off = _offset(data)
         beta = beta0
         dev0, eta = _eta_dev_task(Xe, beta, data.y, data.w, off, fam)
@@ -660,7 +685,9 @@ class GLM:
                 f"family='{p.family}' needs a numeric response; the "
                 "response is categorical")
         if p.family in ("gamma", "tweedie", "poisson", "negativebinomial"):
-            ymin = float(torch.min(data.y))
+            y = data.y if n_row_shards() == 1 else torch.where(
+                data.w > 0, data.y, float("inf"))    # not a shard's pad
+            ymin = float(mrtask.allreduce(torch.min(y), "min"))
             if p.family == "gamma" and ymin <= 0:
                 raise ValueError("gamma family needs a strictly positive "
                                  "response")
@@ -680,6 +707,8 @@ class GLM:
             # softmax-invariant: it would train the same model
             raise ValueError(
                 "offset_column is not supported for multinomial")
+        if self.cv_args.enabled:
+            single_process_only("cross-validation")
         if self.cv_args.fold_column:
             ignored_columns = list(ignored_columns or []) + \
                 [self.cv_args.fold_column]
@@ -732,10 +761,11 @@ class GLM:
         p = self.params
         Pn = dinfo.n_expanded
         dev = Xe.device
-        n_obs = float(torch.sum(data.w))
+        n_obs = float(mrtask.allreduce(torch.sum(data.w), "sum"))
         off = _offset(data)
         # the null model: intercept = link(ȳ)
-        ybar = float(torch.sum(data.y * data.w)) / n_obs
+        ybar = float(mrtask.allreduce(torch.sum(data.y * data.w),
+                                      "sum")) / n_obs
         if p.family == "binomial":
             ybar = min(max(ybar, 1e-7), 1 - 1e-7)
         elif fam.link in ("log", "inverse"):
@@ -756,8 +786,9 @@ class GLM:
             # λ_max: the smallest λ zeroing every coefficient, from the
             # null model's gradient
             mu0 = _linkinv(fam, Xe @ beta_null + off)
-            grad = torch.abs(Xe.T @ ((mu0 - data.y) * data.w)
-                             ).cpu().numpy() / n_obs
+            grad = torch.abs(mrtask.allreduce(
+                Xe.T @ ((mu0 - data.y) * data.w), "sum")
+                ).cpu().numpy() / n_obs
             lam_max = float(grad[:-1].max()) / max(p.alpha, 1e-3)
             lams = np.logspace(np.log10(lam_max),
                                np.log10(lam_max * p.lambda_min_ratio),
@@ -785,15 +816,17 @@ class GLM:
                    history=None):
         p = self.params
         fam = _famspec(p)
-        n_obs = torch.sum(data.w)
+        n_obs = mrtask.allreduce(torch.sum(data.w), "sum")
         lam_l1, lam_l2 = lam * p.alpha, lam * (1 - p.alpha)
         pen = _pen_mask(Xe.shape[1], Xe.device)
         off = _offset(data)
+        share = 1.0 / n_row_shards()     # this rank's part of the penalty
 
         def obj(beta):
-            dev = _eta_dev_task(Xe, beta, data.y, data.w, off, fam)[0]
-            return 0.5 * dev / n_obs + 0.5 * lam_l2 * torch.sum(
-                (pen * beta) ** 2) + lam_l1 * torch.sum(torch.abs(pen * beta))
+            dev = _eta_dev_task(Xe, beta, data.y, data.w, off, fam,
+                                reduce=False)[0]
+            return 0.5 * dev / n_obs + share * (0.5 * lam_l2 * torch.sum(
+                (pen * beta) ** 2) + lam_l1 * torch.sum(torch.abs(pen * beta)))
 
         def record(it, v):
             if history is not None:
@@ -813,21 +846,23 @@ class GLM:
         p = self.params
         K, Pn = data.nclasses, dinfo.n_expanded
         dev = Xe.device
-        n_obs = torch.sum(data.w)
+        n_obs = mrtask.allreduce(torch.sum(data.w), "sum")
         pen = _pen_mask(Pn, dev)[:, None]
         lam = p.lambda_ if p.lambda_ is not None else 0.0
         lam_l1, lam_l2 = lam * p.alpha, lam * (1 - p.alpha)
         yc = data.y.long()
         history: list[dict] = []
 
-        def dev_fn(B):
+        def dev_fn(B, reduce=True):
             logp = torch.log_softmax(Xe @ B, dim=1)
             ll = logp.gather(1, yc[:, None])[:, 0]
-            return -2.0 * torch.sum(data.w * ll)
+            d = -2.0 * torch.sum(data.w * ll)
+            return mrtask.allreduce(d, "sum", site="deviance") \
+                if reduce else d
 
         # the null model: the log class priors as intercepts
-        pri = torch.zeros(K + 1, device=dev).index_add_(
-            0, torch.where(data.w > 0, yc, K), data.w)[:K] / n_obs
+        pri = mrtask.allreduce(torch.zeros(K + 1, device=dev).index_add_(
+            0, torch.where(data.w > 0, yc, K), data.w)[:K], "sum") / n_obs
         B = torch.zeros((Pn, K), device=dev)
         B[Pn - 1] = torch.log(torch.clamp(pri, min=1e-8))
         null_dev = float(dev_fn(B))
@@ -849,10 +884,13 @@ class GLM:
                 prev = v
             dev_ = prev
         else:
+            share = 1.0 / n_row_shards()
+
             def obj(flat):
                 Bf = flat.reshape(Pn, K)
-                return 0.5 * dev_fn(Bf) / n_obs + 0.5 * lam_l2 * torch.sum(
-                    (pen * Bf) ** 2) + lam_l1 * torch.sum(torch.abs(pen * Bf))
+                return 0.5 * dev_fn(Bf, reduce=False) / n_obs + share * (
+                    0.5 * lam_l2 * torch.sum((pen * Bf) ** 2)
+                    + lam_l1 * torch.sum(torch.abs(pen * Bf)))
 
             def record(i, v):
                 history.append({"iteration": i, "lambda": lam,

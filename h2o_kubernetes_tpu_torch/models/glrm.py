@@ -22,6 +22,7 @@ import torch
 
 from ..frame import Frame
 from ..runtime import prng
+from ..runtime.mesh import single_process_only
 from .base import LearnerModel, TrainData, resolve_x
 from .datainfo import DataInfo, design
 from .pca import transformed_datainfo
@@ -155,6 +156,7 @@ class GLRM:
     def train(self, training_frame: Frame, x: Sequence[str] | None = None,
               ignored_columns: Sequence[str] | None = None,
               y: str | None = None) -> GLRMModel:
+        single_process_only("GLRM")
         p = self.params
         if p.loss != "quadratic":
             raise ValueError("only loss='quadratic' is implemented")

@@ -29,6 +29,7 @@ import torch
 
 from ..frame import Frame
 from ..runtime import prng, xla_math
+from ..runtime.mesh import single_process_only
 from .base import LearnerModel, TrainData, resolve_x
 from .datainfo import design
 
@@ -202,6 +203,7 @@ class IsolationForest:
               x: Sequence[str] | None = None,
               ignored_columns: Sequence[str] | None = None,
               y: str | None = None) -> IsolationForestModel:
+        single_process_only("IsolationForest")
         p = self.params
         ignored = list(ignored_columns or []) + ([y] if y else [])
         data = resolve_x(training_frame, x, ignored)

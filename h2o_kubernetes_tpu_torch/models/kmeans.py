@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..frame import Frame
+from ..runtime.mesh import single_process_only
 from .base import LearnerModel, TrainData, resolve_x
 from .datainfo import DataInfo, build_datainfo, design
 
@@ -187,6 +188,7 @@ class KMeans:
     def train(self, training_frame: Frame, x: Sequence[str] | None = None,
               ignored_columns: Sequence[str] | None = None,
               y: str | None = None) -> KMeansModel:
+        single_process_only("KMeans")
         p = self.params
         if p.k < 1:
             raise ValueError(f"k must be >= 1, got {p.k}")

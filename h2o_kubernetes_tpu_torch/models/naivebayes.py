@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..frame import Frame
+from ..runtime.mesh import single_process_only
 from .base import LearnerModel, TrainData, resolve_xy
 from .datainfo import design
 
@@ -147,6 +148,7 @@ class NaiveBayes:
               ignored_columns: Sequence[str] | None = None,
               weights_column: str | None = None,
               validation_frame: Frame | None = None) -> NaiveBayesModel:
+        single_process_only("NaiveBayes")
         p = self.params
         if self.cv_args.fold_column:
             ignored_columns = list(ignored_columns or []) + \

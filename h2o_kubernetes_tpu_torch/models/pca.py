@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..frame import Frame
+from ..runtime.mesh import single_process_only
 from .base import LearnerModel, TrainData, resolve_x
 from .datainfo import DataInfo, build_datainfo, design
 
@@ -116,6 +117,7 @@ class PCA:
     def train(self, training_frame: Frame, x: Sequence[str] | None = None,
               ignored_columns: Sequence[str] | None = None,
               y: str | None = None) -> PCAModel:
+        single_process_only("PCA")
         p = self.params
         ignored = list(ignored_columns or []) + ([y] if y else [])
         data = resolve_x(training_frame, x, ignored)

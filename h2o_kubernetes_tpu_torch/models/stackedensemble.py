@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..frame import Frame, Vec
+from ..runtime.mesh import single_process_only
 from .base import Model, resolve_xy
 
 __all__ = ["StackedEnsemble", "StackedEnsembleModel"]
@@ -97,6 +98,7 @@ class StackedEnsemble:
         self.metalearner_nfolds = metalearner_nfolds
 
     def train(self, y: str, training_frame: Frame) -> StackedEnsembleModel:
+        single_process_only("StackedEnsemble")
         models = self.base_models
         ref = models[0]
         fold_ref = None

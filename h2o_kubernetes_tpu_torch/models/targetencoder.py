@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..frame import Frame, Vec
+from ..runtime.mesh import single_process_only
 
 __all__ = ["TargetEncoder", "TargetEncoderModel", "TargetEncoderParams"]
 
@@ -179,6 +180,7 @@ class TargetEncoder:
 
     def train(self, y: str, training_frame: Frame,
               x: Sequence[str] | None = None) -> TargetEncoderModel:
+        single_process_only("TargetEncoder")
         p = self.params
         if p.data_leakage_handling == "k_fold" and not p.fold_column:
             raise ValueError("k_fold leakage handling needs fold_column")

@@ -14,6 +14,14 @@ Quantile edges match the JAX package bit for bit. Above
 ``randint(key(0x51BB), (65536,), 0, rows)``: the JAX package with
 ``jax.random``, the port with its threefry twin (``runtime/prng.py``),
 so the samples are the same rows.
+
+On a row group the sample is drawn over the global padded row ids (the
+JAX package draws over its padded length too), the same ids on every
+rank; each rank fills in the values of the ids it holds and one integer
+all-reduce of their bit patterns (every id has one owner, the others
+add 0) gives every rank the sample bit for bit, so the edges are the
+same on every rank and, where the row count divides evenly, the same as
+one process's. Below the sample size the ranks gather their columns.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ...runtime import prng
+from ...runtime import mrtask, prng
+from ...runtime.mesh import global_mesh
 from ...runtime.quantile import nanquantile
 
 __all__ = ["BinSpec", "fit_bins", "apply_bins", "bin_frame",
@@ -78,13 +87,27 @@ def _quantiles(sample: torch.Tensor, n_q: int) -> torch.Tensor:
 
 def _sampled_feature_matrix(num_cols: list[torch.Tensor]) -> torch.Tensor:
     """[Fn, min(n, S)]: the numeric columns, or a with-replacement row
-    sample of them past ``_QUANTILE_SAMPLE`` rows (the ONE draw site)."""
-    n = num_cols[0].shape[0]
+    sample of them past ``_QUANTILE_SAMPLE`` rows (the ONE draw site);
+    n counts the padded rows of every rank of the row group."""
+    g = global_mesh()
+    m = num_cols[0].shape[0]
+    n = m * g.world_size
     if n > _QUANTILE_SAMPLE:
         idx = prng.randint(prng.key(_SAMPLE_SEED, num_cols[0].device),
                            (_QUANTILE_SAMPLE,), 0, n)
-        num_cols = [c[idx] for c in num_cols]
-    return torch.stack(num_cols, dim=0)
+        if g.world_size == 1:
+            return torch.stack([c[idx] for c in num_cols], dim=0)
+        loc = idx - g.rank * m
+        mine = (loc >= 0) & (loc < m)
+        loc = loc.clamp(0, m - 1)
+        bits = torch.stack([c[loc] for c in num_cols], dim=0).view(
+            torch.int32)
+        bits = mrtask.allreduce(torch.where(mine, bits, 0), "sum", g,
+                                site="bins")
+        return bits.view(torch.float32)
+    if g.world_size == 1:
+        return torch.stack(num_cols, dim=0)
+    return mrtask.gather_rows(torch.stack(num_cols, dim=1), g, "bins").T
 
 
 def _classify_features(frame, feature_names: list[str], n_bins: int
@@ -149,11 +172,11 @@ def apply_bins(col: torch.Tensor, edges: torch.Tensor, is_enum: bool,
 
 
 def bin_frame(frame, bin_spec: BinSpec) -> torch.Tensor:
-    """[F, rows] uint8 codes, one column at a time (the largest float32
-    transient is one column)."""
+    """[F, rows] uint8 codes (a row shard's: its local rows), one column
+    at a time (the largest float32 transient is one column)."""
     names = bin_spec.names
     edges = bin_spec.edges_matrix()
-    out = torch.empty((len(names), frame.nrows), dtype=torch.uint8,
+    out = torch.empty((len(names), frame.local_rows), dtype=torch.uint8,
                       device=frame.device)
     for j, name in enumerate(names):
         out[j] = apply_bins(frame.vec(name).as_float(), edges[j],

@@ -37,11 +37,17 @@ the tree for the margin update. The chunked out-of-core path
 (``ooc.py``) picks the same rows.
 
 The JAX package sums each level's histograms over its row shards
-(``lax.psum``); the port sums on one device in another f32 order, so
-trees agree bitwise only where every sum is exact (dyadic gradients and
-weights; DRF's integer counts) and within f32 rounding elsewhere. Row
-sampling folds the shard index into its key: the port draws as shard 0
-of a one-shard mesh.
+(``lax.psum``); the port does the same on a row group
+(``runtime/mesh.py``): each rank builds its level's histograms on its
+own rows with the same kernels, then all-reduces them before the
+sibling subtraction (under unit hessian the two-channel payload,
+expanded after the reduce). Every rank then finds the same splits and
+grows the same trees. The sums run in another f32 order than the JAX
+package's, so trees agree bitwise only where every sum is exact
+(dyadic gradients and weights; DRF's integer counts) and within f32
+rounding elsewhere. Row sampling folds the rank into its row key, as
+the JAX package folds its shard index (one process is rank 0); huber's
+δ is the mean over ranks of each rank's quantile, as its ``pmean``.
 
 ``FlatTrees`` are the compact serving arrays a MOJO-v2 artifact
 carries (``flat_*``): per tree, the reachable nodes in BFS slot order,
@@ -58,7 +64,8 @@ import torch
 
 from ...config import hist_bytes_budget
 from ...ops.histogram import build_histogram, expand_unit_hess
-from ...runtime import prng, xla_math
+from ...runtime import mrtask, prng, xla_math
+from ...runtime.mesh import global_mesh
 from ...runtime.quantile import nanquantile
 
 __all__ = ["TreeParams", "Tree", "BoostParams", "grow_tree",
@@ -268,8 +275,11 @@ def row_orig_bins(binned, f, rows, efb=None):
 
 
 def _hist(binned, rel, g, h, w, n_nodes, n_bins, p: TreeParams):
+    """A level's histograms over this rank's rows, summed over the row
+    group (the JAX package's per-level ``psum``; none alone)."""
     hist = build_histogram(binned, rel, g, h, w, n_nodes, n_bins,
                            unit_hess=p.unit_hess)
+    hist = mrtask.allreduce(hist, "sum", site="hist")
     return expand_unit_hess(hist) if p.unit_hess else hist
 
 
@@ -460,17 +470,19 @@ def huber_delta(r, w, alpha: float):
     computes it, on ``r``'s device with no host sync: dead rows NaN,
     then ``runtime.quantile.nanquantile`` with XLA's contraction of this
     program, ``fma(hi, hw, lo * lw)``, rounded once. A 0-dim float32
-    tensor; NaN when no row is live."""
+    tensor; NaN when no row is live. On a row group, the mean over the
+    ranks of each rank's quantile (the JAX package's ``pmean``)."""
     absr = torch.where(w > 0, torch.abs(r), float("nan"))
     q = torch.tensor([np.float32(alpha)], device=r.device)
-    return nanquantile(absr, q, fused="hi")[0]
+    return mrtask.allreduce(nanquantile(absr, q, fused="hi")[0], "mean",
+                            site="huber")
 
 
 def _boost_grad_hess(bp: BoostParams, margin, y, w):
     """Per-round (g, h), with the distributions whose gradients need
     BoostParams state: quantile's τ and huber's per-round δ (the
     ``huber_alpha`` quantile of the current |residuals| over the rows
-    with weight, unsampled — the JAX package's on one row shard).
+    with weight, unsampled, averaged over the row group's ranks).
     The others delegate to ``_grad_hess``."""
     if bp.distribution == "quantile":
         a = bp.quantile_alpha
@@ -502,12 +514,13 @@ def _round_subkeys(keys, n: int):
 
 def _round_sampling(bp: BoostParams, w, F: int, k_row, k_col):
     """Row and column sampling of a round, per key: [T, 2] keys ->
-    (w_t [T, rows] or w itself, col_mask [T, F] or None). The JAX
-    package folds its row-shard index into the row key; the port is one
-    shard, index 0."""
+    (w_t [T, rows] or w itself, col_mask [T, F] or None). The row key
+    folds in the rank (the JAX package's row-shard index), so each rank
+    draws its own rows; the column mask is the same on every rank."""
     w_t = w
     if bp.sample_rate < 1.0:
-        keep = prng.uniform(prng.fold_in(k_row, 0), w.shape) \
+        keep = prng.uniform(prng.fold_in(k_row, global_mesh().rank),
+                            w.shape) \
             < bp.sample_rate
         w_t = w * keep
     col_mask = None

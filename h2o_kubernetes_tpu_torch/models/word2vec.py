@@ -24,8 +24,9 @@ one key of ``split(key, epochs)``, the row shard's ``fold_in`` (shard
 ``randint``, the offsets' ``randint``, the signs' ``bernoulli(0.5)``
 and, through ``fold_in(kn, 1)``, the negatives' ``uniform``. They are
 made before the steps, in batched twin calls over chunks of step keys.
-The reference averages the shards' tables after each epoch; on one card
-that average is the identity.
+The reference averages the shards' tables after each epoch; in one
+process that average is the identity, and on a row group Word2Vec
+raises (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..runtime import prng
+from ..runtime.mesh import single_process_only
 
 __all__ = ["Word2Vec", "Word2VecModel", "Word2VecParams", "build_vocab",
            "epoch_draws", "pairs"]
@@ -227,6 +229,7 @@ class Word2Vec:
     def train(self, training_frame) -> Word2VecModel:
         """Train on ``training_frame``'s device; returns the model (its
         embeddings on the host)."""
+        single_process_only("Word2Vec")
         p = self.params
         col = training_frame.vec(training_frame.names[0])
         if not col.is_enum():

@@ -38,6 +38,7 @@ import torch
 
 from .. import metrics as M
 from ..runtime import prng
+from ..runtime.mesh import single_process_only
 from .base import resolve_xy
 from .gbm import GBM, GBMModel, gbm_model_from_arrays
 from .tree.binning import fused_fit_bins
@@ -304,6 +305,7 @@ class XGBoost(GBM):
               group_column: str | None = None, **kw) -> XGBoostModel:
         """Train on ``training_frame``'s device. Ranking objectives need
         ``group_column``; a pointwise one ignores it as a feature."""
+        single_process_only("XGBoost")
         if self.params.distribution.startswith("rank:"):
             if group_column is None:
                 raise ValueError("ranking objectives need group_column")

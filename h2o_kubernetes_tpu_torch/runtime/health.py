@@ -5,7 +5,9 @@ error escapes a locking dispatch, ``healthy()`` flips false and
 ``require_healthy()`` raises ``ClusterHealthError`` until ``reset()``.
 The probe is one small reduction on the device, run under a deadline
 in a daemon thread, so a wedged card reports unhealthy instead of
-hanging the caller; ``start_heartbeat`` runs it every ``interval``
+hanging the caller; on a row group (``runtime/mesh.py``) it is one
+all-reduce of a scalar across the ranks, so a rank that died makes the
+survivors' probe fail (the transport breaks) or outlive its deadline; ``start_heartbeat`` runs it every ``interval``
 seconds on a background thread (``h2o-torch-heartbeat``) until
 ``stop_heartbeat``, which the drain path calls with ``join=True``.
 
@@ -46,16 +48,34 @@ class ClusterHealthError(RuntimeError):
 
 def _probe(device) -> float:
     """One heartbeat: sum a small tensor on the device and read it
-    back (the read-back synchronises, so a dead context surfaces)."""
+    back (the read-back synchronises, so a dead context surfaces); on
+    a row group, all-reduce that sum across the ranks (8 per rank)."""
+    import torch.distributed as dist
+
     from . import faults
+    from .mesh import global_mesh
 
     faults.fire("health.probe")   # rehearse hangs/errors without a card
-    return float(torch.ones(8, device=device).sum().item())
+    s = torch.ones(8, device=device).sum()
+    g = global_mesh()
+    if g.world_size > 1:
+        s = s.reshape(1).to("cpu" if g.backend == "gloo" else device)
+        dist.all_reduce(s, group=g.pg)
+    return float(s.sum().item())
 
 
-def heartbeat(device, timeout: float = 60.0) -> bool:
-    """Run one liveness probe under a deadline; update health."""
+def heartbeat(device=None, timeout: float = 60.0) -> bool:
+    """Run one liveness probe under a deadline; update health.
+    ``device``: the device probed (None: the row group's, else the
+    card)."""
     global _probe_thread
+    from .backend import resolve_device
+    from .mesh import global_mesh
+
+    g = global_mesh()
+    if device is None:
+        device = g.device if g.device is not None else resolve_device()
+    expect = 8.0 * g.world_size
     box: dict = {}
 
     def run():
@@ -79,8 +99,9 @@ def heartbeat(device, timeout: float = 60.0) -> bool:
         ok, err = False, f"heartbeat probe hung > {timeout}s"
     elif "exc" in box:
         ok, err = False, f"heartbeat probe failed: {box['exc']!r}"
-    elif box["val"] != 8.0:
-        ok, err = False, f"heartbeat probe read {box['val']!r}, not 8"
+    elif box["val"] != expect:
+        ok, err = False, (f"heartbeat probe read {box['val']!r}, not "
+                          f"{expect:g}")
     else:
         ok, err = True, ""
     with _lock:

@@ -54,7 +54,7 @@ def test_imports_without_jax():
         "models.naivebayes", "models.pca", "models.kmeans", "models.glrm",
         "models.coxph", "models.isolationforest", "models.aggregator",
         "runtime.telemetry", "runtime.health", "runtime.lifecycle",
-        "rest")} <= names
+        "runtime.mesh", "runtime.mrtask", "rest")} <= names
 
 
 def test_no_source_imports_jax_or_reference():

@@ -1,6 +1,6 @@
-"""Rehearse chip_smoke.py's phases 18-30 (xgboost, lambdarank, glm,
+"""Rehearse chip_smoke.py's phases 18-31 (xgboost, lambdarank, glm,
 efb, goss, ooc, deeplearning, word2vec, frame, automl, learners,
-serving_remainder) on the CPU, without a card, at small sizes: the entry
+serving_remainder, fleet, ranks) on the CPU, without a card, at small sizes: the entry
 points' default device resolves to
 the CPU, the histogram and TreeSHAP kernels are replaced by counting
 fakes over their plain versions (the histogram fake sums in float64 and
@@ -19,6 +19,8 @@ are the CPU's and say nothing of the card.
         [--learner-rows 200000 --learner-parity-rows 20000]
         [--sr-train-rows 20000 --sr-aml-rows 20000]
         [--storm-clients process|threads]
+        [--ranks-rows 100000 --ranks-dl-rows 20000]
+        [--ranks-b-rows 200000 --ranks-b-world 4]
 
 With ``--card`` it installs no fakes and runs the phases on the card at
 the given sizes (kernels built on first use): a short check of new
@@ -55,6 +57,15 @@ spans line says where the time went).
 fleet — a fake s3:// store, 3 shards and 3 direct pods as processes
 (``--device cpu`` here, the card with ``--card``), the router process,
 the five legs — at full size: 120 tenants, 10 s legs.
+``--phases ranks`` (phase 31) runs leg a's two rank processes as a gloo
+group of CPU ranks (``--card``: sharing the card) on ``--ranks-rows``
+bench and HIGGS rows and ``--ranks-dl-rows`` DeepLearning rows, and the
+one-rank trains beside them; on the CPU the ranks' kernels are the
+plain versions, so their launch counts are not checked; then leg b.
+``--phases ranks_b`` runs leg b alone: on the CPU ``--ranks-b-world``
+CPU ranks over gloo on ``--ranks-b-rows`` HIGGS rows against one rank;
+with ``--card`` one rank per card over NCCL on ``--ranks-b-rows`` rows
+(10,000,000 in chip_smoke.py), which needs two cards or more.
 """
 
 from __future__ import annotations
@@ -155,6 +166,10 @@ def main() -> int:
                     default="process",
                     help="where phase 29's storm clients run: a process "
                          "of their own, or threads beside the server")
+    ap.add_argument("--ranks-rows", type=int, default=100_000)
+    ap.add_argument("--ranks-dl-rows", type=int, default=20_000)
+    ap.add_argument("--ranks-b-rows", type=int, default=200_000)
+    ap.add_argument("--ranks-b-world", type=int, default=4)
     ap.add_argument("--card", action="store_true",
                     help="run on the card, with the real kernels")
     args = ap.parse_args()
@@ -201,6 +216,11 @@ def main() -> int:
         (lambda torch, fn: (fn(), (0, 0.0, 1.0))[1]))
     ctx.seed = 0
     ctx.fleet_device = None if args.card else "cpu"
+    ctx.rank_device = "cuda:0" if args.card else "cpu"
+    ctx.rank_rows = {"rows": args.ranks_rows, "drf_rows": args.ranks_rows,
+                     "dl_rows": args.ranks_dl_rows,
+                     "b_rows": args.ranks_b_rows}
+    ctx.rank_b_world = args.ranks_b_world
     ctx.frame_work = str(Path(__file__).resolve().parent.parent / "build"
                          / "frame")
     Path(ctx.frame_work).mkdir(parents=True, exist_ok=True)
